@@ -1,0 +1,126 @@
+// One batched-affine halving level with the inversion chunked inside the
+// level (total unified add/double, BLS12-381 Fq).
+//
+// Replaces crypto_tpu/ops/pallas/curve_kernels.py chunked_level_kernels_for
+// (call_prefix / call_down):
+//   prefix(x1, y1, m1, x2, y2, m2) -> (prefix, total, dbl, inf3)
+//   down(x1, y1, m1, x2, y2, m2, prefix, tinv, dbl) -> (x3, y3)
+// The TPU kernel ran Montgomery's trick over k = 8 sub-slices of 512 lanes
+// in a block; here thread t owns the K = 8 pairs t + j*T (T = M/K, so a
+// warp's loads stay contiguous), emits the running products prefix[j] =
+// d_0 * ... * d_j at those pairs and one total at t.  The caller inverts
+// only the (12, T) totals; down walks the K pairs back (dinv_j = t *
+// prefix_{j-1}, t *= d_j with d_j recomputed by the same denom_dbl_inf as
+// prefix, so the products match) and applies the unified formula.
+//
+// Bound on the H100: about 7 Montgomery muls and 13 coordinate reads and
+// writes per pair, near the balance point of the integer multiply rate and
+// the memory rate.  All values stay in registers; the cost is K-fold fewer
+// threads than pairs, so the level wants M well above the card's thread
+// count (the caller takes this path only for wide levels).
+#include "field.cuh"
+
+namespace {
+
+using ctt::FQ_LIMBS;
+constexpr int K = 8;
+constexpr int T = 128;
+
+__global__ void __launch_bounds__(T) prefix_kernel(
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const int* __restrict__ m1, const uint32_t* __restrict__ x2,
+    const uint32_t* __restrict__ y2, const int* __restrict__ m2,
+    uint32_t* __restrict__ prefix, uint32_t* __restrict__ total, int* __restrict__ dbl,
+    int* __restrict__ inf3, long long M, ctt::Fq m) {
+  const long long Tn = M / K;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tn) return;
+  uint32_t acc[FQ_LIMBS];
+#pragma unroll 1
+  for (int j = 0; j < K; ++j) {
+    long long i = t + j * Tn;
+    uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], D[FQ_LIMBS];
+    ctt::load<FQ_LIMBS>(X1, x1, M, i);
+    ctt::load<FQ_LIMBS>(Y1, y1, M, i);
+    ctt::load<FQ_LIMBS>(X2, x2, M, i);
+    ctt::load<FQ_LIMBS>(Y2, y2, M, i);
+    bool is_dbl, is_inf3;
+    ctt::denom_dbl_inf(D, is_dbl, is_inf3, X1, Y1, X2, Y2, m1[i] != 0, m2[i] != 0, m);
+    if (j == 0) {
+      ctt::copy<FQ_LIMBS>(acc, D);
+    } else {
+      ctt::mont_mul<FQ_LIMBS>(acc, acc, D, m);
+    }
+    ctt::store<FQ_LIMBS>(prefix, acc, M, i);
+    dbl[i] = is_dbl ? 1 : 0;
+    inf3[i] = is_inf3 ? 1 : 0;
+  }
+  ctt::store<FQ_LIMBS>(total, acc, Tn, t);
+}
+
+__global__ void __launch_bounds__(T) down_kernel(
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const int* __restrict__ m1, const uint32_t* __restrict__ x2,
+    const uint32_t* __restrict__ y2, const int* __restrict__ m2,
+    const uint32_t* __restrict__ prefix, const uint32_t* __restrict__ tinv,
+    const int* __restrict__ dbl, uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+    long long M, ctt::Fq m) {
+  const long long Tn = M / K;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tn) return;
+  uint32_t inv[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(inv, tinv, Tn, t);
+#pragma unroll 1
+  for (int j = K - 1; j >= 0; --j) {
+    long long i = t + j * Tn;
+    uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], DI[FQ_LIMBS];
+    ctt::load<FQ_LIMBS>(X1, x1, M, i);
+    ctt::load<FQ_LIMBS>(Y1, y1, M, i);
+    ctt::load<FQ_LIMBS>(X2, x2, M, i);
+    ctt::load<FQ_LIMBS>(Y2, y2, M, i);
+    bool i1 = m1[i] != 0, i2 = m2[i] != 0;
+    if (j > 0) {
+      uint32_t P[FQ_LIMBS], D[FQ_LIMBS];
+      ctt::load<FQ_LIMBS>(P, prefix, M, i - Tn);
+      ctt::mont_mul<FQ_LIMBS>(DI, inv, P, m);
+      bool is_dbl2, is_inf2;
+      ctt::denom_dbl_inf(D, is_dbl2, is_inf2, X1, Y1, X2, Y2, i1, i2, m);
+      ctt::mont_mul<FQ_LIMBS>(inv, inv, D, m);
+    } else {
+      ctt::copy<FQ_LIMBS>(DI, inv);
+    }
+    uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
+    ctt::unified_apply(X3, Y3, X1, Y1, X2, Y2, DI, dbl[i] != 0, i1, i2, m);
+    ctt::store<FQ_LIMBS>(x3, X3, M, i);
+    ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  }
+}
+
+}  // namespace
+
+extern "C" int crypto_chunked_prefix(const void* x1, const void* y1, const void* m1,
+                                     const void* x2, const void* y2, const void* m2,
+                                     void* prefix, void* total, void* dbl, void* inf3,
+                                     long long M, const void* p, unsigned int n0inv,
+                                     void* stream) {
+  if (M % K != 0) return (int)cudaErrorInvalidValue;
+  prefix_kernel<<<ctt::blocks_for(M / K, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const int*)m1, (const uint32_t*)x2,
+      (const uint32_t*)y2, (const int*)m2, (uint32_t*)prefix, (uint32_t*)total, (int*)dbl,
+      (int*)inf3, M, ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crypto_chunked_down(const void* x1, const void* y1, const void* m1,
+                                   const void* x2, const void* y2, const void* m2,
+                                   const void* prefix, const void* tinv, const void* dbl,
+                                   void* x3, void* y3, long long M, const void* p,
+                                   unsigned int n0inv, void* stream) {
+  if (M % K != 0) return (int)cudaErrorInvalidValue;
+  down_kernel<<<ctt::blocks_for(M / K, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const int*)m1, (const uint32_t*)x2,
+      (const uint32_t*)y2, (const int*)m2, (const uint32_t*)prefix,
+      (const uint32_t*)tinv, (const int*)dbl, (uint32_t*)x3, (uint32_t*)y3, M,
+      ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
+  return (int)cudaGetLastError();
+}

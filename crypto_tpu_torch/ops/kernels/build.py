@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+`crypto_tpu_torch/csrc/*.cu` are compiled by `nvcc` for `sm_90a` at first
+use into one shared library with a plain C interface under `build/` at the
+root of the checkout (listed in `.gitignore`), and loaded with `ctypes`.
+Each source compiles in its own `nvcc` process, all started together; the
+library's name carries a hash of the sources, so an edit rebuilds.  No
+PyTorch headers are included, which keeps a build to seconds.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("mont_mul.cu", "affine_level.cu", "chunked_level.cu")
+HEADERS = ("field.cuh",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_U32 = ctypes.c_uint32
+_INT = ctypes.c_int
+# C entry point -> argument types (pointers and the stream as void*)
+SIGNATURES = {
+    "crypto_mont_mul": [_P, _P, _P, _I64, _INT, _P, _U32, _P],
+    "crypto_affine_pre": [_P] * 9 + [_I64, _P, _U32, _P],
+    "crypto_affine_post": [_P] * 10 + [_I64, _P, _U32, _P],
+    "crypto_chunked_prefix": [_P] * 10 + [_I64, _P, _U32, _P],
+    "crypto_chunked_down": [_P] * 11 + [_I64, _P, _U32, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("crypto_tpu_torch: nvcc not found; the CUDA kernels "
+                       "are built on a machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(target: Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    objs, procs = [], []
+    # objects, log and library are named per process until the library is
+    # renamed into place, so concurrent builds of one checkout do not clash
+    pid = os.getpid()
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{target.stem}.{pid}.{Path(name).stem}.o"
+        objs.append(obj)
+        procs.append((name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    failed = []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+    log = "\n".join(logs)
+    (BUILD_DIR / f"{target.stem}.{pid}.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log[-6000:]}")
+    tmp = target.with_suffix(f".{pid}.tmp")
+    link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, target)
+    for obj in objs:
+        obj.unlink()
+    build_info.update(seconds=time.time() - t0, log=log)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            target = BUILD_DIR / f"libcrypto_tpu_torch_{_digest()}.so"
+            if not target.exists():
+                _build(target)
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            build_info.setdefault("seconds", 0.0)
+            build_info["path"] = str(target)
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")

@@ -1,0 +1,232 @@
+"""Batched-affine halving levels: CUDA kernels, wrappers and plain versions.
+
+Two TPU kernels of `crypto_tpu/ops/pallas/curve_kernels.py` on the safe
+(total-formula) MSM path, over BLS12-381 Fq:
+
+* `affine_level_pre` / `affine_level_post` replace `affine_kernels_for`
+  (`call_pre` / `call_post`), `csrc/affine_level.cu`:
+  pre(x1, y1, m1, x2, y2, m2) -> (d, dbl, inf3), with d = 2*y1 when
+  doubling else x2 - x1, and a plain limb-0 1 in dead lanes;
+  post(x1, y1, x2, y2, dinv, dbl, m1, m2) -> (x3, y3), the unified affine
+  add/double given the inverted denominators.
+* `chunked_level_prefix` / `chunked_level_down` replace
+  `chunked_level_kernels_for` (`call_prefix` / `call_down`),
+  `csrc/chunked_level.cu`: Montgomery's trick over the K = 8 pairs
+  t + j*(M/K) that thread t owns; only the (12, M/K) totals go through
+  `batch_inv_t`, and down walks back, recomputing each d with the same
+  denominator logic as prefix.
+
+Coordinates are (12, M) limb-major int32 tensors (see `fields/tfield.py`),
+masks (M,) int32, nonzero meaning infinity (m1, m2, inf3) or doubling
+(dbl).  What bounds each kernel on the H100 and what the design does about
+it is noted in its source file.  Each wrapper launches its kernel for CUDA
+tensors (and counts the launch), takes the plain version for CPU tensors,
+and raises otherwise; the plain versions compute the same canonical
+values, so the two agree bit for bit on live lanes and flags (and on dead
+lanes too, since both fill them the same way).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import check, load_library
+from .field_kernels import (check_limbs, check_masks, mont_mul_plain, on_card,
+                            stream_of)
+
+CHUNK_K = 8        # pairs each thread of the chunked level owns
+FQ_LIMBS = 12
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the kernels' arithmetic, in tensor ops)
+# ---------------------------------------------------------------------------
+
+def _denom_dbl_inf(F, x1, y1, x2, y2, i1, i2):
+    """(d, is_dbl, is_inf3) of the unified add/double; limb-0 1 where the
+    lane is dead (an infinite operand, P + (-P), or d == 0)."""
+    same_x = F.eq(x1, x2)
+    y_opp = F.eq(y1, F.neg(y2))
+    both = ~i1 & ~i2
+    is_dbl = same_x & ~y_opp & both
+    is_inf3 = (same_x & y_opp & both) | (i1 & i2)
+    dead = ~both | is_inf3
+    d = F.select(is_dbl, F.double(y1), F.sub(x2, x1))
+    one = torch.zeros_like(d)
+    one[0] = 1
+    return F.select(dead | F.is_zero(d), one, d), is_dbl, is_inf3
+
+
+def _unified_apply(F, x1, y1, x2, y2, dinv, is_dbl, i1, i2):
+    def mul(a, b):
+        return mont_mul_plain(a, b, F.mod)
+
+    x1sq = mul(x1, x1)
+    num = F.select(is_dbl, F.add(F.double(x1sq), x1sq), F.sub(y2, y1))
+    lam = mul(num, dinv)
+    x3 = F.sub(F.sub(mul(lam, lam), x1), x2)
+    y3 = F.sub(mul(lam, F.sub(x1, x3)), y1)
+    x3 = F.select(i1, x2, F.select(i2, x1, x3))
+    y3 = F.select(i1, y2, F.select(i2, y1, y3))
+    return x3, y3
+
+
+def affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2):
+    d, is_dbl, is_inf3 = _denom_dbl_inf(F, x1, y1, x2, y2, m1 != 0, m2 != 0)
+    return d, is_dbl.to(torch.int32), is_inf3.to(torch.int32)
+
+
+def affine_level_post_plain(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
+    return _unified_apply(F, x1, y1, x2, y2, dinv, dbl != 0, m1 != 0, m2 != 0)
+
+
+def chunked_level_prefix_plain(F, x1, y1, m1, x2, y2, m2):
+    M = x1.shape[1]
+    T = M // CHUNK_K
+    prefix = torch.empty_like(x1)
+    dbl = torch.empty_like(m1)
+    inf3 = torch.empty_like(m1)
+    acc = None
+    for j in range(CHUNK_K):
+        sl = slice(j * T, (j + 1) * T)
+        d, is_dbl, is_inf3 = _denom_dbl_inf(
+            F, x1[:, sl], y1[:, sl], x2[:, sl], y2[:, sl], m1[sl] != 0,
+            m2[sl] != 0)
+        acc = d if acc is None else mont_mul_plain(acc, d, F.mod)
+        prefix[:, sl] = acc
+        dbl[sl] = is_dbl.to(torch.int32)
+        inf3[sl] = is_inf3.to(torch.int32)
+    return prefix, acc.contiguous(), dbl, inf3
+
+
+def chunked_level_down_plain(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
+    M = x1.shape[1]
+    T = M // CHUNK_K
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    t = tinv
+    for j in range(CHUNK_K - 1, -1, -1):
+        sl = slice(j * T, (j + 1) * T)
+        X1, Y1, X2, Y2 = x1[:, sl], y1[:, sl], x2[:, sl], y2[:, sl]
+        i1, i2 = m1[sl] != 0, m2[sl] != 0
+        if j > 0:
+            dinv = mont_mul_plain(t, prefix[:, (j - 1) * T:j * T], F.mod)
+            d, _, _ = _denom_dbl_inf(F, X1, Y1, X2, Y2, i1, i2)
+            t = mont_mul_plain(t, d, F.mod)
+        else:
+            dinv = t
+        x3[:, sl], y3[:, sl] = _unified_apply(F, X1, Y1, X2, Y2, dinv,
+                                              dbl[sl] != 0, i1, i2)
+    return x3, y3
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, F, coords, masks):
+    if F.L != FQ_LIMBS:
+        raise ValueError(f"{name}: the level kernels take BLS12-381 Fq "
+                         f"({FQ_LIMBS} limbs), got {F.L}")
+    M = check_limbs(name, F.L, *coords)
+    check_masks(name, M, coords[0].device, *masks)
+    return M
+
+
+def _ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _c_args(F, M, device):
+    """The trailing C arguments: M, the modulus, -p^-1, the stream."""
+    return [M, ctypes.addressof(F.mod.p_c), F.mod.n0inv, stream_of(device)]
+
+
+def affine_level_pre(F, x1, y1, m1, x2, y2, m2):
+    """Level denominators and case masks: (d, dbl, inf3)."""
+    M = _check("affine_level_pre", F, (x1, y1, x2, y2), (m1, m2))
+    if not on_card("affine_level_pre", x1.device):
+        return affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2)
+    d = torch.empty_like(x1)
+    dbl = torch.empty_like(m1)
+    inf3 = torch.empty_like(m1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_affine_pre(*_ptrs(x1, y1, m1, x2, y2, m2, d, dbl,
+                                           inf3), *_c_args(F, M, x1.device)),
+              "affine_level_pre")
+        affine_level_pre.launches += 1
+    return d, dbl, inf3
+
+
+def affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
+    """The unified add/double given dinv: (x3, y3)."""
+    M = _check("affine_level_post", F, (x1, y1, x2, y2, dinv), (dbl, m1, m2))
+    if not on_card("affine_level_post", x1.device):
+        return affine_level_post_plain(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_affine_post(*_ptrs(x1, y1, x2, y2, dinv, dbl, m1,
+                                            m2, x3, y3),
+                                     *_c_args(F, M, x1.device)),
+              "affine_level_post")
+        affine_level_post.launches += 1
+    return x3, y3
+
+
+def chunked_level_prefix(F, x1, y1, m1, x2, y2, m2):
+    """(prefix (12, M), total (12, M/K), dbl, inf3); M a multiple of K."""
+    M = _check("chunked_level_prefix", F, (x1, y1, x2, y2), (m1, m2))
+    if M % CHUNK_K:
+        raise ValueError(f"chunked_level_prefix: M={M} is not a multiple "
+                         f"of {CHUNK_K}")
+    if not on_card("chunked_level_prefix", x1.device):
+        return chunked_level_prefix_plain(F, x1, y1, m1, x2, y2, m2)
+    prefix = torch.empty_like(x1)
+    total = torch.empty((F.L, M // CHUNK_K), dtype=torch.int32,
+                        device=x1.device)
+    dbl = torch.empty_like(m1)
+    inf3 = torch.empty_like(m1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_chunked_prefix(*_ptrs(x1, y1, m1, x2, y2, m2,
+                                               prefix, total, dbl, inf3),
+                                        *_c_args(F, M, x1.device)),
+              "chunked_level_prefix")
+        chunked_level_prefix.launches += 1
+    return prefix, total, dbl, inf3
+
+
+def chunked_level_down(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
+    """(x3, y3) from the inverted chunk totals."""
+    M = _check("chunked_level_down", F, (x1, y1, x2, y2, prefix),
+               (m1, m2, dbl))
+    if M % CHUNK_K:
+        raise ValueError(f"chunked_level_down: M={M} is not a multiple "
+                         f"of {CHUNK_K}")
+    check_limbs("chunked_level_down", F.L, tinv)
+    if tinv.shape[1] != M // CHUNK_K or tinv.device != x1.device:
+        raise ValueError("chunked_level_down: tinv must be (12, M/K) on the "
+                         "coordinates' device")
+    if not on_card("chunked_level_down", x1.device):
+        return chunked_level_down_plain(F, x1, y1, m1, x2, y2, m2, prefix,
+                                        tinv, dbl)
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_chunked_down(*_ptrs(x1, y1, m1, x2, y2, m2, prefix,
+                                             tinv, dbl, x3, y3),
+                                      *_c_args(F, M, x1.device)),
+              "chunked_level_down")
+        chunked_level_down.launches += 1
+    return x3, y3
+
+
+for _fn in (affine_level_pre, affine_level_post, chunked_level_prefix,
+            chunked_level_down):
+    _fn.launches = 0

@@ -1,0 +1,629 @@
+"""Device-scheduled Pippenger MSM with batched-affine bucket reduction.
+
+Counterpart of `crypto_tpu/ops/msm_v2.py` `msm_device_scheduled` in its
+safe-formula configuration (the reference's `CRYPTO_TPU_SAFE_AFFINE`):
+the total unified add/double runs in every level, so the result is exact
+for every input (duplicate bases included) with no zero-denominator flag
+and no rerun.  The steps:
+
+1. signed c-bit window digits on the device (`device_digits`);
+2. a stable-argsort bucket plan per window, with the buckets sorted by
+   count and the per-rank occupancy profile (`_plan_windows_sorted`);
+3. staircase bands from the Poisson occupancy model (`_model_bands`),
+   checked against the pulled profile (`_bands_cover`) and rebuilt from it
+   when it escapes the model (`_build_bands`); occupancy above
+   `MAX_PROFILE_RANK` takes the grid of per-round pads instead;
+4. unified batched-affine halving levels across all bands
+   (`_bucket_sums_bands_unified`), each level one `pair_add_t`: the
+   chunked level kernels around `batch_inv_t` of the chunk totals for wide
+   levels, else pre -> `batch_inv_t` -> post;
+5. the Jacobian weighted tail (`tail_fn`), whose field muls run through
+   the mont_mul kernel;
+6. the window combine by Horner's rule on the host.
+
+Differences from the reference, all from the card's side of the design:
+
+* The count profile is pulled first and the bands decided before any
+  level runs (the reference dispatched optimistically to hide a TPU relay
+  round trip), so no level ever runs on bands that do not cover the
+  layout.  Every gather index is in range by construction.
+* All windows that share a band layout run in the same level calls: a
+  level's pair count is the windows' total, which fills the card and pays
+  each batch inversion's Fermat root once per level, not once per window.
+  The chunked level is taken from the reference's 4,096 pairs a call, so
+  every level of a 2^20 MSM is chunked and pre/post serves the narrow
+  levels of small MSMs; no threshold up to 2^24 timed measurably faster
+  at 2^20 (`sweep_chunk_threshold.py`).
+* x and the sign-applied y are gathered as two (12, slots) limb tensors;
+  the reference's packed 30-bit x|y payload was a TPU gather trick.
+* N is not padded to a power of two: the reference did so to share one
+  compiled XLA program per size class, and nothing here is compiled per
+  shape.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import math
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..curves.sw import Point, SWCurve
+from ..curves.tcurve import TCurve, TPoints, tcurve_for
+from .kernels import curve_kernels as ck
+
+logger = logging.getLogger("crypto_tpu_torch.msm")
+
+# count-profile resolution for the staircase bands; occupancies above this
+# take the grid of per-round pads (adversarially skewed digits)
+MAX_PROFILE_RANK = 256
+# tallest band / grid round, in ranks
+PAD_MAX = 64
+# a level call with at least this many pairs takes the chunked kernels
+CHUNK_MIN_PAIRS = 1 << 12
+# the chunked level pads its pair count to a multiple of this (K strips of
+# whole warps)
+CHUNK_PAD = ck.CHUNK_K * 32
+# slots laid out at once (windows x band slots); a layout above this runs
+# in pieces whose bucket sums are added, so adversarial occupancy (the
+# grid's many rounds) needs bounded memory
+SLOT_CAP = 1 << 25
+
+
+# ---------------------------------------------------------------------------
+# digits
+# ---------------------------------------------------------------------------
+
+def scalars_to_bytes(scalars: Sequence[int], nbytes: int) -> np.ndarray:
+    """(N, nbytes) uint8 little-endian (own copy of
+    `crypto_tpu/ops/pippenger.py` `scalars_to_bytes`)."""
+    buf = b"".join(int(s).to_bytes(nbytes, "little") for s in scalars)
+    return np.frombuffer(buf, dtype=np.uint8).reshape(len(scalars), nbytes)
+
+
+def device_digits(sbytes: torch.Tensor, c: int, nbits: int) -> torch.Tensor:
+    """(N, nbytes) uint8 LE bytes -> (W, N) int32 signed digits in
+    [-2^(c-1), 2^(c-1)], W = (nbits + c) // c."""
+    if c not in (8, 16):
+        raise ValueError("device digit extraction supports c in {8, 16}")
+    W = (nbits + c) // c
+    if sbytes.shape[1] < W * c // 8:
+        raise ValueError(f"need {W * c // 8} bytes per scalar, got "
+                         f"{sbytes.shape[1]}")
+    b = sbytes.to(torch.int32)
+    if c == 16:
+        raw = b[:, 0:2 * W:2] + (b[:, 1:2 * W:2] << 8)
+    else:
+        raw = b[:, :W]
+    half, full = 1 << (c - 1), 1 << c
+    outs = []
+    carry = torch.zeros(raw.shape[0], dtype=torch.int32, device=b.device)
+    for w in range(W):
+        d = raw[:, w] + carry
+        wrap = d > half
+        outs.append(torch.where(wrap, d - full, d))
+        carry = wrap.to(torch.int32)
+    return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# batch inversion
+# ---------------------------------------------------------------------------
+
+def batch_inv_t(F, v: torch.Tensor) -> torch.Tensor:
+    """Limb-major (L, n) nonzero -> elementwise inverses, via the
+    half-split product tree (3 muls an element, every one through the
+    mont_mul kernel) and one Fermat inversion at the root.  Odd widths are
+    padded with a plain 1 at each level of the tree."""
+    n = v.shape[1]
+    levels = []
+    cur = v
+    while cur.shape[1] > 1:
+        if cur.shape[1] % 2:
+            one = torch.zeros((cur.shape[0], 1), dtype=cur.dtype,
+                              device=cur.device)
+            one[0] = 1
+            cur = torch.cat([cur, one], dim=1)
+        levels.append(cur)
+        h = cur.shape[1] // 2
+        cur = F.mul(cur[:, :h], cur[:, h:])
+    inv = F.inv(cur)
+    for lev in reversed(levels):
+        h = lev.shape[1] // 2
+        inv = inv[:, :h]
+        inv = torch.cat([F.mul(inv, lev[:, h:]), F.mul(inv, lev[:, :h])],
+                        dim=1)
+    return inv[:, :n].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# bucket plan
+# ---------------------------------------------------------------------------
+
+def _layout_plan(digits: torch.Tensor, inf: torch.Tensor, B: int):
+    """Every window's bucket-sort plan: (order (W, N), starts (W, B),
+    counts (W, B)); bucket |d| - 1, zero digits and infinite points in
+    none."""
+    W = digits.shape[0]
+    absd = digits.abs()
+    live = (absd > 0) & ~inf[None, :]
+    keys = torch.where(live, absd - 1, B).to(torch.int32)
+    order = torch.argsort(keys, dim=1, stable=True)
+    sk = torch.gather(keys, 1, order)
+    ar = torch.arange(B + 1, dtype=torch.int32, device=digits.device)
+    bounds = torch.searchsorted(sk, ar.expand(W, B + 1).contiguous())
+    starts = bounds[:, :B]
+    return order, starts, bounds[:, 1:] - starts
+
+
+def _plan_windows_sorted(digits: torch.Tensor, inf: torch.Tensor, B: int):
+    """`_layout_plan` plus each window's count-descending bucket
+    permutation and occupancy profile: (order (W, N), starts_p (W, B),
+    counts_p (W, B), invperm (W, B), nprofile (W, MAX_PROFILE_RANK) with
+    nprofile[w, r] = #buckets with count > r, occs (W,))."""
+    W = digits.shape[0]
+    dev = digits.device
+    order, starts, counts = _layout_plan(digits, inf, B)
+    perm = torch.argsort(-counts, dim=1, stable=True)
+    counts_p = torch.gather(counts, 1, perm)
+    starts_p = torch.gather(starts, 1, perm)
+    arB = torch.arange(B, dtype=perm.dtype, device=dev).expand(W, B)
+    invperm = torch.empty_like(perm).scatter_(1, perm, arB)
+    ranks = torch.arange(MAX_PROFILE_RANK, dtype=counts.dtype, device=dev)
+    nprof = B - torch.searchsorted(
+        counts_p.flip(1).contiguous(),
+        ranks.expand(W, MAX_PROFILE_RANK).contiguous(), right=True)
+    return order, starts_p, counts_p, invperm, nprof, counts_p[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# staircase bands (host, numpy; copies of the reference's)
+# ---------------------------------------------------------------------------
+
+def _build_bands(nprof: np.ndarray, occ: int, B: int,
+                 max_h: int = 64, min_q: int = 4096) -> tuple:
+    """Greedy staircase: cover ranks [0, occ) with (Q, h, r0) bands where
+    Q = #buckets needing rank r0 rounded up to a multiple of B/16 (>= 32),
+    and h grows (pow2) until the profile drops below Q's step.  Once the
+    profile is narrower than `min_q`, one final band covers the rest."""
+    bands = []
+    r = 0
+    occ = int(occ)
+    q_step = max(32, B >> 4)
+    while r < occ:
+        n_r = int(nprof[r]) if r < len(nprof) else 1
+        n_r = max(n_r, 1)
+        Q = min(B, -(-n_r // q_step) * q_step)
+        if Q < min_q or Q * (occ - r) <= 2 * min_q:
+            h = 1 << max(0, (occ - r - 1).bit_length())
+            bands.append((Q, h, r))
+            break
+        h = 1
+        while r + h < occ and h < max_h:
+            nxt = int(nprof[min(r + h, len(nprof) - 1)])
+            if min(B, -(-max(nxt, 1) // q_step) * q_step) < Q:
+                break
+            h *= 2
+        bands.append((Q, h, r))
+        r += h
+    return tuple(bands)
+
+
+def _poisson_profile(n_keys: int, lam: float, B: int) -> tuple:
+    """(nprof, occ): expected #buckets with count > r for occupancy ~
+    Poisson(lam) over `n_keys` active buckets, with a +4-sigma + 8 margin,
+    capped at B; occ = first rank where the mean drops below 1e-4."""
+    R = MAX_PROFILE_RANK
+    nprof = np.zeros(R, dtype=np.int64)
+    occ = R
+    pmf = math.exp(-lam)
+    cdf = pmf
+    for r in range(R):
+        s = max(0.0, 1.0 - cdf)
+        mean = n_keys * s
+        n_r = mean + 4.0 * math.sqrt(mean + 1.0) + 8.0
+        nprof[r] = min(B, min(n_keys, int(math.ceil(n_r))))
+        if mean < 1e-4 and occ == R:
+            occ = r + 1
+            break
+        pmf *= lam / (r + 1)
+        cdf += pmf
+    return nprof, min(occ, R)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_bands(N: int, c: int, max_h: int = 64,
+                 top_keys: int | None = None) -> tuple:
+    """Staircase bands for uniform scalars from the Poisson occupancy
+    model: (bands, occ_model).  `top_keys` is the number of distinct
+    digit values in the top window (the modulus truncated: 0x73ee for
+    BLS12-381 Fr at c = 16); the profile is the elementwise max of the
+    body- and top-window profiles, so one band layout covers every
+    window."""
+    B = 1 << (c - 1)
+    nprof, occ_model = _poisson_profile(B, N / B, B)
+    if top_keys is not None and 0 < top_keys:
+        np_top, occ_top = _poisson_profile(min(top_keys, B),
+                                           N / min(top_keys, B), B)
+        nprof = np.maximum(nprof, np_top)
+        occ_model = max(occ_model, occ_top)
+    return _build_bands(nprof, occ_model, B, max_h=max_h), occ_model
+
+
+def _bands_cover(bands: tuple, nprof_actual: np.ndarray, occ: int) -> bool:
+    """True iff every (bucket, rank) slot the actual count profile needs is
+    inside some band: for all r < occ, Q_band(r) >= #buckets with count > r."""
+    height = sum(h for (_, h, _) in bands)
+    if occ > height:
+        return False
+    for (Q, h, r0) in bands:
+        hi = min(r0 + h, occ)
+        if r0 < hi and np.any(nprof_actual[r0:hi] > Q):
+            return False
+    return True
+
+
+def _grid_bands(occ: int, B: int) -> tuple:
+    """The grid of per-round pads as bands over all B buckets: one round
+    of pow2 height for occupancy <= PAD_MAX, else PAD_MAX rounds and a
+    shrinking last one."""
+    if occ <= PAD_MAX:
+        pads = (1 << (occ - 1).bit_length(),)
+    else:
+        nfull, rem = divmod(occ, PAD_MAX)
+        pads = (PAD_MAX,) * nfull
+        if rem:
+            pads += (1 << (rem - 1).bit_length(),)
+    return tuple((B, h, PAD_MAX * i) for i, h in enumerate(pads))
+
+
+@functools.lru_cache(maxsize=None)
+def _band_grids_np(bands: tuple):
+    bg = np.concatenate([np.tile(np.arange(Q, dtype=np.int64), h)
+                         for (Q, h, r0) in bands])
+    rk = np.concatenate([np.repeat(np.arange(h, dtype=np.int64), Q) + r0
+                         for (Q, h, r0) in bands])
+    return bg, rk
+
+
+def band_grids(bands: tuple, device) -> tuple:
+    """Concatenated (bucket, rank) index grids of a band layout, rank-major
+    within each band (slot = rank*Q + bucket)."""
+    bg, rk = _band_grids_np(bands)
+    return (torch.from_numpy(bg).to(device), torch.from_numpy(rk).to(device))
+
+
+# ---------------------------------------------------------------------------
+# levels
+# ---------------------------------------------------------------------------
+
+def _pieces(bands: tuple, Wb: int) -> list:
+    """Consecutive runs of bands of at most SLOT_CAP slots over Wb
+    windows (at least one band each)."""
+    out, cur, size = [], [], 0
+    for band in bands:
+        w = Wb * band[0] * band[1]
+        if cur and size + w > SLOT_CAP:
+            out.append(tuple(cur))
+            cur, size = [], 0
+        cur.append(band)
+        size += w
+    return out + [tuple(cur)]
+
+
+def _pad_cols(t: torch.Tensor, n: int, fill: int) -> torch.Tensor:
+    if n == 0:
+        return t
+    pad = torch.full(t.shape[:-1] + (n,), fill, dtype=t.dtype,
+                     device=t.device)
+    return torch.cat([t, pad], dim=-1)
+
+
+def pair_add_t(F, x1, y1, m1, x2, y2, m2, widths: list | None = None):
+    """One batched-affine level over M pairs, limb-major: (x3, y3, inf3).
+    The safe `_fused_ctx` dispatch: the chunked level kernels around the
+    inversion of the chunk totals from CHUNK_MIN_PAIRS pairs, else pre ->
+    batch inversion -> post.  M is appended to `widths` if one is given."""
+    M = x1.shape[1]
+    if widths is not None:
+        widths.append(M)
+    if M >= CHUNK_MIN_PAIRS:
+        pad = (-M) % CHUNK_PAD
+        x1, y1, x2, y2 = (_pad_cols(t, pad, 0) for t in (x1, y1, x2, y2))
+        m1, m2 = _pad_cols(m1, pad, 1), _pad_cols(m2, pad, 1)
+        prefix, total, dbl, inf3 = ck.chunked_level_prefix(F, x1, y1, m1,
+                                                           x2, y2, m2)
+        tinv = batch_inv_t(F, total)
+        x3, y3 = ck.chunked_level_down(F, x1, y1, m1, x2, y2, m2, prefix,
+                                       tinv, dbl)
+        return x3[:, :M], y3[:, :M], inf3[:M]
+    d, dbl, inf3 = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
+    dinv = batch_inv_t(F, d)
+    x3, y3 = ck.affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
+    return x3, y3, inf3
+
+
+def _level(F, lefts, rights, widths=None):
+    """pair_add_t over segment pairs, each segment (x (L, Wb, w), y, m
+    (Wb, w)); returns the sums split back by the left widths."""
+    L = F.L
+    Wb = lefts[0][2].shape[0]
+    cat_x = [torch.cat([s[k] for s in side], dim=2).reshape(L, -1)
+             for side in (lefts, rights) for k in (0, 1)]
+    cat_m = [torch.cat([s[2] for s in side], dim=1).reshape(-1)
+             for side in (lefts, rights)]
+    cx, cy, cm = pair_add_t(F, cat_x[0], cat_x[1], cat_m[0],
+                            cat_x[2], cat_x[3], cat_m[1], widths)
+    cx, cy, cm = cx.reshape(L, Wb, -1), cy.reshape(L, Wb, -1), \
+        cm.reshape(Wb, -1)
+    out, off = [], 0
+    for s in lefts:
+        w = s[2].shape[1]
+        out.append((cx[:, :, off:off + w], cy[:, :, off:off + w],
+                    cm[:, off:off + w]))
+        off += w
+    return out
+
+
+def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
+                               invperm, bands: tuple, B: int, widths=None):
+    """Bucket sums of Wb windows under one band layout: (x, y (L, Wb, B),
+    inf (Wb, B)) in natural bucket order.
+
+    One gather lays out every band's slots (rank-major, so halving a band
+    pairs equal buckets); then one `pair_add_t` per halving level across
+    all active bands, and a padded tree combine of the band results
+    (bands are prefix-nested, Q descending)."""
+    L = F.L
+    Wb, N = digits.shape
+    bg, rk = band_grids(bands, digits.device)
+    pos = starts_p[:, bg] + rk
+    valid = rk < counts_p[:, bg]
+    src = torch.gather(order, 1, torch.where(valid, pos, 0))
+    src = torch.where(valid, src, 0)
+    neg = torch.gather(digits, 1, src) < 0
+    ytab = torch.cat([y, F.neg(y)], dim=1)
+    flat = src.reshape(-1)
+    xs = x.index_select(1, flat).reshape(L, Wb, -1)
+    ys = ytab.index_select(1, (src + N * neg).reshape(-1)).reshape(L, Wb, -1)
+    ms = (~valid).to(torch.int32)
+    segs, off = [], 0
+    for (Q, h, _r0) in bands:
+        w = Q * h
+        segs.append([(xs[:, :, off:off + w], ys[:, :, off:off + w],
+                      ms[:, off:off + w]), Q])
+        off += w
+    while any(s[0][2].shape[1] > s[1] for s in segs):
+        active = [s for s in segs if s[0][2].shape[1] > s[1]]
+        lefts, rights = [], []
+        for s in active:
+            h = s[0][2].shape[1] // 2
+            lefts.append(tuple(t[..., :h] for t in s[0]))
+            rights.append(tuple(t[..., h:] for t in s[0]))
+        for s, r in zip(active, _level(F, lefts, rights, widths)):
+            s[0] = r
+
+    def pad_dead(seg, w):
+        p = w - seg[2].shape[1]
+        return (_pad_cols(seg[0], p, 0), _pad_cols(seg[1], p, 0),
+                _pad_cols(seg[2], p, 1))
+
+    finals = [s[0] for s in segs]
+    while len(finals) > 1:
+        lefts = finals[0:len(finals) - 1:2]
+        rights = [pad_dead(b, a[2].shape[1])
+                  for a, b in zip(lefts, finals[1::2])]
+        nxt = _level(F, lefts, rights, widths)
+        finals = nxt + ([finals[-1]] if len(finals) % 2 else [])
+    ax, ay, am = pad_dead(finals[0], B)
+    idx = invperm.unsqueeze(0).expand(L, Wb, B)
+    return (torch.gather(ax, 2, idx), torch.gather(ay, 2, idx),
+            torch.gather(am, 1, invperm) != 0)
+
+
+# ---------------------------------------------------------------------------
+# weighted tail
+# ---------------------------------------------------------------------------
+
+def _jac_reduce(tc: TCurve, P: TPoints, dim: int) -> TPoints:
+    """Tree-reduce a pow2-long batch axis (dim counts the limb axis)."""
+    n = P.X.shape[dim]
+    while n > 1:
+        half = n // 2
+        a = TPoints(*(t.narrow(dim, 0, half) for t in P))
+        b = TPoints(*(t.narrow(dim, half, half) for t in P))
+        P = tc.add(a, b)
+        n = half
+    return TPoints(*(t.squeeze(dim) for t in P))
+
+
+def tail_fn(tc: TCurve, c: int):
+    """Bucket sums (L, Wb, B) -> each window's point, via the two-axis
+    weighted reduction: bucket b = q*C + j has weight b + 1, so the sum is
+    C * sum_q q*S_q + sum_j (j+1)*T_j (S_q summing row q, T_j column j).
+    Jacobian coordinates and the total `TCurve.add`; runs every window of
+    the batch in the same ops."""
+    B = 1 << (c - 1)
+    F = tc.F
+
+    def weighted_sum_shift1(pts: TPoints, n: int) -> TPoints:
+        """sum_i (i+1) * P_i over the last axis, by bit-decomposition
+        masked tree sums and Horner doubling."""
+        nbits = n.bit_length()
+        idx = torch.arange(1, n + 1, device=F.device)
+        bitk = torch.arange(nbits, device=F.device)
+        masks = ((idx[None, :] >> bitk[:, None]) & 1) > 0      # (nbits, n)
+        Wb = pts.X.shape[1]
+        masks = masks[:, None, :].expand(nbits, Wb, n)
+        stacked = TPoints(*(t.unsqueeze(1).expand(-1, nbits, -1, -1)
+                            for t in pts))
+        p = tc.select(masks, stacked, tc.infinity((nbits, Wb, n)))
+        bitsums = _jac_reduce(tc, p, 3)                 # (L, nbits, Wb)
+        acc = TPoints(*(t[:, nbits - 1] for t in bitsums))
+        for bpos in range(nbits - 2, -1, -1):
+            acc = tc.double(acc)
+            acc = tc.add(acc, TPoints(*(t[:, bpos] for t in bitsums)))
+        return acc
+
+    def tail(px, py, pinf):
+        L, Wb = px.shape[0], px.shape[1]
+        logB = B.bit_length() - 1
+        logC = (logB + 1) // 2
+        C = 1 << logC
+        R = B // C
+        z = F.select(pinf, F.zeros(pinf.shape), F.ones(pinf.shape))
+        grid = TPoints(*(t.reshape(L, Wb, R, C) for t in (px, py, z)))
+        Sq = _jac_reduce(tc, grid, 3)               # over columns -> (Wb, R)
+        Tc = _jac_reduce(tc, grid, 2)               # over rows -> (Wb, C)
+        wq = weighted_sum_shift1(Sq, R)             # sum (q+1) S_q
+        tq = _jac_reduce(tc, Sq, 2)                 # sum S_q
+        qpart = tc.add(wq, tc.neg(tq))              # sum q S_q
+        for _ in range(logC):
+            qpart = tc.double(qpart)                # * C
+        cpart = weighted_sum_shift1(Tc, C)          # sum (j+1) T_j
+        out = tc.add(qpart, cpart)
+        aff = tc.to_affine(out)
+        return aff.X, aff.Y, aff.inf
+
+    return tail
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
+def _auto_c_v2(n: int) -> int:
+    return 16 if n >= (1 << 17) else 8
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def msm_device_scheduled(curve: SWCurve, points, scalars,
+                         c: int | None = None, nbits: int | None = None,
+                         pad: int | None = None, device="cuda",
+                         timings: dict | None = None) -> Point:
+    """sum_i scalars[i] * points[i] on the device; returns a host Point.
+
+    `points`: host Point list or `TPoints` with Z in {0, 1}.
+    `scalars`: int sequence, (N, nbytes) uint8 LE bytes (numpy or tensor),
+    or a (W, N) int32 digit tensor from `device_digits`.
+    `pad`: run the grid with this many ranks per bucket (at least the
+    largest bucket).  `timings`: if a dict, the seconds of each phase are
+    stored in it (the device is synchronised between phases), and the pair
+    count of every level call is appended to its list "level_pairs"."""
+    dev = resolve_device(device)
+    tc = tcurve_for(curve, dev)
+    F = tc.F
+    t0 = time.perf_counter()
+    widths = None if timings is None else timings.setdefault("level_pairs",
+                                                             [])
+    if nbits is None:
+        nbits = curve.scalar_field.bits
+    if not isinstance(points, TPoints):
+        points = tc.pack_points([p.normalize() for p in points])
+    points = TPoints(*(t.to(dev) for t in points))
+    N = points.X.shape[1]
+    if c is None:
+        c = _auto_c_v2(N)
+
+    if isinstance(scalars, torch.Tensor) and scalars.dim() == 2 \
+            and scalars.dtype == torch.int32:
+        digits = scalars.to(dev)
+    else:
+        if isinstance(scalars, (np.ndarray, torch.Tensor)) \
+                and scalars.dtype in (np.uint8, torch.uint8):
+            sbytes = torch.as_tensor(scalars)
+        else:
+            W_ = (nbits + c) // c
+            sbytes = torch.from_numpy(scalars_to_bytes(
+                [int(s) for s in scalars], (W_ * c + 7) // 8).copy())
+        digits = device_digits(sbytes.to(dev), c, nbits)
+    W = digits.shape[0]
+    if digits.shape[1] != N:
+        raise ValueError(f"{digits.shape[1]} scalars for {N} points")
+    inf_mask = tc.is_infinity(points)
+
+    B = 1 << (c - 1)
+    order, starts_p, counts_p, invperm, nprof_d, occs_d = \
+        _plan_windows_sorted(digits, inf_mask, B)
+    nprof = nprof_d.cpu().numpy()
+    occs = np.maximum(occs_d.cpu().numpy(), 1)
+    occ_a = int(occs.max())
+    if pad is not None:
+        if pad < occ_a:
+            raise ValueError(f"pad={pad} is below the largest bucket "
+                             f"({occ_a} points)")
+        groups = {_grid_bands(pad, B): list(range(W))}
+    elif occ_a > MAX_PROFILE_RANK:
+        groups = {}
+        for w in range(W):
+            groups.setdefault(_grid_bands(int(occs[w]), B), []).append(w)
+    else:
+        smax = min(1 << nbits, curve.scalar_field.p)
+        top_keys = (smax >> ((W - 1) * c)) + 1
+        bands, occ_model = _model_bands(N, c, max_h=PAD_MAX,
+                                        top_keys=top_keys)
+        nprof_a = nprof.max(axis=0)
+        if not (occ_a <= occ_model and _bands_cover(bands, nprof_a, occ_a)):
+            logger.warning("msm_v2: count profile outside the Poisson model, "
+                           "using exact bands: N=%d c=%d occ=%d (model %d)",
+                           N, c, occ_a, occ_model)
+            bands = _build_bands(nprof_a, occ_a, B, max_h=PAD_MAX)
+        groups = {bands: list(range(W))}
+    if timings is not None:
+        _sync(dev)
+        timings["digits_plan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    L = F.L
+    bx = torch.empty((L, W, B), dtype=torch.int32, device=dev)
+    by = torch.empty_like(bx)
+    binf = torch.empty((W, B), dtype=torch.bool, device=dev)
+    for bands, ws in groups.items():
+        wi = torch.tensor(ws, device=dev)
+        acc = None
+        for piece in _pieces(bands, len(ws)):
+            sx, sy, sinf = _bucket_sums_bands_unified(
+                F, digits[wi], points.X, points.Y, order[wi], starts_p[wi],
+                counts_p[wi], invperm[wi], piece, B, widths)
+            if acc is not None:
+                x3, y3, i3 = pair_add_t(
+                    F, acc[0].reshape(L, -1), acc[1].reshape(L, -1),
+                    acc[2].reshape(-1).to(torch.int32), sx.reshape(L, -1),
+                    sy.reshape(L, -1), sinf.reshape(-1).to(torch.int32),
+                    widths)
+                sx, sy = x3.reshape(sx.shape), y3.reshape(sy.shape)
+                sinf = i3.reshape(sinf.shape) != 0
+            acc = (sx, sy, sinf)
+        bx[:, wi], by[:, wi], binf[wi] = acc
+    if timings is not None:
+        _sync(dev)
+        timings["levels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    ox, oy, oinf = tail_fn(tc, c)(bx, by, binf)
+    hx = np.atleast_1d(F.unpack_host(ox))
+    hy = np.atleast_1d(F.unpack_host(oy))
+    hinf = oinf.cpu().numpy()
+    if timings is not None:
+        timings["tail"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    K = curve.K
+    acc = curve.infinity()
+    for w in range(W - 1, -1, -1):
+        for _ in range(c):
+            acc = acc.double()
+        if not bool(hinf[w]):
+            acc = acc + Point(hx[w], hy[w], K.one(), curve)
+    if timings is not None:
+        timings["host_combine"] = time.perf_counter() - t0
+    return acc

@@ -1,0 +1,96 @@
+"""The port stands alone: no module of crypto_tpu_torch (nor chip_smoke.py)
+imports JAX or the JAX package, and its entry points refuse to run on the
+CPU unless asked to.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import crypto_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(crypto_tpu_torch.__path__,
+                                               "crypto_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "crypto_tpu."))
+             or m == "crypto_tpu")
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("MODULES")[1].split()[0])
+    assert n >= 12
+
+
+def _msm():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.ops.msm_v2 import msm_device_scheduled
+    G = tb.G1.generator()
+    msm_device_scheduled(tb.G1, [G, G.double()], [1, 2])
+
+
+def _tcurve_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.curves.tcurve import tcurve_for
+    tcurve_for(tb.G1)
+
+
+def _tcurve():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.curves.tcurve import TCurve
+    TCurve(tb.G1)
+
+
+def _tfield_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.tfield import tfield_for
+    tfield_for(tb.Fr)
+
+
+def _tfield():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.tfield import TField
+    TField(tb.Fq)
+
+
+def _jax_to_port():
+    import numpy as np
+    from crypto_tpu_torch import convert
+    convert.jax_to_port(np.zeros((2, 17), np.int32), 97)
+
+
+@pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
+                                   _tfield, _jax_to_port],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_entry_point_raises_without_cuda(entry):
+    """Every entry point defaults to the card and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0
+    assert out.stdout == ""

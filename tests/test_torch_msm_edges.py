@@ -1,0 +1,91 @@
+"""The port's MSM on its edge paths, against the host: duplicate bases
+(the doubling case of the total formula, and a count profile outside the
+Poisson model), all-equal scalars (occupancy above MAX_PROFILE_RANK: the
+grid of per-round pads), the chunked level inside an MSM, and the `pad`
+argument.  CPU, small sizes.
+"""
+
+import logging
+import random
+
+import pytest
+
+from crypto_tpu_torch.curves import bls12_381 as tb
+from crypto_tpu_torch.ops import msm_v2 as tm
+from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+
+rng = random.Random(71)
+G = tb.G1.generator()
+
+
+def _points(n):
+    dlogs = [rng.randrange(1, tb.R) for _ in range(n)]
+    return [G.mul_raw(d) for d in dlogs], dlogs
+
+
+def test_duplicate_bases(caplog):
+    p0 = G.mul_raw(rng.randrange(1, tb.R))
+    with caplog.at_level(logging.WARNING, logger="crypto_tpu_torch.msm"):
+        got = tm.msm_device_scheduled(tb.G1, [p0] * 8, [7] * 8, c=8,
+                                      device="cpu")
+    assert got == p0.mul_raw(56)
+    assert any("outside the Poisson model" in r.getMessage()
+               for r in caplog.records)
+
+
+def test_all_equal_scalars_grid_path(monkeypatch):
+    n = 300
+    pts, dlogs = _points(n)
+    s = 0xBEEF              # digits -17, -65, 1: three windows, all full
+    grids = []
+    real = tm._grid_bands
+
+    def spy(occ, B):
+        grids.append(occ)
+        return real(occ, B)
+
+    monkeypatch.setattr(tm, "_grid_bands", spy)
+    # the five grid rounds over three windows run in three pieces, whose
+    # bucket sums are added
+    monkeypatch.setattr(tm, "SLOT_CAP", 1 << 16)
+    got = tm.msm_device_scheduled(tb.G1, pts, [s] * n, nbits=16,
+                                  device="cpu")
+    assert got == G.mul_raw(s * sum(dlogs) % tb.R)
+    assert grids == [n] * 3 and n > tm.MAX_PROFILE_RANK
+    assert len(tm._pieces(real(n, 128), 3)) == 3
+
+
+def test_chunked_levels_inside_msm(monkeypatch):
+    """Lower the chunked threshold so both level paths run in one MSM."""
+    n = 64
+    pts, dlogs = _points(n)
+    scs = [rng.randrange(0, 1 << 16) for _ in range(n)]
+    widths = {"chunked": 0, "pre": 0}
+    real_prefix, real_pre = ck.chunked_level_prefix, ck.affine_level_pre
+
+    def prefix(*a):
+        widths["chunked"] += 1
+        return real_prefix(*a)
+
+    def pre(*a):
+        widths["pre"] += 1
+        return real_pre(*a)
+
+    monkeypatch.setattr(tm, "CHUNK_MIN_PAIRS", 300)
+    monkeypatch.setattr(ck, "chunked_level_prefix", prefix)
+    monkeypatch.setattr(ck, "affine_level_pre", pre)
+    got = tm.msm_device_scheduled(tb.G1, pts, scs, c=8, nbits=16,
+                                  device="cpu")
+    assert got == G.mul_raw(sum(s * d for s, d in zip(scs, dlogs)) % tb.R)
+    assert widths["chunked"] > 0 and widths["pre"] > 0
+
+
+def test_pad_argument():
+    pts, dlogs = _points(16)
+    scs = [rng.randrange(0, 1 << 16) for _ in range(16)]
+    got = tm.msm_device_scheduled(tb.G1, pts, scs, c=8, nbits=16, pad=16,
+                                  device="cpu")
+    assert got == G.mul_raw(sum(s * d for s, d in zip(scs, dlogs)) % tb.R)
+    with pytest.raises(ValueError, match="pad"):
+        tm.msm_device_scheduled(tb.G1, pts, [5] * 16, c=8, nbits=16, pad=4,
+                                device="cpu")
