@@ -3,17 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `crypto_tpu_torch/csrc`, runs the
-BLS12-381 G1 MSM at 2^20 distinct points with known discrete logs (c = 16,
-full-range 255-bit scalars) through `msm_device_scheduled`, checks it on
-the host, holds every kernel against its plain PyTorch version bit for bit
-at the shapes the MSM gave it, runs the duplicate-base and all-equal-scalar
-edge MSMs, profiles one more 2^20 MSM for the device's busy share, and
-fails unless every kernel launched during the 2^20 MSM.
-One line per phase; before the last line the card's name and power limit
-and a JSON object of the kernels' launches and times; the last line is
-the result object.  Exits non-zero on any failure, and when there is no
-CUDA device.
+Builds the port's CUDA kernels from `crypto_tpu_torch/csrc` and drives
+the port's paths on the card, each with every launch count set to 0 just
+before it and read just after:
+
+* bench points: 2^20 distinct BLS12-381 G1 points with known discrete
+  logs, built by the full-add and normalize kernels (`make_bench_points`);
+* the 2^20 MSM (c = 16, full-range 255-bit scalars) through
+  `msm_device_scheduled` on its default doubling-free levels, five timed
+  runs, each checked against the known discrete logs, none rerun (then,
+  outside the counted paths, three runs each of `safe=True` and the
+  default in turns);
+* the rerun path: the same MSM with one base duplicated and the digits set
+  so that the pair collides in one window's bucket; the flagged windows
+  must be exactly those that share a spoiled chunk, and they are rerun
+  through the total-formula kernels;
+* the edge MSMs (8 duplicate bases, whose window is rerun through the
+  total-formula pre/post; 300 points with one scalar, the grid path);
+* the Jacobian add, mixed add and double of `make_add_fns` at 2^20 rows.
+
+Then it holds every kernel against its plain PyTorch version bit for bit
+at the shapes a path gave it, and profiles one more 2^20 MSM for the
+device's busy share.  It fails if a kernel of a path was not launched on
+it.  One line per phase; before the last line the card's name and power
+limit and a JSON object of the kernels' launches and times; the last line
+is the result object.  Exits non-zero on any failure, and when there is
+no CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +51,8 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
 # x 132 SMs x 1.98 GHz boost clock (H100 SXM)
 H100_IMAD_PER_S = 132 * 64 * 1.98e9
-FQ_BYTES = 48                       # one Fq element, 12 x 32-bit limbs
+FQ_LIMBS = 12
+FQ_BYTES = 4 * FQ_LIMBS            # one Fq element, 12 x 32-bit limbs
 
 
 def phase(name: str, **kv) -> None:
@@ -80,20 +96,47 @@ def max_err(a, b) -> int:
                if x.numel() else 0 for x, y in zip(a, b))
 
 
-LEVEL_KERNELS = {"chunked": ("chunked_level_prefix", "chunked_level_down"),
-                 "pre_post": ("affine_level_pre", "affine_level_post")}
+# (path, total formula) -> the level kernels it dispatches to
+LEVEL_KERNELS = {
+    ("chunked", False): ("chunked_level_prefix_fast",
+                         "chunked_level_down_fast"),
+    ("pre_post", False): ("affine_level_pre_fast", "affine_level_post_fast"),
+    ("chunked", True): ("chunked_level_prefix", "chunked_level_down"),
+    ("pre_post", True): ("affine_level_pre", "affine_level_post"),
+}
+SAFE_KERNELS = LEVEL_KERNELS[("chunked", True)] \
+    + LEVEL_KERNELS[("pre_post", True)]
 
 
-def path_kernels(widths, threshold: int) -> set:
+def level_kernels(fast_widths, safe_widths, threshold: int) -> set:
     """The kernels a run's level calls are dispatched to: mont_mul always,
     the chunked level for calls of at least `threshold` pairs, pre/post for
-    the narrower ones."""
+    the narrower ones; the fast variants for the fast calls, the total
+    formula for the rerun's."""
     names = {"mont_mul"}
-    if any(w >= threshold for w in widths):
-        names.update(LEVEL_KERNELS["chunked"])
-    if any(w < threshold for w in widths):
-        names.update(LEVEL_KERNELS["pre_post"])
+    for widths, safe in ((fast_widths, False), (safe_widths, True)):
+        if any(w >= threshold for w in widths):
+            names.update(LEVEL_KERNELS[("chunked", safe)])
+        if any(w < threshold for w in widths):
+            names.update(LEVEL_KERNELS[("pre_post", safe)])
     return names
+
+
+def rerun_widths(timings: dict) -> list:
+    return (timings["rerun_trace"] or {}).get("level_pairs", [])
+
+
+def spoiled_windows(timings: dict) -> list:
+    """The windows that a run's zero denominators touched, from the level
+    calls' records: a zero at chunk t of a call of M pairs in K strips
+    spoils pairs t + j*(M/K), and pair l lies in window l // (M/windows)."""
+    out = set()
+    for M, windows, K, zero in timings.get("zero_chunks", []):
+        T = zero.numel()
+        for t in torch.nonzero(zero).flatten().tolist():
+            out.update((t + j * T) // (M // windows) for j in range(K)
+                       if t + j * T < M)
+    return sorted(out)
 
 
 def drive(counted, fn):
@@ -105,12 +148,27 @@ def drive(counted, fn):
     return out, {f.__name__: f.launches for f in counted}
 
 
-def require(path: str, launches: dict, widths, threshold: int) -> None:
-    missing = sorted(k for k in path_kernels(widths, threshold)
-                     if launches[k] == 0)
+def require(path: str, launches: dict, names) -> None:
+    missing = sorted(k for k in names if launches[k] == 0)
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}")
+
+
+def floats(timings: dict) -> dict:
+    return {k: v for k, v in timings.items() if isinstance(v, float)}
+
+
+def timed_call(fn):
+    """(fn(), milliseconds of that one call on the card)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def main() -> int:
@@ -126,6 +184,7 @@ def main() -> int:
     from crypto_tpu_torch.ops.kernels import build
     from crypto_tpu_torch.ops.kernels import curve_kernels as ck
     from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    from crypto_tpu_torch.ops.kernels import point_kernels as pk
 
     dev = torch.device("cuda")
     card = card_line()
@@ -139,18 +198,43 @@ def main() -> int:
           lib=build.build_info["path"])
 
     counted = (fk.mont_mul, ck.affine_level_pre, ck.affine_level_post,
-               ck.chunked_level_prefix, ck.chunked_level_down)
+               ck.chunked_level_prefix, ck.chunked_level_down,
+               ck.affine_level_pre_fast, ck.affine_level_post_fast,
+               ck.chunked_level_prefix_fast, ck.chunked_level_down_fast,
+               pk.jacobian_add, pk.jacobian_add_mixed, pk.jacobian_double,
+               pk.jacobian_normalize)
     thr = msm_v2.CHUNK_MIN_PAIRS
+    paths = {}            # path -> (launches, level widths)
 
-    # ---- the main path: 2^20 points, c = 16 ---------------------------
+    # ---- bench points: 2^20 distinct points, full add + normalize ------
     n = 1 << N_LOG
     tc = tcurve_for(bls.G1, dev)
     F = tc.F
+    G = bls.G1.generator()
     t0 = time.time()
-    points, dlog = make_bench_points(tc, n)
+    (points, dlog), bp_launches = drive(counted,
+                                        lambda: make_bench_points(tc, n))
     torch.cuda.synchronize()
     t_points = time.time() - t0
+    require("bench points", bp_launches, ("jacobian_add",
+                                          "jacobian_normalize"))
+    if (bp_launches["jacobian_add"], bp_launches["jacobian_normalize"]) \
+            != (2, 1):
+        raise AssertionError(f"bench points: expected 2 full adds and 1 "
+                             f"normalize, got {bp_launches}")
     logs = [dlog(i) for i in range(n)]
+    sample = list(range(0, n, n // 64))
+    got = tc.unpack(TPoints(*(t[:, sample] for t in points)))
+    if any(g != G.mul_raw(logs[i]) for g, i in zip(got, sample)):
+        raise AssertionError("bench points disagree with their discrete "
+                             "logs")
+    paths["bench_points_2^20"] = (bp_launches, [])
+    phase("bench_points", n=n, seconds=round(t_points, 3),
+          full_add_launches=bp_launches["jacobian_add"],
+          normalize_launches=bp_launches["jacobian_normalize"],
+          sample_checked=len(sample), correct=True)
+
+    # ---- the main path: 2^20 points, c = 16, fast levels ----------------
     _, warm_sb = make_bench_scalars(bls.R, n, SEED)
     msm_v2.msm_device_scheduled(bls.G1, points, warm_sb, c=16)
 
@@ -167,18 +251,24 @@ def main() -> int:
             return res, time.perf_counter() - t
 
         (result, dt), launches = drive(counted, timed)
-        expect = bls.G1.generator().mul_raw(
-            sum(s * d for s, d in zip(sc, logs)) % bls.R)
+        expect = G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R)
         if result != expect:
             raise AssertionError("2^20 MSM disagrees with the known-dlog "
                                  "result")
-        widths = timings.pop("level_pairs")
-        require("2^20 MSM", launches, widths, thr)
+        if timings["rerun_windows"] or any(launches[k]
+                                           for k in SAFE_KERNELS):
+            raise AssertionError(
+                f"2^20 MSM on distinct bases reran windows "
+                f"{timings['rerun_windows']} or launched a total-formula "
+                f"level kernel: {launches}")
+        widths = timings["level_pairs"]
+        require("2^20 MSM", launches, level_kernels(widths, [], thr))
         secs.append(dt)
         main_runs.append((launches, widths))
         phase("msm_run", run=run, seconds=dt, points_per_s=n / dt,
-              phases=timings, correct=True)
+              phases=floats(timings), rerun_windows=[], correct=True)
     main_launches, main_widths = main_runs[0]
+    paths["msm_2^20"] = main_runs[0]
     med = statistics.median(secs)
     phase("msm", n=n, c=16, runs=MSM_RUNS, seconds=secs, median_s=med,
           spread=max(secs) / min(secs), points_per_s=n / med,
@@ -186,8 +276,76 @@ def main() -> int:
           bench_points_seconds=round(t_points, 3), card=repr(card),
           correct=True)
 
+    # ---- the 2^20 MSM on the total-formula levels (safe=True) against the
+    # default, in turns on one scalar set (safe, fast, fast, safe, ...)
+    sc, sb = make_bench_scalars(bls.R, n, SEED + 40)
+    expect = G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R)
+    msm_turns = {True: [], False: []}
+    for safe in (True, False, False, True, True, False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = msm_v2.msm_device_scheduled(bls.G1, points, sb, c=16,
+                                          safe=safe)
+        msm_turns[safe].append(time.perf_counter() - t)
+        if res != expect:
+            raise AssertionError(f"2^20 MSM with safe={safe} disagrees with "
+                                 f"the known-dlog result")
+    phase("msm_safe_vs_fast", n=n, safe_s=msm_turns[True],
+          fast_s=msm_turns[False],
+          safe_median_s=statistics.median(msm_turns[True]),
+          fast_median_s=statistics.median(msm_turns[False]), correct=True)
+
+    # ---- the rerun path: a duplicated base collides in one window -------
+    sc, sb = make_bench_scalars(bls.R, n, SEED + 50)
+    digits = msm_v2.device_digits(sb, 16, bls.Fr.bits)
+    dh = digits.cpu().numpy()
+    W, B, w0 = dh.shape[0], 1 << 15, 5
+    i_b = next(k for k in range(11, n) if dh[w0, k] != 0)
+    j_b = next(k for k in range(n // 2, n)
+               if all(dh[w, k] != dh[w, i_b] for w in range(W) if w != w0))
+    v0 = int(dh[w0, i_b])
+    # window w0's bucket |v0| - 1 keeps only bases i_b and j_b: the others
+    # move to the buckets after it, one each
+    lane = np.arange(n)
+    moved = np.nonzero((np.abs(dh[w0]) == abs(v0)) & (lane != i_b)
+                       & (lane != j_b))[0]
+    new = np.sign(dh[w0, moved]) * ((abs(v0) + np.arange(moved.size)) % B
+                                    + 1)
+    logs_r = list(logs)
+    logs_r[j_b] = logs[i_b]
+    shift = 1 << (16 * w0)
+    expect_s = sum(s * d for s, d in zip(sc, logs_r))
+    expect_s += (v0 - int(dh[w0, j_b])) * shift * logs_r[j_b]
+    expect_s += sum((int(a) - int(b)) * shift * logs_r[k]
+                    for k, a, b in zip(moved, new, dh[w0, moved]))
+    dh[w0, moved] = new
+    dh[w0, j_b] = v0
+    pts_r = TPoints(*(t.clone() for t in points))
+    for t in pts_r:
+        t[:, j_b] = t[:, i_b]
+    t_rr = {}
+    t0 = time.perf_counter()
+    res_r, rr_launches = drive(counted, lambda: msm_v2.msm_device_scheduled(
+        bls.G1, pts_r, torch.from_numpy(dh).to(dev), c=16, timings=t_rr))
+    dt_r = time.perf_counter() - t0
+    if res_r != G.mul_raw(expect_s % bls.R):
+        raise AssertionError("2^20 rerun MSM disagrees with the known-dlog "
+                             "result")
+    spoiled = spoiled_windows(t_rr)
+    if w0 not in spoiled or t_rr["rerun_windows"] != spoiled:
+        raise AssertionError(f"rerun path: collision in window {w0}, "
+                             f"spoiled windows {spoiled}, rerun "
+                             f"{t_rr['rerun_windows']}")
+    rr_widths = rerun_widths(t_rr)
+    require("2^20 rerun", rr_launches,
+            level_kernels(t_rr["level_pairs"], rr_widths, thr))
+    paths["rerun_2^20"] = (rr_launches, rr_widths)
+    phase("rerun_msm", n=n, collision_window=w0, bases=[i_b, j_b],
+          moved_from_bucket=int(moved.size), rerun_windows=spoiled,
+          level_pairs=t_rr["level_pairs"], rerun_level_pairs=rr_widths,
+          seconds=dt_r, phases=floats(t_rr), correct=True)
+
     # ---- edge MSMs on the card: the small-MSM path --------------------
-    G = bls.G1.generator()
     p0 = G.mul_raw(random.Random(SEED).randrange(1, bls.R))
     m_eq = 300
     sub = TPoints(*(t[:, :m_eq].contiguous() for t in points))
@@ -205,27 +363,24 @@ def main() -> int:
         raise AssertionError("duplicate-base MSM disagrees with the host")
     if eq_res != G.mul_raw(s_eq * sum(logs[:m_eq]) % bls.R):
         raise AssertionError("all-equal-scalar MSM disagrees with the host")
+    if 0 not in t_dup["rerun_windows"] \
+            or t_dup["rerun_windows"] != spoiled_windows(t_dup) \
+            or t_eq["rerun_windows"]:
+        raise AssertionError(f"edge MSMs: rerun {t_dup['rerun_windows']} "
+                             f"and {t_eq['rerun_windows']}")
     edge_widths = t_dup["level_pairs"] + t_eq["level_pairs"]
-    require("edge MSM", edge_launches, edge_widths, thr)
+    edge_safe = rerun_widths(t_dup)
+    require("edge MSM", edge_launches,
+            level_kernels(edge_widths, edge_safe, thr)
+            | set(LEVEL_KERNELS[("pre_post", True)]))
+    paths["edge_msm"] = (edge_launches, edge_widths)
     phase("edge_msm", duplicate_bases=True, all_equal_scalars_n=m_eq,
-          level_pairs=edge_widths, correct=True)
-    phase("launches", msm_2_20=main_launches, edge_msm=edge_launches)
-    never = [f.__name__ for f in counted
-             if not main_launches[f.__name__] and not
-             edge_launches[f.__name__]]
-    if never:
-        raise AssertionError(f"kernels launched on no path: {never}")
+          level_pairs=edge_widths, rerun_windows=t_dup["rerun_windows"],
+          rerun_level_pairs=edge_safe, correct=True)
 
-    # ---- kernels vs plain, at the shapes a path gave them -------------
+    # ---- the point kernels of make_add_fns at 2^20 rows -----------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_pts = points.X.shape[1]
-    paths = {"msm_2^20": (main_launches, main_widths),
-             "edge_msm": (edge_launches, edge_widths)}
-
-    def source(name: str) -> str:
-        """The path whose launches and shapes a kernel's row reports: the
-        2^20 MSM where it ran there, else the edge MSMs."""
-        return "msm_2^20" if main_launches[name] else "edge_msm"
 
     def level_inputs(M: int):
         """M pairs of real points: generic pairs, doublings, P + (-P) and
@@ -241,14 +396,62 @@ def main() -> int:
         m2 = ((lane % 17 == 4) | (lane % 13 == 5)).to(torch.int32)
         return x1, y1, m1, x2, y2, m2
 
-    def row(name, src, rep, launches, err, ms, plain_ms, bound, shape,
-            path):
+    def point_inputs(M: int):
+        """(X1, Y1, Z1) Jacobian with random Z, (x2, y2, Z2) affine, over
+        level_inputs' pairs (P + P gives the degenerate flag) with Z = 0
+        where a mask says infinity."""
+        x1, y1, m1, x2, y2, m2 = level_inputs(M)
+        z = points.X[:, torch.randint(0, n_pts, (M,), generator=gen,
+                                      device=dev)]
+        zz = F.mul(z, z)
+        one, zero = F.ones((M,)), F.zeros((M,))
+        J = (F.mul(x1, zz), F.mul(y1, F.mul(zz, z)),
+             torch.where((m1 != 0)[None], zero, z))
+        Q = (x2, y2, torch.where((m2 != 0)[None], zero, one))
+        return J, Q, (x1, y1, x2, y2)
+
+    pt_in = point_inputs(n)
+    add_fn, affine_add_fn, double_fn = pk.make_add_fns(tc)
+    J, Q, aff = pt_in
+    (s_add, s_mix, s_dbl), af_launches = drive(counted, lambda: (
+        add_fn(TPoints(*J), TPoints(*Q)),
+        affine_add_fn(TPoints(aff[0], aff[1], J[2]),
+                      TPoints(aff[2], aff[3], J[2])),
+        double_fn(TPoints(*J))))
+    require("add_fns", af_launches, ("jacobian_add", "jacobian_add_mixed",
+                                     "jacobian_double"))
+    if not (int(s_add[1]) and int(s_mix[1])):
+        raise AssertionError("make_add_fns: P + P did not raise the flag")
+    paths["add_fns_2^20"] = (af_launches, [])
+    phase("add_fns", rows=n, full_add_flag=int(s_add[1]),
+          mixed_add_flag=int(s_mix[1]), launches={
+              k: af_launches[k] for k in ("jacobian_add",
+                                          "jacobian_add_mixed",
+                                          "jacobian_double")})
+    phase("launches", **{k: v[0] for k, v in paths.items()})
+    never = [f.__name__ for f in counted
+             if not any(v[0][f.__name__] for v in paths.values())]
+    if never:
+        raise AssertionError(f"kernels launched on no path: {never}")
+
+    # ---- kernels vs plain, at the shapes a path gave them -------------
+    def row(name, src, rep, path, err, ms, plain_ms, bound, shape):
         return dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches, max_abs_err=err, ms=ms,
+                    launches=paths[path][0][name], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                     library_ms=None, path=path, shape=shape)
 
     rows = []
+    csrc = "crypto_tpu_torch/csrc/"
+    ref = "crypto_tpu/ops/pallas/curve_kernels.py:"
+    mul_products = 2 * FQ_LIMBS * FQ_LIMBS + FQ_LIMBS   # per Montgomery mul
+
+    def agree(name, kernel_out, plain_out, where):
+        err = max_err(kernel_out, plain_out)
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"{where}")
+        return err
 
     # mont_mul at the tail's width (16 windows x 2^15 buckets), Fq and Fr
     for fld, M in ((bls.Fq, 16 << 15), (bls.Fr, 1 << 16)):
@@ -265,115 +468,197 @@ def main() -> int:
         rb[:, 5] = -1
         rb[:, 6] = -1
         ra[:, 6] = -1
-        kern = fk.mont_mul(ra, rb, Fx.mod)
-        err = max_err((kern,), (fk.mont_mul_plain(ra, rb, Fx.mod),))
-        if err:
-            raise AssertionError(f"mont_mul disagrees on {fld.name}")
+        plain, plain_ms = timed_call(lambda: fk.mont_mul_plain(ra, rb,
+                                                               Fx.mod))
+        err = agree("mont_mul", (fk.mont_mul(ra, rb, Fx.mod),), (plain,),
+                    f"on {fld.name}")
         if fld is bls.Fq:
-            path = source("mont_mul")
             rows.append(row(
-                "mont_mul", "crypto_tpu_torch/csrc/mont_mul.cu",
-                "crypto_tpu/ops/pallas/field_kernels.py:386",
-                paths[path][0]["mont_mul"], err,
-                cuda_ms(lambda: fk.mont_mul(ra, rb, Fx.mod)),
-                cuda_ms(lambda: fk.mont_mul_plain(ra, rb, Fx.mod), reps=2),
-                bound_ms(3 * FQ_BYTES * M, (2 * L * L + L) * M), [L, M],
-                path))
+                "mont_mul", csrc + "mont_mul.cu",
+                "crypto_tpu/ops/pallas/field_kernels.py:386", "msm_2^20",
+                err, cuda_ms(lambda: fk.mont_mul(ra, rb, Fx.mod)), plain_ms,
+                bound_ms(3 * FQ_BYTES * M, (2 * L * L + L) * M), [L, M]))
     phase("check_mont_mul", fq_pairs=16 << 15, fr_pairs=1 << 16,
           bit_exact=True)
 
-    def check_pre_post(M: int, path: str | None):
+    def check_pre_post(M: int, path: str | None, fast: bool):
         x1, y1, m1, x2, y2, m2 = level_inputs(M)
-        kd = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
-        e_pre = max_err(kd, ck.affine_level_pre_plain(F, x1, y1, m1, x2, y2,
-                                                      m2))
-        if e_pre:
-            raise AssertionError(f"affine_level_pre disagrees at M={M}")
-        dinv = msm_v2.batch_inv_t(F, kd[0])
-        args = (x1, y1, x2, y2, dinv, kd[1], m1, m2)
-        kp = ck.affine_level_post(F, *args)
-        e_post = max_err(kp, ck.affine_level_post_plain(F, *args))
-        if e_post:
-            raise AssertionError(f"affine_level_post disagrees at M={M}")
+        if fast:
+            pre, post = ck.affine_level_pre_fast, ck.affine_level_post_fast
+            pre_p = ck.affine_level_pre_fast_plain
+            post_p = ck.affine_level_post_fast_plain
+        else:
+            pre, post = ck.affine_level_pre, ck.affine_level_post
+            pre_p, post_p = (ck.affine_level_pre_plain,
+                             ck.affine_level_post_plain)
+        ins = (x1, y1, m1, x2, y2, m2)
+        kd = pre(F, *ins)
+        pd, pre_ms = timed_call(lambda: pre_p(F, *ins))
+        e_pre = agree(pre.__name__, kd, pd, f"at M={M}")
+        d = kd[0].clone()
+        d[0] |= F.is_zero(d).to(torch.int32)    # as pair_add_t does
+        dinv = msm_v2.batch_inv_t(F, d)
+        args = (x1, y1, x2, y2, dinv, m1, m2) if fast else \
+            (x1, y1, x2, y2, dinv, kd[1], m1, m2)
+        pp, post_ms = timed_call(lambda: post_p(F, *args))
+        e_post = agree(post.__name__, post(F, *args), pp, f"at M={M}")
         if path is None:
             return
-        ndbl = int(kd[1].sum())
-        src = "crypto_tpu_torch/csrc/affine_level.cu"
-        rep = "crypto_tpu/ops/pallas/curve_kernels.py:"
-        count = paths[path][0]
-        rows.append(row(
-            "affine_level_pre", src, rep + "533", count["affine_level_pre"],
-            e_pre,
-            cuda_ms(lambda: ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)),
-            cuda_ms(lambda: ck.affine_level_pre_plain(
-                F, x1, y1, m1, x2, y2, m2), reps=2),
-            bound_ms(M * (5 * FQ_BYTES + 16), 0), [12, M], path))
-        rows.append(row(
-            "affine_level_post", src, rep + "548", count["affine_level_post"],
-            e_post, cuda_ms(lambda: ck.affine_level_post(F, *args)),
-            cuda_ms(lambda: ck.affine_level_post_plain(F, *args), reps=2),
-            bound_ms(M * (7 * FQ_BYTES + 12), (3 * M + ndbl) * 300),
-            [12, M], path))
+        nmul = 3 * M if fast else 3 * M + int(kd[1].sum())
+        pre_bytes = M * (3 * FQ_BYTES + 12) if fast else \
+            M * (5 * FQ_BYTES + 16)
+        post_bytes = M * (7 * FQ_BYTES + 8) if fast else \
+            M * (7 * FQ_BYTES + 12)
+        lines = ("739", "752") if fast else ("533", "548")
+        rows.append(row(pre.__name__, csrc + "affine_level.cu",
+                        ref + lines[0], path, e_pre,
+                        cuda_ms(lambda: pre(F, *ins)), pre_ms,
+                        bound_ms(pre_bytes, 0), [12, M]))
+        rows.append(row(post.__name__, csrc + "affine_level.cu",
+                        ref + lines[1], path, e_post,
+                        cuda_ms(lambda: post(F, *args)), post_ms,
+                        bound_ms(post_bytes, nmul * mul_products), [12, M]))
 
-    path = source("affine_level_pre")
-    w_pre = max(w for w in paths[path][1] if w < thr)
-    pre_widths = [w_pre, w_pre - 3 if w_pre > 3 else w_pre + 3]
-    if path != "msm_2^20":
-        pre_widths.append(min(main_widths))     # also at a 2^20 level width
-    check_pre_post(pre_widths[0], path)
-    for w in pre_widths[1:]:
-        check_pre_post(w, None)
-    phase("check_affine_level", pairs=pre_widths, path=path, bit_exact=True)
+    for fast, widths in ((False, edge_safe), (True, edge_widths)):
+        w_pre = max(w for w in widths if w < thr)
+        pre_widths = [w_pre, w_pre - 3 if w_pre > 3 else w_pre + 3,
+                      min(main_widths)]          # and a 2^20 level width
+        check_pre_post(pre_widths[0], "edge_msm", fast)
+        for w in pre_widths[1:]:
+            check_pre_post(w, None, fast)
+        phase("check_affine_level_fast" if fast else "check_affine_level",
+              pairs=pre_widths, path="edge_msm", bit_exact=True)
 
-    def check_chunked(M: int, path: str | None):
+    def chunked_inputs(M: int):
         pad = (-M) % msm_v2.CHUNK_PAD
         x1, y1, m1, x2, y2, m2 = level_inputs(M)
         x1, y1, x2, y2 = (msm_v2._pad_cols(t, pad, 0)
                           for t in (x1, y1, x2, y2))
         m1, m2 = msm_v2._pad_cols(m1, pad, 1), msm_v2._pad_cols(m2, pad, 1)
-        Mp = M + pad
-        kq = ck.chunked_level_prefix(F, x1, y1, m1, x2, y2, m2)
-        e_pre = max_err(kq, ck.chunked_level_prefix_plain(F, x1, y1, m1, x2,
-                                                          y2, m2))
-        if e_pre:
-            raise AssertionError(f"chunked_level_prefix disagrees at M={M}")
-        tinv = msm_v2.batch_inv_t(F, kq[1])
-        args = (x1, y1, m1, x2, y2, m2, kq[0], tinv, kq[2])
-        kd = ck.chunked_level_down(F, *args)
-        e_post = max_err(kd, ck.chunked_level_down_plain(F, *args))
-        if e_post:
-            raise AssertionError(f"chunked_level_down disagrees at M={M}")
+        return x1, y1, m1, x2, y2, m2
+
+    def check_chunked(M: int, path: str | None, fast: bool):
+        ins = chunked_inputs(M)
+        Mp = ins[0].shape[1]
+        if fast:
+            prefix, down = (ck.chunked_level_prefix_fast,
+                            ck.chunked_level_down_fast)
+            prefix_p = ck.chunked_level_prefix_fast_plain
+            down_p = ck.chunked_level_down_fast_plain
+        else:
+            prefix, down = ck.chunked_level_prefix, ck.chunked_level_down
+            prefix_p = ck.chunked_level_prefix_plain
+            down_p = ck.chunked_level_down_plain
+        kq = prefix(F, *ins)
+        pq, prefix_ms = timed_call(lambda: prefix_p(F, *ins))
+        e_pre = agree(prefix.__name__, kq, pq, f"at M={M}")
+        total = kq[1].clone()
+        total[0] |= F.is_zero(total).to(torch.int32)    # as pair_add_t does
+        tinv = msm_v2.batch_inv_t(F, total)
+        args = ins + (kq[0], tinv) + (() if fast else (kq[2],))
+        pdn, down_ms = timed_call(lambda: down_p(F, *args))
+        e_down = agree(down.__name__, down(F, *args), pdn, f"at M={M}")
         if path is None:
             return
         K = ck.CHUNK_K
-        ndbl = int(kq[2].sum())
-        src = "crypto_tpu_torch/csrc/chunked_level.cu"
-        rep = "crypto_tpu/ops/pallas/curve_kernels.py:"
-        count = paths[path][0]
-        rows.append(row(
-            "chunked_level_prefix", src, rep + "844",
-            count["chunked_level_prefix"], e_pre,
-            cuda_ms(lambda: ck.chunked_level_prefix(F, x1, y1, m1, x2, y2,
-                                                    m2)),
-            cuda_ms(lambda: ck.chunked_level_prefix_plain(
-                F, x1, y1, m1, x2, y2, m2), reps=1),
-            bound_ms(Mp * (5 * FQ_BYTES + 16) + Mp // K * FQ_BYTES,
-                     (Mp - Mp // K) * 300), [12, Mp], path))
-        rows.append(row(
-            "chunked_level_down", src, rep + "860",
-            count["chunked_level_down"], e_post,
-            cuda_ms(lambda: ck.chunked_level_down(F, *args)),
-            cuda_ms(lambda: ck.chunked_level_down_plain(F, *args), reps=1),
-            bound_ms(Mp * (7 * FQ_BYTES + 12) + Mp // K * FQ_BYTES,
-                     (2 * (Mp - Mp // K) + 3 * Mp + ndbl) * 300),
-            [12, Mp], path))
+        strips = Mp - Mp // K
+        if fast:
+            pre_b, pre_mul = Mp * (3 * FQ_BYTES + 12), strips
+            down_b, down_mul = Mp * (7 * FQ_BYTES + 8), 2 * strips + 3 * Mp
+            lines = ("669", "683")
+        else:
+            ndbl = int(kq[2].sum())
+            pre_b, pre_mul = Mp * (5 * FQ_BYTES + 16), strips
+            down_b = Mp * (7 * FQ_BYTES + 12)
+            down_mul = 2 * strips + 3 * Mp + ndbl
+            lines = ("844", "860")
+        rows.append(row(prefix.__name__, csrc + "chunked_level.cu",
+                        ref + lines[0], path, e_pre,
+                        cuda_ms(lambda: prefix(F, *ins)), prefix_ms,
+                        bound_ms(pre_b + Mp // K * FQ_BYTES,
+                                 pre_mul * mul_products), [12, Mp]))
+        rows.append(row(down.__name__, csrc + "chunked_level.cu",
+                        ref + lines[1], path, e_down,
+                        cuda_ms(lambda: down(F, *args)), down_ms,
+                        bound_ms(down_b + Mp // K * FQ_BYTES,
+                                 down_mul * mul_products), [12, Mp]))
 
-    path = source("chunked_level_prefix")
-    w_chunk = min(w for w in paths[path][1] if w >= thr)
-    check_chunked(w_chunk, path)
-    check_chunked(w_chunk + 5, None)
-    phase("check_chunked_level", pairs=[w_chunk, w_chunk + 5], path=path,
-          bit_exact=True)
+    for fast, path, widths in ((False, "rerun_2^20", rr_widths),
+                               (True, "msm_2^20", main_widths)):
+        w_chunk = min(w for w in widths if w >= thr)
+        check_chunked(w_chunk, path, fast)
+        check_chunked(w_chunk + 5, None, fast)
+        phase("check_chunked_level_fast" if fast else "check_chunked_level",
+              pairs=[w_chunk, w_chunk + 5], path=path, bit_exact=True)
+
+    # the safe and the fast chunked level on the same 2^20 level's inputs,
+    # timed in turns (safe, fast, fast, safe)
+    ins = chunked_inputs(min(main_widths))
+    sq = ck.chunked_level_prefix(F, *ins)
+    s_args = ins + (sq[0], msm_v2.batch_inv_t(F, sq[1]), sq[2])
+    fq = ck.chunked_level_prefix_fast(F, *ins)
+    f_tot = fq[1].clone()
+    f_tot[0] |= F.is_zero(f_tot).to(torch.int32)
+    f_args = ins + (fq[0], msm_v2.batch_inv_t(F, f_tot))
+    turns = {"safe": [[], []], "fast": [[], []]}
+    for kind in ("safe", "fast", "fast", "safe"):
+        pre_fn, down_fn, a = (
+            (ck.chunked_level_prefix, ck.chunked_level_down, s_args)
+            if kind == "safe" else
+            (ck.chunked_level_prefix_fast, ck.chunked_level_down_fast,
+             f_args))
+        turns[kind][0].append(cuda_ms(lambda: pre_fn(F, *ins)))
+        turns[kind][1].append(cuda_ms(lambda: down_fn(F, *a)))
+    phase("compare_chunked", pairs=ins[0].shape[1],
+          safe_prefix_ms=turns["safe"][0], fast_prefix_ms=turns["fast"][0],
+          safe_down_ms=turns["safe"][1], fast_down_ms=turns["fast"][1])
+
+    # the point kernels: full add at the bench points' 2^14 and 2^20 rows,
+    # mixed add, double and normalize at 2^20
+    for M in (1 << 14, n):
+        Jm, Qm, _ = pt_in if M == n else point_inputs(M)
+        args = Jm + Qm
+        pa, add_ms = timed_call(lambda: pk.jacobian_add_plain(F, *args))
+        e_add = agree("jacobian_add", pk.jacobian_add(F, *args), pa,
+                      f"at M={M}")
+        if int(pa[3].sum()) == 0:
+            raise AssertionError("full-add check inputs hold no P + P")
+    rows.append(row("jacobian_add", csrc + "jacobian.cu", ref + "334",
+                    "bench_points_2^20", e_add,
+                    cuda_ms(lambda: pk.jacobian_add(F, *args)), add_ms,
+                    bound_ms(n * (9 * FQ_BYTES + 4), 16 * n * mul_products),
+                    [12, n]))
+    pm, mix_ms = timed_call(lambda: pk.jacobian_add_mixed_plain(F, *aff))
+    e_mix = agree("jacobian_add_mixed", pk.jacobian_add_mixed(F, *aff), pm,
+                  f"at M={n}")
+    rows.append(row("jacobian_add_mixed", csrc + "jacobian.cu", ref + "347",
+                    "add_fns_2^20", e_mix,
+                    cuda_ms(lambda: pk.jacobian_add_mixed(F, *aff)), mix_ms,
+                    bound_ms(n * (7 * FQ_BYTES + 4), 6 * n * mul_products),
+                    [12, n]))
+    pdb, dbl_ms = timed_call(lambda: pk.jacobian_double_plain(F, *J))
+    e_dbl = agree("jacobian_double", pk.jacobian_double(F, *J), pdb,
+                  f"at M={n}")
+    rows.append(row("jacobian_double", csrc + "jacobian.cu", ref + "360",
+                    "add_fns_2^20", e_dbl,
+                    cuda_ms(lambda: pk.jacobian_double(F, *J)), dbl_ms,
+                    bound_ms(n * 6 * FQ_BYTES, 7 * n * mul_products),
+                    [12, n]))
+    phase("check_jacobian", full_add_rows=[1 << 14, n], mixed_add_rows=n,
+          double_rows=n, bit_exact=True)
+    fermat = bls.P - 2
+    norm_muls = (fermat.bit_length() - 1) + (bin(fermat).count("1") - 1) + 4
+    pn, norm_ms = timed_call(lambda: pk.jacobian_normalize_plain(F, *J))
+    e_norm = agree("jacobian_normalize", pk.jacobian_normalize(F, *J), pn,
+                   f"at M={n}")
+    rows.append(row("jacobian_normalize", csrc + "normalize.cu",
+                    ref + "390", "bench_points_2^20", e_norm,
+                    cuda_ms(lambda: pk.jacobian_normalize(F, *J), reps=2),
+                    norm_ms,
+                    bound_ms(n * 6 * FQ_BYTES, norm_muls * n * mul_products),
+                    [12, n]))
+    phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
+          muls_per_point=norm_muls, bit_exact=True)
 
     # ---- device busy share of one more 2^20 MSM, by torch.profiler -----
     from torch.profiler import ProfilerActivity, profile

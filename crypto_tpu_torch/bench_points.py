@@ -4,9 +4,9 @@ The port's counterpart of `bench.py` `make_bench_points`: point (i, u, v)
 is A_i + (C_u + D_v), three families with full-range random discrete logs
 from a seeded generator, so its log a_i + c_u + d_v mod r is a uniform
 ~255-bit value and base collisions or in-bucket partial-sum collisions
-have probability ~2^-215.  Two batched `TCurve.add` calls build the
-Jacobian sums; one batch normalisation (`batch_inv_t` of the Z
-coordinates, then x = X/Z^2, y = Y/Z^3) makes them affine.
+have probability ~2^-215.  As in `bench.py`, two batched calls of the
+full-add kernel (`make_add_fns`) build the Jacobian sums and one call of
+the normalize kernel (`make_normalize_fn`) makes them affine.
 `make_bench_scalars` gives the full-range scalars of `bench.py`.
 """
 
@@ -19,7 +19,8 @@ import torch
 
 from . import resolve_device
 from .curves.tcurve import TCurve, TPoints
-from .ops.msm_v2 import batch_inv_t, scalars_to_bytes
+from .ops.kernels.point_kernels import make_add_fns, make_normalize_fn
+from .ops.msm_v2 import scalars_to_bytes
 
 
 def make_bench_points(tc: TCurve, n: int, seed: int = 0xBE7C4):
@@ -40,20 +41,22 @@ def make_bench_points(tc: TCurve, n: int, seed: int = 0xBE7C4):
     base = tc.curve.generator()
     A, C, D = (tc.pack_points([base.mul_raw(s) for s in ss])
                for ss in (a_s, c_s, d_s))
+    add_fn, _affine_add, _double = make_add_fns(tc)
+    flags = []
 
     def outer_sum(P: TPoints, Q: TPoints) -> TPoints:
         np_, nq = P.X.shape[1], Q.X.shape[1]
-        return tc.add(TPoints(*(t.repeat_interleave(nq, dim=1) for t in P)),
-                      TPoints(*(t.repeat(1, np_) for t in Q)))
+        S, flag = add_fn(TPoints(*(t.repeat_interleave(nq, dim=1) for t in P)),
+                         TPoints(*(t.repeat(1, np_) for t in Q)))
+        flags.append(flag)
+        return S
 
     S = outer_sum(A, outer_sum(C, D))
+    if bool(torch.stack(flags).any()):
+        raise RuntimeError("bench point construction hit a doubling")
     if bool(tc.is_infinity(S).any()):
         raise RuntimeError("bench point construction hit infinity")
-    F = tc.F
-    zinv = batch_inv_t(F, S.Z)
-    zinv2 = F.square(zinv)
-    points = TPoints(F.mul(S.X, zinv2), F.mul(S.Y, F.mul(zinv2, zinv)),
-                     F.ones((n,)))
+    points = make_normalize_fn(tc)(S)
 
     def dlog_fn(i: int) -> int:
         a, rest = divmod(i, m)

@@ -1,10 +1,18 @@
 // One batched-affine halving level with the inversion chunked inside the
-// level (total unified add/double, BLS12-381 Fq).
+// level (BLS12-381 Fq), in two variants.
 //
-// Replaces crypto_tpu/ops/pallas/curve_kernels.py chunked_level_kernels_for
-// (call_prefix / call_down):
+// Total unified add/double: replaces crypto_tpu/ops/pallas/curve_kernels.py
+// chunked_level_kernels_for (call_prefix / call_down):
 //   prefix(x1, y1, m1, x2, y2, m2) -> (prefix, total, dbl, inf3)
 //   down(x1, y1, m1, x2, y2, m2, prefix, tinv, dbl) -> (x3, y3)
+// Doubling-free: replaces chunked_level_kernels_fast (call_prefix /
+// call_down), the default of the MSM's wide levels:
+//   prefix_fast(x1, m1, x2, m2) -> (prefix, total, inf3)
+//   down_fast(x1, y1, m1, x2, y2, m2, prefix, tinv) -> (x3, y3)
+// with d = x2 - x1 (denom_fast), so a colliding pair makes its thread's
+// total 0; the caller flags it and keeps the batch inversion valid.  The
+// fast pair drops the x1^2 of the doubling numerator, the equality tests
+// and the negation of y2 from every pair: prefix 1 mul a pair, down 5.
 // The TPU kernel ran Montgomery's trick over k = 8 sub-slices of 512 lanes
 // in a block; here thread t owns the K = 8 pairs t + j*T (T = M/K, so a
 // warp's loads stay contiguous), emits the running products prefix[j] =
@@ -96,6 +104,71 @@ __global__ void __launch_bounds__(T) down_kernel(
   }
 }
 
+__global__ void __launch_bounds__(T) prefix_fast_kernel(
+    const uint32_t* __restrict__ x1, const int* __restrict__ m1,
+    const uint32_t* __restrict__ x2, const int* __restrict__ m2,
+    uint32_t* __restrict__ prefix, uint32_t* __restrict__ total, int* __restrict__ inf3,
+    long long M, ctt::Fq m) {
+  const long long Tn = M / K;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tn) return;
+  uint32_t acc[FQ_LIMBS];
+#pragma unroll 1
+  for (int j = 0; j < K; ++j) {
+    long long i = t + j * Tn;
+    uint32_t X1[FQ_LIMBS], X2[FQ_LIMBS], D[FQ_LIMBS];
+    ctt::load<FQ_LIMBS>(X1, x1, M, i);
+    ctt::load<FQ_LIMBS>(X2, x2, M, i);
+    bool is_inf3;
+    ctt::denom_fast(D, is_inf3, X1, X2, m1[i] != 0, m2[i] != 0, m);
+    if (j == 0) {
+      ctt::copy<FQ_LIMBS>(acc, D);
+    } else {
+      ctt::mont_mul<FQ_LIMBS>(acc, acc, D, m);
+    }
+    ctt::store<FQ_LIMBS>(prefix, acc, M, i);
+    inf3[i] = is_inf3 ? 1 : 0;
+  }
+  ctt::store<FQ_LIMBS>(total, acc, Tn, t);
+}
+
+__global__ void __launch_bounds__(T) down_fast_kernel(
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const int* __restrict__ m1, const uint32_t* __restrict__ x2,
+    const uint32_t* __restrict__ y2, const int* __restrict__ m2,
+    const uint32_t* __restrict__ prefix, const uint32_t* __restrict__ tinv,
+    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3, long long M, ctt::Fq m) {
+  const long long Tn = M / K;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tn) return;
+  uint32_t inv[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(inv, tinv, Tn, t);
+#pragma unroll 1
+  for (int j = K - 1; j >= 0; --j) {
+    long long i = t + j * Tn;
+    uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], DI[FQ_LIMBS];
+    ctt::load<FQ_LIMBS>(X1, x1, M, i);
+    ctt::load<FQ_LIMBS>(Y1, y1, M, i);
+    ctt::load<FQ_LIMBS>(X2, x2, M, i);
+    ctt::load<FQ_LIMBS>(Y2, y2, M, i);
+    bool i1 = m1[i] != 0, i2 = m2[i] != 0;
+    if (j > 0) {
+      uint32_t P[FQ_LIMBS], D[FQ_LIMBS];
+      ctt::load<FQ_LIMBS>(P, prefix, M, i - Tn);
+      ctt::mont_mul<FQ_LIMBS>(DI, inv, P, m);
+      bool is_inf2;
+      ctt::denom_fast(D, is_inf2, X1, X2, i1, i2, m);
+      ctt::mont_mul<FQ_LIMBS>(inv, inv, D, m);
+    } else {
+      ctt::copy<FQ_LIMBS>(DI, inv);
+    }
+    uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
+    ctt::fast_apply(X3, Y3, X1, Y1, X2, Y2, DI, i1, i2, m);
+    ctt::store<FQ_LIMBS>(x3, X3, M, i);
+    ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  }
+}
+
 }  // namespace
 
 extern "C" int crypto_chunked_prefix(const void* x1, const void* y1, const void* m1,
@@ -121,6 +194,32 @@ extern "C" int crypto_chunked_down(const void* x1, const void* y1, const void* m
       (const uint32_t*)x1, (const uint32_t*)y1, (const int*)m1, (const uint32_t*)x2,
       (const uint32_t*)y2, (const int*)m2, (const uint32_t*)prefix,
       (const uint32_t*)tinv, (const int*)dbl, (uint32_t*)x3, (uint32_t*)y3, M,
+      ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crypto_chunked_prefix_fast(const void* x1, const void* m1, const void* x2,
+                                          const void* m2, void* prefix, void* total,
+                                          void* inf3, long long M, const void* p,
+                                          unsigned int n0inv, void* stream) {
+  if (M % K != 0) return (int)cudaErrorInvalidValue;
+  prefix_fast_kernel<<<ctt::blocks_for(M / K, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const int*)m1, (const uint32_t*)x2, (const int*)m2,
+      (uint32_t*)prefix, (uint32_t*)total, (int*)inf3, M,
+      ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crypto_chunked_down_fast(const void* x1, const void* y1, const void* m1,
+                                        const void* x2, const void* y2, const void* m2,
+                                        const void* prefix, const void* tinv, void* x3,
+                                        void* y3, long long M, const void* p,
+                                        unsigned int n0inv, void* stream) {
+  if (M % K != 0) return (int)cudaErrorInvalidValue;
+  down_fast_kernel<<<ctt::blocks_for(M / K, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const int*)m1, (const uint32_t*)x2,
+      (const uint32_t*)y2, (const int*)m2, (const uint32_t*)prefix,
+      (const uint32_t*)tinv, (uint32_t*)x3, (uint32_t*)y3, M,
       ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: prime-field arithmetic on
 // N 32-bit limbs held in registers, and the batched-affine level helpers
-// that affine_level.cu and chunked_level.cu both use.
+// that affine_level.cu and chunked_level.cu both use (the total formula
+// and the doubling-free fast one).
 //
 // Layout: a batch of M field elements is limb-major, (N, M) uint32 (int32
 // tensors on the Python side); thread i reads limb j of element i at
@@ -214,6 +215,51 @@ __device__ __forceinline__ void denom_dbl_inf(uint32_t d[FQ_LIMBS], bool& is_dbl
   if (dead || is_zero<FQ_LIMBS>(d)) {
 #pragma unroll
     for (int j = 0; j < FQ_LIMBS; ++j) d[j] = j == 0 ? 1u : 0u;
+  }
+}
+
+// Denominator of the doubling-free affine add (crypto_tpu's _denom_fast):
+// d = x2 - x1, a plain limb-0 1 where either operand is infinite, and
+// inf3 = both infinite.  d == 0 (P + P or P + (-P)) stays 0: the caller
+// detects it and reruns the window with the total formula.  Prefix and
+// down of the fast chunked level both call this.
+__device__ __forceinline__ void denom_fast(uint32_t d[FQ_LIMBS], bool& is_inf3,
+                                           const uint32_t x1[FQ_LIMBS],
+                                           const uint32_t x2[FQ_LIMBS], bool i1, bool i2,
+                                           const Fq& m) {
+  sub<FQ_LIMBS>(d, x2, x1, m);
+  if (i1 || i2) {
+#pragma unroll
+    for (int j = 0; j < FQ_LIMBS; ++j) d[j] = j == 0 ? 1u : 0u;
+  }
+  is_inf3 = i1 && i2;
+}
+
+// The distinct-points affine add given dinv = 1/(x2 - x1): lambda =
+// (y2 - y1) * dinv, x3 = lambda^2 - x1 - x2, y3 = lambda*(x1 - x3) - y1
+// (3 Montgomery muls); an infinite operand passes the other one through.
+__device__ __forceinline__ void fast_apply(uint32_t x3[FQ_LIMBS], uint32_t y3[FQ_LIMBS],
+                                           const uint32_t x1[FQ_LIMBS],
+                                           const uint32_t y1[FQ_LIMBS],
+                                           const uint32_t x2[FQ_LIMBS],
+                                           const uint32_t y2[FQ_LIMBS],
+                                           const uint32_t dinv[FQ_LIMBS], bool i1, bool i2,
+                                           const Fq& m) {
+  uint32_t t[FQ_LIMBS], lam[FQ_LIMBS];
+  sub<FQ_LIMBS>(t, y2, y1, m);
+  mont_mul<FQ_LIMBS>(lam, t, dinv, m);
+  mont_mul<FQ_LIMBS>(t, lam, lam, m);
+  sub<FQ_LIMBS>(t, t, x1, m);
+  sub<FQ_LIMBS>(x3, t, x2, m);
+  sub<FQ_LIMBS>(t, x1, x3, m);
+  mont_mul<FQ_LIMBS>(t, lam, t, m);
+  sub<FQ_LIMBS>(y3, t, y1, m);
+  if (i1) {
+    copy<FQ_LIMBS>(x3, x2);
+    copy<FQ_LIMBS>(y3, y2);
+  } else if (i2) {
+    copy<FQ_LIMBS>(x3, x1);
+    copy<FQ_LIMBS>(y3, y1);
   }
 }
 

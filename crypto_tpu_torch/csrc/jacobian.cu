@@ -1,0 +1,236 @@
+// Jacobian point arithmetic on BLS12-381 G1 (a = 0), one thread a point.
+//
+// Replaces crypto_tpu/ops/pallas/curve_kernels.py _kernels_for
+// (call_full_add / call_affine_add / call_double, behind make_add_fns):
+//   full_add(X1, Y1, Z1, X2, Y2, Z2) -> (X3, Y3, Z3, flag)   add-2007-bl
+//   mixed_add(X1, Y1, X2, Y2) -> (X3, Y3, Z3, flag)          mmadd-2007-bl
+//   double(X1, Y1, Z1) -> (X3, Y3, Z3)                       dbl-2009-l
+// with the reference's case handling: an infinite operand (Z == 0) passes
+// the other one through, P + (-P) gives (1, 1, 0) with plain-1 limbs, and
+// P + P is not doubled: it raises the flag (H == 0, r == 0, both finite)
+// and the caller redoes the batch on a total path.  The mixed add takes
+// both operands affine and finite.
+//
+// Bound on the H100: full add does 16 Montgomery muls against 10
+// coordinates moved (6 in, 3 out and the flag), so it is bound by the
+// integer multiply rate; mixed add 6 muls against 7 coordinates and double
+// 7 muls against 6 sit near the balance point.  All intermediates stay in
+// registers; the reference's (L, B) blocks of 1,536 lanes in VMEM become
+// one thread per point, and its lax.map over fixed blocks (a compile-count
+// workaround) becomes one launch over the whole batch.
+#include "field.cuh"
+
+namespace {
+
+using ctt::FQ_LIMBS;
+using ctt::Fq;
+constexpr int T = 128;
+
+__device__ __forceinline__ void plain_one(uint32_t r[FQ_LIMBS]) {
+#pragma unroll
+  for (int j = 0; j < FQ_LIMBS; ++j) r[j] = j == 0 ? 1u : 0u;
+}
+
+__device__ __forceinline__ void zero(uint32_t r[FQ_LIMBS]) {
+#pragma unroll
+  for (int j = 0; j < FQ_LIMBS; ++j) r[j] = 0u;
+}
+
+__global__ void __launch_bounds__(T) full_add_kernel(
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
+    const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
+    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
+    int* __restrict__ flag, long long M, Fq m) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  uint32_t Z1[FQ_LIMBS], Z2[FQ_LIMBS], Z1Z1[FQ_LIMBS], Z2Z2[FQ_LIMBS];
+  uint32_t U1[FQ_LIMBS], S1[FQ_LIMBS], H[FQ_LIMBS], r[FQ_LIMBS], t[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(Z1, z1, M, i);
+  ctt::load<FQ_LIMBS>(Z2, z2, M, i);
+  ctt::mont_mul<FQ_LIMBS>(Z1Z1, Z1, Z1, m);
+  ctt::mont_mul<FQ_LIMBS>(Z2Z2, Z2, Z2, m);
+  ctt::load<FQ_LIMBS>(t, x1, M, i);
+  ctt::mont_mul<FQ_LIMBS>(U1, t, Z2Z2, m);                 // U1 = X1*Z2Z2
+  ctt::load<FQ_LIMBS>(t, x2, M, i);
+  ctt::mont_mul<FQ_LIMBS>(H, t, Z1Z1, m);                  // U2 = X2*Z1Z1
+  ctt::sub<FQ_LIMBS>(H, H, U1, m);                         // H = U2 - U1
+  ctt::load<FQ_LIMBS>(t, y1, M, i);
+  ctt::mont_mul<FQ_LIMBS>(t, t, Z2, m);
+  ctt::mont_mul<FQ_LIMBS>(S1, t, Z2Z2, m);                 // S1 = Y1*Z2*Z2Z2
+  ctt::load<FQ_LIMBS>(t, y2, M, i);
+  ctt::mont_mul<FQ_LIMBS>(t, t, Z1, m);
+  ctt::mont_mul<FQ_LIMBS>(r, t, Z1Z1, m);                  // S2 = Y2*Z1*Z1Z1
+  ctt::sub<FQ_LIMBS>(r, r, S1, m);
+  ctt::add<FQ_LIMBS>(r, r, r, m);                          // r = 2*(S2 - S1)
+  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) * H, before Z1 and Z2 are dropped
+  uint32_t Z3[FQ_LIMBS];
+  ctt::add<FQ_LIMBS>(t, Z1, Z2, m);
+  ctt::mont_mul<FQ_LIMBS>(t, t, t, m);
+  ctt::sub<FQ_LIMBS>(t, t, Z1Z1, m);
+  ctt::sub<FQ_LIMBS>(t, t, Z2Z2, m);
+  ctt::mont_mul<FQ_LIMBS>(Z3, t, H, m);
+  const bool p_inf = ctt::is_zero<FQ_LIMBS>(Z1);
+  const bool q_inf = ctt::is_zero<FQ_LIMBS>(Z2);
+  const bool h0 = ctt::is_zero<FQ_LIMBS>(H);
+  const bool r0 = ctt::is_zero<FQ_LIMBS>(r);
+  uint32_t I[FQ_LIMBS], J[FQ_LIMBS], V[FQ_LIMBS];
+  ctt::add<FQ_LIMBS>(t, H, H, m);
+  ctt::mont_mul<FQ_LIMBS>(I, t, t, m);                     // I = (2H)^2
+  ctt::mont_mul<FQ_LIMBS>(J, H, I, m);                     // J = H*I
+  ctt::mont_mul<FQ_LIMBS>(V, U1, I, m);                    // V = U1*I
+  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
+  ctt::mont_mul<FQ_LIMBS>(t, r, r, m);
+  ctt::sub<FQ_LIMBS>(t, t, J, m);
+  ctt::add<FQ_LIMBS>(X3, V, V, m);
+  ctt::sub<FQ_LIMBS>(X3, t, X3, m);                        // X3 = r^2 - J - 2V
+  ctt::sub<FQ_LIMBS>(t, V, X3, m);
+  ctt::mont_mul<FQ_LIMBS>(Y3, r, t, m);
+  ctt::mont_mul<FQ_LIMBS>(t, S1, J, m);
+  ctt::add<FQ_LIMBS>(t, t, t, m);
+  ctt::sub<FQ_LIMBS>(Y3, Y3, t, m);                        // Y3 = r(V - X3) - 2 S1 J
+  const bool both = !p_inf && !q_inf;
+  if (h0 && !r0 && both) {
+    plain_one(X3);
+    plain_one(Y3);
+    zero(Z3);
+  }
+  if (p_inf) {
+    ctt::load<FQ_LIMBS>(X3, x2, M, i);
+    ctt::load<FQ_LIMBS>(Y3, y2, M, i);
+    ctt::copy<FQ_LIMBS>(Z3, Z2);
+  } else if (q_inf) {
+    ctt::load<FQ_LIMBS>(X3, x1, M, i);
+    ctt::load<FQ_LIMBS>(Y3, y1, M, i);
+    ctt::copy<FQ_LIMBS>(Z3, Z1);
+  }
+  ctt::store<FQ_LIMBS>(x3, X3, M, i);
+  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  ctt::store<FQ_LIMBS>(z3, Z3, M, i);
+  flag[i] = (h0 && r0 && both) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(T) mixed_add_kernel(
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
+    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
+    int* __restrict__ flag, long long M, Fq m) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], H[FQ_LIMBS], r[FQ_LIMBS], t[FQ_LIMBS];
+  uint32_t I[FQ_LIMBS], J[FQ_LIMBS], V[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(X1, x1, M, i);
+  ctt::load<FQ_LIMBS>(Y1, y1, M, i);
+  ctt::load<FQ_LIMBS>(t, x2, M, i);
+  ctt::sub<FQ_LIMBS>(H, t, X1, m);                         // H = X2 - X1
+  ctt::load<FQ_LIMBS>(t, y2, M, i);
+  ctt::sub<FQ_LIMBS>(r, t, Y1, m);
+  ctt::add<FQ_LIMBS>(r, r, r, m);                          // r = 2(Y2 - Y1)
+  ctt::mont_mul<FQ_LIMBS>(t, H, H, m);
+  ctt::add<FQ_LIMBS>(t, t, t, m);
+  ctt::add<FQ_LIMBS>(I, t, t, m);                          // I = 4 H^2
+  ctt::mont_mul<FQ_LIMBS>(J, H, I, m);
+  ctt::mont_mul<FQ_LIMBS>(V, X1, I, m);
+  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
+  ctt::mont_mul<FQ_LIMBS>(t, r, r, m);
+  ctt::sub<FQ_LIMBS>(t, t, J, m);
+  ctt::add<FQ_LIMBS>(X3, V, V, m);
+  ctt::sub<FQ_LIMBS>(X3, t, X3, m);                        // X3 = r^2 - J - 2V
+  ctt::sub<FQ_LIMBS>(t, V, X3, m);
+  ctt::mont_mul<FQ_LIMBS>(Y3, r, t, m);
+  ctt::mont_mul<FQ_LIMBS>(t, Y1, J, m);
+  ctt::add<FQ_LIMBS>(t, t, t, m);
+  ctt::sub<FQ_LIMBS>(Y3, Y3, t, m);                        // Y3 = r(V - X3) - 2 Y1 J
+  ctt::add<FQ_LIMBS>(Z3, H, H, m);                         // Z3 = 2H
+  const bool h0 = ctt::is_zero<FQ_LIMBS>(H);
+  const bool r0 = ctt::is_zero<FQ_LIMBS>(r);
+  if (h0 && !r0) {
+    plain_one(X3);
+    plain_one(Y3);
+    zero(Z3);
+  }
+  ctt::store<FQ_LIMBS>(x3, X3, M, i);
+  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  ctt::store<FQ_LIMBS>(z3, Z3, M, i);
+  flag[i] = (h0 && r0) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(T) double_kernel(
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const uint32_t* __restrict__ z1, uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+    uint32_t* __restrict__ z3, long long M, Fq m) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], A[FQ_LIMBS], B[FQ_LIMBS], C[FQ_LIMBS];
+  uint32_t D[FQ_LIMBS], E[FQ_LIMBS], t[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(X1, x1, M, i);
+  ctt::load<FQ_LIMBS>(Y1, y1, M, i);
+  ctt::mont_mul<FQ_LIMBS>(A, X1, X1, m);                   // A = X1^2
+  ctt::mont_mul<FQ_LIMBS>(B, Y1, Y1, m);                   // B = Y1^2
+  ctt::mont_mul<FQ_LIMBS>(C, B, B, m);                     // C = B^2
+  ctt::add<FQ_LIMBS>(t, X1, B, m);
+  ctt::mont_mul<FQ_LIMBS>(t, t, t, m);
+  ctt::sub<FQ_LIMBS>(t, t, A, m);
+  ctt::sub<FQ_LIMBS>(t, t, C, m);
+  ctt::add<FQ_LIMBS>(D, t, t, m);                          // D = 2((X1+B)^2 - A - C)
+  ctt::add<FQ_LIMBS>(E, A, A, m);
+  ctt::add<FQ_LIMBS>(E, E, A, m);                          // E = 3A
+  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
+  ctt::mont_mul<FQ_LIMBS>(t, E, E, m);
+  ctt::add<FQ_LIMBS>(X3, D, D, m);
+  ctt::sub<FQ_LIMBS>(X3, t, X3, m);                        // X3 = E^2 - 2D
+  ctt::sub<FQ_LIMBS>(t, D, X3, m);
+  ctt::mont_mul<FQ_LIMBS>(Y3, E, t, m);
+  ctt::add<FQ_LIMBS>(C, C, C, m);
+  ctt::add<FQ_LIMBS>(C, C, C, m);
+  ctt::add<FQ_LIMBS>(C, C, C, m);
+  ctt::sub<FQ_LIMBS>(Y3, Y3, C, m);                        // Y3 = E(D - X3) - 8C
+  ctt::load<FQ_LIMBS>(t, z1, M, i);
+  const bool bad = ctt::is_zero<FQ_LIMBS>(Y1) || ctt::is_zero<FQ_LIMBS>(t);
+  ctt::mont_mul<FQ_LIMBS>(Z3, Y1, t, m);
+  ctt::add<FQ_LIMBS>(Z3, Z3, Z3, m);                       // Z3 = 2 Y1 Z1
+  if (bad) {
+    plain_one(X3);
+    plain_one(Y3);
+    zero(Z3);
+  }
+  ctt::store<FQ_LIMBS>(x3, X3, M, i);
+  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  ctt::store<FQ_LIMBS>(z3, Z3, M, i);
+}
+
+inline Fq mod_of(const void* p, unsigned int n0inv) {
+  return ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv);
+}
+
+}  // namespace
+
+extern "C" int crypto_jac_add(const void* x1, const void* y1, const void* z1,
+                              const void* x2, const void* y2, const void* z2, void* x3,
+                              void* y3, void* z3, void* flag, long long M, const void* p,
+                              unsigned int n0inv, void* stream) {
+  full_add_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
+      (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3,
+      (uint32_t*)z3, (int*)flag, M, mod_of(p, n0inv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crypto_jac_add_mixed(const void* x1, const void* y1, const void* x2,
+                                    const void* y2, void* x3, void* y3, void* z3,
+                                    void* flag, long long M, const void* p,
+                                    unsigned int n0inv, void* stream) {
+  mixed_add_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)x2, (const uint32_t*)y2,
+      (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, (int*)flag, M, mod_of(p, n0inv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crypto_jac_double(const void* x1, const void* y1, const void* z1, void* x3,
+                                 void* y3, void* z3, long long M, const void* p,
+                                 unsigned int n0inv, void* stream) {
+  double_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (uint32_t*)x3,
+      (uint32_t*)y3, (uint32_t*)z3, M, mod_of(p, n0inv));
+  return (int)cudaGetLastError();
+}

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("mont_mul.cu", "affine_level.cu", "chunked_level.cu")
+SOURCES = ("mont_mul.cu", "affine_level.cu", "chunked_level.cu",
+           "jacobian.cu", "normalize.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -40,6 +41,14 @@ SIGNATURES = {
     "crypto_affine_post": [_P] * 10 + [_I64, _P, _U32, _P],
     "crypto_chunked_prefix": [_P] * 10 + [_I64, _P, _U32, _P],
     "crypto_chunked_down": [_P] * 11 + [_I64, _P, _U32, _P],
+    "crypto_affine_pre_fast": [_P] * 6 + [_I64, _P, _U32, _P],
+    "crypto_affine_post_fast": [_P] * 9 + [_I64, _P, _U32, _P],
+    "crypto_chunked_prefix_fast": [_P] * 7 + [_I64, _P, _U32, _P],
+    "crypto_chunked_down_fast": [_P] * 10 + [_I64, _P, _U32, _P],
+    "crypto_jac_add": [_P] * 10 + [_I64, _P, _U32, _P],
+    "crypto_jac_add_mixed": [_P] * 8 + [_I64, _P, _U32, _P],
+    "crypto_jac_double": [_P] * 6 + [_I64, _P, _U32, _P],
+    "crypto_normalize": [_P] * 6 + [_I64, _P, _U32, _P, _P, _P],
 }
 
 _lock = threading.Lock()

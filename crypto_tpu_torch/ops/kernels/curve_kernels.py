@@ -1,7 +1,8 @@
 """Batched-affine halving levels: CUDA kernels, wrappers and plain versions.
 
-Two TPU kernels of `crypto_tpu/ops/pallas/curve_kernels.py` on the safe
-(total-formula) MSM path, over BLS12-381 Fq:
+Four TPU kernels of `crypto_tpu/ops/pallas/curve_kernels.py` on the MSM's
+levels, over BLS12-381 Fq.  The total formula (the safe path and the
+per-window rerun):
 
 * `affine_level_pre` / `affine_level_post` replace `affine_kernels_for`
   (`call_pre` / `call_post`), `csrc/affine_level.cu`:
@@ -15,6 +16,17 @@ Two TPU kernels of `crypto_tpu/ops/pallas/curve_kernels.py` on the safe
   t + j*(M/K) that thread t owns; only the (12, M/K) totals go through
   `batch_inv_t`, and down walks back, recomputing each d with the same
   denominator logic as prefix.
+
+The doubling-free formula (the MSM's default; `_denom_fast` is the
+reference's contract: d = x2 - x1, a limb-0 1 where an operand is
+infinite, and d == 0 left as 0 so a colliding pair shows):
+
+* `affine_level_pre_fast` / `affine_level_post_fast` replace
+  `affine_kernels_fast`: pre -> (d, inf3), post -> (x3, y3) by the 3-mul
+  distinct-points formula.
+* `chunked_level_prefix_fast` / `chunked_level_down_fast` replace
+  `chunked_level_kernels_fast`: prefix -> (prefix, total, inf3), a total
+  of 0 where a pair of its thread collides; down -> (x3, y3).
 
 Coordinates are (12, M) limb-major int32 tensors (see `fields/tfield.py`),
 masks (M,) int32, nonzero meaning infinity (m1, m2, inf3) or doubling
@@ -73,6 +85,27 @@ def _unified_apply(F, x1, y1, x2, y2, dinv, is_dbl, i1, i2):
     return x3, y3
 
 
+def _denom_fast(F, x1, x2, i1, i2):
+    """(d, is_inf3) of the doubling-free add: d = x2 - x1, a limb-0 1
+    where either operand is infinite; d == 0 (a colliding pair) stays 0."""
+    d = F.sub(x2, x1)
+    one = torch.zeros_like(d)
+    one[0] = 1
+    return F.select(i1 | i2, one, d), i1 & i2
+
+
+def _fast_apply(F, x1, y1, x2, y2, dinv, i1, i2):
+    def mul(a, b):
+        return mont_mul_plain(a, b, F.mod)
+
+    lam = mul(F.sub(y2, y1), dinv)
+    x3 = F.sub(F.sub(mul(lam, lam), x1), x2)
+    y3 = F.sub(mul(lam, F.sub(x1, x3)), y1)
+    x3 = F.select(i1, x2, F.select(i2, x1, x3))
+    y3 = F.select(i1, y2, F.select(i2, y1, y3))
+    return x3, y3
+
+
 def affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2):
     d, is_dbl, is_inf3 = _denom_dbl_inf(F, x1, y1, x2, y2, m1 != 0, m2 != 0)
     return d, is_dbl.to(torch.int32), is_inf3.to(torch.int32)
@@ -80,6 +113,15 @@ def affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2):
 
 def affine_level_post_plain(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
     return _unified_apply(F, x1, y1, x2, y2, dinv, dbl != 0, m1 != 0, m2 != 0)
+
+
+def affine_level_pre_fast_plain(F, x1, y1, m1, x2, y2, m2):
+    d, is_inf3 = _denom_fast(F, x1, x2, m1 != 0, m2 != 0)
+    return d, is_inf3.to(torch.int32)
+
+
+def affine_level_post_fast_plain(F, x1, y1, x2, y2, dinv, m1, m2):
+    return _fast_apply(F, x1, y1, x2, y2, dinv, m1 != 0, m2 != 0)
 
 
 def chunked_level_prefix_plain(F, x1, y1, m1, x2, y2, m2):
@@ -119,6 +161,42 @@ def chunked_level_down_plain(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
             dinv = t
         x3[:, sl], y3[:, sl] = _unified_apply(F, X1, Y1, X2, Y2, dinv,
                                               dbl[sl] != 0, i1, i2)
+    return x3, y3
+
+
+def chunked_level_prefix_fast_plain(F, x1, y1, m1, x2, y2, m2):
+    M = x1.shape[1]
+    T = M // CHUNK_K
+    prefix = torch.empty_like(x1)
+    inf3 = torch.empty_like(m1)
+    acc = None
+    for j in range(CHUNK_K):
+        sl = slice(j * T, (j + 1) * T)
+        d, is_inf3 = _denom_fast(F, x1[:, sl], x2[:, sl], m1[sl] != 0,
+                                 m2[sl] != 0)
+        acc = d if acc is None else mont_mul_plain(acc, d, F.mod)
+        prefix[:, sl] = acc
+        inf3[sl] = is_inf3.to(torch.int32)
+    return prefix, acc.contiguous(), inf3
+
+
+def chunked_level_down_fast_plain(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
+    M = x1.shape[1]
+    T = M // CHUNK_K
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    t = tinv
+    for j in range(CHUNK_K - 1, -1, -1):
+        sl = slice(j * T, (j + 1) * T)
+        X1, Y1, X2, Y2 = x1[:, sl], y1[:, sl], x2[:, sl], y2[:, sl]
+        i1, i2 = m1[sl] != 0, m2[sl] != 0
+        if j > 0:
+            dinv = mont_mul_plain(t, prefix[:, (j - 1) * T:j * T], F.mod)
+            d, _ = _denom_fast(F, X1, X2, i1, i2)
+            t = mont_mul_plain(t, d, F.mod)
+        else:
+            dinv = t
+        x3[:, sl], y3[:, sl] = _fast_apply(F, X1, Y1, X2, Y2, dinv, i1, i2)
     return x3, y3
 
 
@@ -227,6 +305,90 @@ def chunked_level_down(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
     return x3, y3
 
 
+def affine_level_pre_fast(F, x1, y1, m1, x2, y2, m2):
+    """Doubling-free level denominators: (d, inf3), d == 0 on a colliding
+    pair.  y1 and y2 are not read (the reference's signature)."""
+    M = _check("affine_level_pre_fast", F, (x1, y1, x2, y2), (m1, m2))
+    if not on_card("affine_level_pre_fast", x1.device):
+        return affine_level_pre_fast_plain(F, x1, y1, m1, x2, y2, m2)
+    d = torch.empty_like(x1)
+    inf3 = torch.empty_like(m1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_affine_pre_fast(*_ptrs(x1, m1, x2, m2, d, inf3),
+                                         *_c_args(F, M, x1.device)),
+              "affine_level_pre_fast")
+        affine_level_pre_fast.launches += 1
+    return d, inf3
+
+
+def affine_level_post_fast(F, x1, y1, x2, y2, dinv, m1, m2):
+    """The distinct-points add given dinv: (x3, y3)."""
+    M = _check("affine_level_post_fast", F, (x1, y1, x2, y2, dinv), (m1, m2))
+    if not on_card("affine_level_post_fast", x1.device):
+        return affine_level_post_fast_plain(F, x1, y1, x2, y2, dinv, m1, m2)
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_affine_post_fast(*_ptrs(x1, y1, x2, y2, dinv, m1, m2,
+                                                 x3, y3),
+                                          *_c_args(F, M, x1.device)),
+              "affine_level_post_fast")
+        affine_level_post_fast.launches += 1
+    return x3, y3
+
+
+def chunked_level_prefix_fast(F, x1, y1, m1, x2, y2, m2):
+    """(prefix (12, M), total (12, M/K), inf3); a total is 0 where one of
+    its thread's pairs collides.  M a multiple of K; y1, y2 not read."""
+    M = _check("chunked_level_prefix_fast", F, (x1, y1, x2, y2), (m1, m2))
+    if M % CHUNK_K:
+        raise ValueError(f"chunked_level_prefix_fast: M={M} is not a "
+                         f"multiple of {CHUNK_K}")
+    if not on_card("chunked_level_prefix_fast", x1.device):
+        return chunked_level_prefix_fast_plain(F, x1, y1, m1, x2, y2, m2)
+    prefix = torch.empty_like(x1)
+    total = torch.empty((F.L, M // CHUNK_K), dtype=torch.int32,
+                        device=x1.device)
+    inf3 = torch.empty_like(m1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_chunked_prefix_fast(*_ptrs(x1, m1, x2, m2, prefix,
+                                                    total, inf3),
+                                             *_c_args(F, M, x1.device)),
+              "chunked_level_prefix_fast")
+        chunked_level_prefix_fast.launches += 1
+    return prefix, total, inf3
+
+
+def chunked_level_down_fast(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
+    """(x3, y3) from the inverted chunk totals, distinct-points formula."""
+    M = _check("chunked_level_down_fast", F, (x1, y1, x2, y2, prefix),
+               (m1, m2))
+    if M % CHUNK_K:
+        raise ValueError(f"chunked_level_down_fast: M={M} is not a multiple "
+                         f"of {CHUNK_K}")
+    check_limbs("chunked_level_down_fast", F.L, tinv)
+    if tinv.shape[1] != M // CHUNK_K or tinv.device != x1.device:
+        raise ValueError("chunked_level_down_fast: tinv must be (12, M/K) on "
+                         "the coordinates' device")
+    if not on_card("chunked_level_down_fast", x1.device):
+        return chunked_level_down_fast_plain(F, x1, y1, m1, x2, y2, m2,
+                                             prefix, tinv)
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_chunked_down_fast(*_ptrs(x1, y1, m1, x2, y2, m2,
+                                                  prefix, tinv, x3, y3),
+                                           *_c_args(F, M, x1.device)),
+              "chunked_level_down_fast")
+        chunked_level_down_fast.launches += 1
+    return x3, y3
+
+
 for _fn in (affine_level_pre, affine_level_post, chunked_level_prefix,
-            chunked_level_down):
+            chunked_level_down, affine_level_pre_fast, affine_level_post_fast,
+            chunked_level_prefix_fast, chunked_level_down_fast):
     _fn.launches = 0

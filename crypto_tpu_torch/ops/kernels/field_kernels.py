@@ -58,8 +58,9 @@ def to_i32(u: torch.Tensor) -> torch.Tensor:
 
 class Modulus:
     """A prime modulus as the kernels take it: its 32-bit limbs for the C
-    entry points, -p^-1 mod 2^32, and per-device half-limb tensors for the
-    plain version."""
+    entry points (with those of p - 2, the Fermat exponent, and of the
+    Montgomery 1), -p^-1 mod 2^32, and per-device half-limb tensors for
+    the plain version."""
 
     def __init__(self, p: int, L: int):
         self.p = p
@@ -67,6 +68,8 @@ class Modulus:
         self.n0inv = (-pow(p, -1, 1 << 32)) % (1 << 32)
         self.n0inv16 = self.n0inv & MASK16
         self.p_c = (ctypes.c_uint32 * L)(*limbs32(p, L))
+        self.pm2_c = (ctypes.c_uint32 * L)(*limbs32(p - 2, L))
+        self.one_c = (ctypes.c_uint32 * L)(*limbs32((1 << (32 * L)) % p, L))
         self._halves = {}
 
     def halves(self, device) -> torch.Tensor:
@@ -82,7 +85,8 @@ class Modulus:
 def _halves(a: torch.Tensor) -> torch.Tensor:
     """(L, M) int32 limbs -> (2L, M) int64 16-bit half-limbs."""
     u = u32(a)
-    return torch.stack([u & MASK16, u >> 16], dim=1).reshape(-1, u.shape[1])
+    return torch.stack([u & MASK16, u >> 16], dim=1).reshape(2 * u.shape[0],
+                                                             u.shape[1])
 
 
 def _join(h: torch.Tensor) -> torch.Tensor:

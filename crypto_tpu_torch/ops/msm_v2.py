@@ -1,10 +1,15 @@
 """Device-scheduled Pippenger MSM with batched-affine bucket reduction.
 
-Counterpart of `crypto_tpu/ops/msm_v2.py` `msm_device_scheduled` in its
-safe-formula configuration (the reference's `CRYPTO_TPU_SAFE_AFFINE`):
-the total unified add/double runs in every level, so the result is exact
-for every input (duplicate bases included) with no zero-denominator flag
-and no rerun.  The steps:
+Counterpart of `crypto_tpu/ops/msm_v2.py` `msm_device_scheduled`.  By
+default, as in the reference, the levels run the doubling-free fast
+kernels, which assume distinct non-opposite operands (true of every real
+workload with distinct bases); a colliding pair (a duplicate base in a
+bucket, or a partial-sum collision of probability ~2^-215 on random
+bases) shows as a zero denominator, flags its window, and the flagged
+windows are rerun with the total unified add/double before the tail.
+`safe=True` runs the total formula everywhere (the reference's
+`CRYPTO_TPU_SAFE_AFFINE`), exact for every input with no flag and no
+rerun.  The steps:
 
 1. signed c-bit window digits on the device (`device_digits`);
 2. a stable-argsort bucket plan per window, with the buckets sorted by
@@ -16,10 +21,13 @@ and no rerun.  The steps:
 4. unified batched-affine halving levels across all bands
    (`_bucket_sums_bands_unified`), each level one `pair_add_t`: the
    chunked level kernels around `batch_inv_t` of the chunk totals for wide
-   levels, else pre -> `batch_inv_t` -> post;
-5. the Jacobian weighted tail (`tail_fn`), whose field muls run through
+   levels, else pre -> `batch_inv_t` -> post; each window's flag stays on
+   the device until all levels are done;
+5. one pull of the flags, and the flagged windows' levels again with the
+   total formula, whose bucket sums replace theirs;
+6. the Jacobian weighted tail (`tail_fn`), whose field muls run through
    the mont_mul kernel;
-6. the window combine by Horner's rule on the host.
+7. the window combine by Horner's rule on the host.
 
 Differences from the reference, all from the card's side of the design:
 
@@ -33,7 +41,10 @@ Differences from the reference, all from the card's side of the design:
   The chunked level is taken from the reference's 4,096 pairs a call, so
   every level of a 2^20 MSM is chunked and pre/post serves the narrow
   levels of small MSMs; no threshold up to 2^24 timed measurably faster
-  at 2^20 (`sweep_chunk_threshold.py`).
+  at 2^20 (`sweep_chunk_threshold.py`).  A collision then shares its
+  level call (and, in the chunked level, its thread's chunk total) with
+  other windows, so `pair_add_t` keeps the inversion valid and flags
+  every window the zero touched, and only those are rerun.
 * x and the sign-applied y are gathered as two (12, slots) limb tensors;
   the reference's packed 30-bit x|y payload was a TPU gather trick.
 * N is not padded to a power of two: the reference did so to share one
@@ -324,41 +335,88 @@ def _pad_cols(t: torch.Tensor, n: int, fill: int) -> torch.Tensor:
     return torch.cat([t, pad], dim=-1)
 
 
-def pair_add_t(F, x1, y1, m1, x2, y2, m2, widths: list | None = None):
-    """One batched-affine level over M pairs, limb-major: (x3, y3, inf3).
-    The safe `_fused_ctx` dispatch: the chunked level kernels around the
-    inversion of the chunk totals from CHUNK_MIN_PAIRS pairs, else pre ->
-    batch inversion -> post.  M is appended to `widths` if one is given."""
+def pair_add_t(F, x1, y1, m1, x2, y2, m2, fast: bool = False,
+               trace: dict | None = None, windows: int = 1):
+    """One batched-affine level over M pairs, limb-major: (x3, y3, inf3,
+    zero).  The `_fused_ctx` dispatch: the chunked level kernels around
+    the inversion of the chunk totals from CHUNK_MIN_PAIRS pairs, else pre
+    -> batch inversion -> post; the doubling-free kernels when `fast`,
+    else the total formula.
+
+    `zero` (M,) bool marks the lanes whose result is unreliable: on the
+    fast path a colliding pair (P + P or P + (-P)) has d == 0, which zeroes
+    its thread's chunk total and so spoils all K pairs t + j*M/K of that
+    thread (pre/post: that lane alone).  Zero totals and zero d are
+    replaced by 1 before `batch_inv_t`, so one collision cannot zero the
+    root of the product tree and with it every inverse of the call; the
+    other lanes stay exact.  All False on the total-formula path.
+
+    `trace`: if a dict, M is appended to its list "level_pairs" and, on
+    the fast path, (M, windows, K, zero_chunks) to "zero_chunks", where
+    zero_chunks (M/K,) (K = 1 for pre/post) marks the zero totals and
+    `windows` is the number of equal window-major segments the M lanes
+    form (the caller's layout)."""
     M = x1.shape[1]
-    if widths is not None:
-        widths.append(M)
+    if trace is not None:
+        trace.setdefault("level_pairs", []).append(M)
     if M >= CHUNK_MIN_PAIRS:
         pad = (-M) % CHUNK_PAD
         x1, y1, x2, y2 = (_pad_cols(t, pad, 0) for t in (x1, y1, x2, y2))
         m1, m2 = _pad_cols(m1, pad, 1), _pad_cols(m2, pad, 1)
-        prefix, total, dbl, inf3 = ck.chunked_level_prefix(F, x1, y1, m1,
-                                                           x2, y2, m2)
-        tinv = batch_inv_t(F, total)
-        x3, y3 = ck.chunked_level_down(F, x1, y1, m1, x2, y2, m2, prefix,
-                                       tinv, dbl)
-        return x3[:, :M], y3[:, :M], inf3[:M]
+        if fast:
+            prefix, total, inf3 = ck.chunked_level_prefix_fast(
+                F, x1, y1, m1, x2, y2, m2)
+            zt = F.is_zero(total)
+            total[0] |= zt.to(torch.int32)
+            tinv = batch_inv_t(F, total)
+            x3, y3 = ck.chunked_level_down_fast(F, x1, y1, m1, x2, y2, m2,
+                                                prefix, tinv)
+            zero = zt.repeat(ck.CHUNK_K)[:M]
+            if trace is not None:
+                trace.setdefault("zero_chunks", []).append(
+                    (M, windows, ck.CHUNK_K, zt))
+        else:
+            prefix, total, dbl, inf3 = ck.chunked_level_prefix(
+                F, x1, y1, m1, x2, y2, m2)
+            tinv = batch_inv_t(F, total)
+            x3, y3 = ck.chunked_level_down(F, x1, y1, m1, x2, y2, m2,
+                                           prefix, tinv, dbl)
+            zero = torch.zeros(M, dtype=torch.bool, device=x1.device)
+        return x3[:, :M], y3[:, :M], inf3[:M], zero
+    if fast:
+        d, inf3 = ck.affine_level_pre_fast(F, x1, y1, m1, x2, y2, m2)
+        zero = F.is_zero(d)
+        d[0] |= zero.to(torch.int32)
+        x3, y3 = ck.affine_level_post_fast(F, x1, y1, x2, y2,
+                                           batch_inv_t(F, d), m1, m2)
+        if trace is not None:
+            trace.setdefault("zero_chunks", []).append((M, windows, 1, zero))
+        return x3, y3, inf3, zero
     d, dbl, inf3 = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
     dinv = batch_inv_t(F, d)
     x3, y3 = ck.affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
-    return x3, y3, inf3
+    return x3, y3, inf3, torch.zeros(M, dtype=torch.bool, device=x1.device)
 
 
-def _level(F, lefts, rights, widths=None):
+def _window_flags(zero: torch.Tensor, windows: int) -> torch.Tensor:
+    """(windows,) bool: the windows of a window-major lane layout that
+    hold a spoiled lane."""
+    return zero.reshape(windows, -1).any(dim=1)
+
+
+def _level(F, lefts, rights, fast=False, trace=None):
     """pair_add_t over segment pairs, each segment (x (L, Wb, w), y, m
-    (Wb, w)); returns the sums split back by the left widths."""
+    (Wb, w)); returns the sums split back by the left widths, and the
+    (Wb,) flags of the windows with a spoiled lane."""
     L = F.L
     Wb = lefts[0][2].shape[0]
     cat_x = [torch.cat([s[k] for s in side], dim=2).reshape(L, -1)
              for side in (lefts, rights) for k in (0, 1)]
     cat_m = [torch.cat([s[2] for s in side], dim=1).reshape(-1)
              for side in (lefts, rights)]
-    cx, cy, cm = pair_add_t(F, cat_x[0], cat_x[1], cat_m[0],
-                            cat_x[2], cat_x[3], cat_m[1], widths)
+    cx, cy, cm, zero = pair_add_t(F, cat_x[0], cat_x[1], cat_m[0],
+                                  cat_x[2], cat_x[3], cat_m[1], fast, trace,
+                                  Wb)
     cx, cy, cm = cx.reshape(L, Wb, -1), cy.reshape(L, Wb, -1), \
         cm.reshape(Wb, -1)
     out, off = [], 0
@@ -367,13 +425,15 @@ def _level(F, lefts, rights, widths=None):
         out.append((cx[:, :, off:off + w], cy[:, :, off:off + w],
                     cm[:, off:off + w]))
         off += w
-    return out
+    return out, _window_flags(zero, Wb)
 
 
 def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
-                               invperm, bands: tuple, B: int, widths=None):
+                               invperm, bands: tuple, B: int, fast=False,
+                               trace=None):
     """Bucket sums of Wb windows under one band layout: (x, y (L, Wb, B),
-    inf (Wb, B)) in natural bucket order.
+    inf (Wb, B)) in natural bucket order, and the (Wb,) flags of the
+    windows that a colliding pair spoiled (fast levels only).
 
     One gather lays out every band's slots (rank-major, so halving a band
     pairs equal buckets); then one `pair_add_t` per halving level across
@@ -392,6 +452,7 @@ def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
     xs = x.index_select(1, flat).reshape(L, Wb, -1)
     ys = ytab.index_select(1, (src + N * neg).reshape(-1)).reshape(L, Wb, -1)
     ms = (~valid).to(torch.int32)
+    wflag = torch.zeros(Wb, dtype=torch.bool, device=digits.device)
     segs, off = [], 0
     for (Q, h, _r0) in bands:
         w = Q * h
@@ -405,7 +466,9 @@ def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
             h = s[0][2].shape[1] // 2
             lefts.append(tuple(t[..., :h] for t in s[0]))
             rights.append(tuple(t[..., h:] for t in s[0]))
-        for s, r in zip(active, _level(F, lefts, rights, widths)):
+        outs, fl = _level(F, lefts, rights, fast, trace)
+        wflag |= fl
+        for s, r in zip(active, outs):
             s[0] = r
 
     def pad_dead(seg, w):
@@ -418,12 +481,38 @@ def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
         lefts = finals[0:len(finals) - 1:2]
         rights = [pad_dead(b, a[2].shape[1])
                   for a, b in zip(lefts, finals[1::2])]
-        nxt = _level(F, lefts, rights, widths)
+        nxt, fl = _level(F, lefts, rights, fast, trace)
+        wflag |= fl
         finals = nxt + ([finals[-1]] if len(finals) % 2 else [])
     ax, ay, am = pad_dead(finals[0], B)
     idx = invperm.unsqueeze(0).expand(L, Wb, B)
     return (torch.gather(ax, 2, idx), torch.gather(ay, 2, idx),
-            torch.gather(am, 1, invperm) != 0)
+            torch.gather(am, 1, invperm) != 0, wflag)
+
+
+def _window_sums(F, bands: tuple, ws: list, digits, points, order, starts_p,
+                 counts_p, invperm, B: int, fast: bool, trace=None):
+    """Bucket sums of the windows `ws` under one band layout, in pieces of
+    at most SLOT_CAP slots whose sums are added: (x, y, inf, flags), the
+    (len(ws),) flags as in `_bucket_sums_bands_unified`."""
+    L = F.L
+    wi = torch.tensor(ws, device=digits.device)
+    acc = None
+    for piece in _pieces(bands, len(ws)):
+        sx, sy, sinf, fl = _bucket_sums_bands_unified(
+            F, digits[wi], points.X, points.Y, order[wi], starts_p[wi],
+            counts_p[wi], invperm[wi], piece, B, fast, trace)
+        if acc is not None:
+            x3, y3, i3, zero = pair_add_t(
+                F, acc[0].reshape(L, -1), acc[1].reshape(L, -1),
+                acc[2].reshape(-1).to(torch.int32), sx.reshape(L, -1),
+                sy.reshape(L, -1), sinf.reshape(-1).to(torch.int32), fast,
+                trace, len(ws))
+            sx, sy = x3.reshape(sx.shape), y3.reshape(sy.shape)
+            sinf = i3.reshape(sinf.shape) != 0
+            fl = fl | acc[3] | _window_flags(zero, len(ws))
+        acc = (sx, sy, sinf, fl)
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -509,22 +598,27 @@ def _sync(dev) -> None:
 def msm_device_scheduled(curve: SWCurve, points, scalars,
                          c: int | None = None, nbits: int | None = None,
                          pad: int | None = None, device="cuda",
-                         timings: dict | None = None) -> Point:
+                         timings: dict | None = None,
+                         safe: bool = False) -> Point:
     """sum_i scalars[i] * points[i] on the device; returns a host Point.
 
     `points`: host Point list or `TPoints` with Z in {0, 1}.
     `scalars`: int sequence, (N, nbytes) uint8 LE bytes (numpy or tensor),
     or a (W, N) int32 digit tensor from `device_digits`.
     `pad`: run the grid with this many ranks per bucket (at least the
-    largest bucket).  `timings`: if a dict, the seconds of each phase are
-    stored in it (the device is synchronised between phases), and the pair
-    count of every level call is appended to its list "level_pairs"."""
+    largest bucket).  `safe`: run every level with the total formula (the
+    reference's `CRYPTO_TPU_SAFE_AFFINE`); by default the levels are
+    doubling-free and the windows a colliding pair spoiled are rerun with
+    the total formula, each named in a warning.  `timings`: if a dict, the
+    seconds of each phase are stored in it (the device is synchronised
+    between phases), the rerun windows in its list "rerun_windows", and
+    each level call's record as `pair_add_t`'s `trace` describes (the
+    rerun's calls in the dict "rerun_trace")."""
     dev = resolve_device(device)
     tc = tcurve_for(curve, dev)
     F = tc.F
+    fast = not safe
     t0 = time.perf_counter()
-    widths = None if timings is None else timings.setdefault("level_pairs",
-                                                             [])
     if nbits is None:
         nbits = curve.scalar_field.bits
     if not isinstance(points, TPoints):
@@ -587,26 +681,38 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
     bx = torch.empty((L, W, B), dtype=torch.int32, device=dev)
     by = torch.empty_like(bx)
     binf = torch.empty((W, B), dtype=torch.bool, device=dev)
-    for bands, ws in groups.items():
+    flags = torch.zeros(W, dtype=torch.bool, device=dev)
+    plan = (digits, points, order, starts_p, counts_p, invperm, B)
+
+    def run(bands, ws, fast_w, trace):
+        sx, sy, sinf, fl = _window_sums(F, bands, ws, *plan, fast_w, trace)
         wi = torch.tensor(ws, device=dev)
-        acc = None
-        for piece in _pieces(bands, len(ws)):
-            sx, sy, sinf = _bucket_sums_bands_unified(
-                F, digits[wi], points.X, points.Y, order[wi], starts_p[wi],
-                counts_p[wi], invperm[wi], piece, B, widths)
-            if acc is not None:
-                x3, y3, i3 = pair_add_t(
-                    F, acc[0].reshape(L, -1), acc[1].reshape(L, -1),
-                    acc[2].reshape(-1).to(torch.int32), sx.reshape(L, -1),
-                    sy.reshape(L, -1), sinf.reshape(-1).to(torch.int32),
-                    widths)
-                sx, sy = x3.reshape(sx.shape), y3.reshape(sy.shape)
-                sinf = i3.reshape(sinf.shape) != 0
-            acc = (sx, sy, sinf)
-        bx[:, wi], by[:, wi], binf[wi] = acc
+        bx[:, wi], by[:, wi], binf[wi] = sx, sy, sinf
+        return wi, fl
+
+    for bands, ws in groups.items():
+        wi, fl = run(bands, ws, fast, timings)
+        flags[wi] = fl
     if timings is not None:
         _sync(dev)
         timings["levels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    # one pull of the flags, before the tail; the safe path has none
+    rerun = [int(w) for w in np.nonzero(flags.cpu().numpy())[0]] if fast \
+        else []
+    for w in rerun:
+        logger.warning("msm_v2: colliding pair in window %d (duplicate "
+                       "bases?), rerunning with total-formula kernels", w)
+    rerun_trace = None if timings is None else {}
+    for bands, ws in groups.items():
+        again = [w for w in ws if w in rerun]
+        if again:
+            run(bands, again, False, rerun_trace)
+    if timings is not None:
+        _sync(dev)
+        timings["rerun"] = time.perf_counter() - t0
+        timings["rerun_windows"] = rerun
+        timings["rerun_trace"] = rerun_trace
         t0 = time.perf_counter()
 
     ox, oy, oinf = tail_fn(tc, c)(bx, by, binf)

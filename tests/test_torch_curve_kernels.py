@@ -118,7 +118,8 @@ def test_chunked_level_vs_reference(n_pairs, monkeypatch):
                                        tinv, dbl)
     else:
         monkeypatch.setattr(msm_v2, "CHUNK_MIN_PAIRS", 1)
-        x3, y3, inf3 = msm_v2.pair_add_t(F, x1, y1, m1, x2, y2, m2)
+        x3, y3, inf3, zero = msm_v2.pair_add_t(F, x1, y1, m1, x2, y2, m2)
+        assert not bool(zero.any())
     _check(pairs, x3, y3, inf3)
     # the chunked and the pre/post level give the same values
     d, dbl2, inf2 = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)

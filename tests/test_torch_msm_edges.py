@@ -1,8 +1,8 @@
 """The port's MSM on its edge paths, against the host: duplicate bases
-(the doubling case of the total formula, and a count profile outside the
-Poisson model), all-equal scalars (occupancy above MAX_PROFILE_RANK: the
-grid of per-round pads), the chunked level inside an MSM, and the `pad`
-argument.  CPU, small sizes.
+(a collision of the fast levels, rerun with the total formula, and a
+count profile outside the Poisson model), all-equal scalars (occupancy
+above MAX_PROFILE_RANK: the grid of per-round pads), the chunked level
+inside an MSM, and the `pad` argument.  CPU, small sizes.
 """
 
 import logging
@@ -24,13 +24,22 @@ def _points(n):
 
 
 def test_duplicate_bases(caplog):
+    """Eight equal bases in one bucket: the fast levels' zero denominator
+    flags window 0, which is rerun with the total formula.  The first
+    level (32 windows x 128 lanes = 4,096 pairs) takes the chunked level,
+    whose zero total at thread t spoils pairs t + j*512: one in every
+    fourth window, all of which are flagged and rerun."""
     p0 = G.mul_raw(rng.randrange(1, tb.R))
+    timings = {}
     with caplog.at_level(logging.WARNING, logger="crypto_tpu_torch.msm"):
         got = tm.msm_device_scheduled(tb.G1, [p0] * 8, [7] * 8, c=8,
-                                      device="cpu")
+                                      device="cpu", timings=timings)
     assert got == p0.mul_raw(56)
-    assert any("outside the Poisson model" in r.getMessage()
-               for r in caplog.records)
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any("outside the Poisson model" in m for m in msgs)
+    assert any("colliding pair in window 0" in m and "rerunning" in m
+               for m in msgs)
+    assert timings["rerun_windows"] == list(range(0, 32, 4))
 
 
 def test_all_equal_scalars_grid_path(monkeypatch):
@@ -56,12 +65,14 @@ def test_all_equal_scalars_grid_path(monkeypatch):
 
 
 def test_chunked_levels_inside_msm(monkeypatch):
-    """Lower the chunked threshold so both level paths run in one MSM."""
+    """Lower the chunked threshold so both (fast) level paths run in one
+    MSM."""
     n = 64
     pts, dlogs = _points(n)
     scs = [rng.randrange(0, 1 << 16) for _ in range(n)]
     widths = {"chunked": 0, "pre": 0}
-    real_prefix, real_pre = ck.chunked_level_prefix, ck.affine_level_pre
+    real_prefix = ck.chunked_level_prefix_fast
+    real_pre = ck.affine_level_pre_fast
 
     def prefix(*a):
         widths["chunked"] += 1
@@ -72,8 +83,8 @@ def test_chunked_levels_inside_msm(monkeypatch):
         return real_pre(*a)
 
     monkeypatch.setattr(tm, "CHUNK_MIN_PAIRS", 300)
-    monkeypatch.setattr(ck, "chunked_level_prefix", prefix)
-    monkeypatch.setattr(ck, "affine_level_pre", pre)
+    monkeypatch.setattr(ck, "chunked_level_prefix_fast", prefix)
+    monkeypatch.setattr(ck, "affine_level_pre_fast", pre)
     got = tm.msm_device_scheduled(tb.G1, pts, scs, c=8, nbits=16,
                                   device="cpu")
     assert got == G.mul_raw(sum(s * d for s, d in zip(scs, dlogs)) % tb.R)
