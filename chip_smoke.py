@@ -20,15 +20,28 @@ before it and read just after:
   through the total-formula kernels;
 * the edge MSMs (8 duplicate bases, whose window is rerun through the
   total-formula pre/post; 300 points with one scalar, the grid path);
-* the Jacobian add, mixed add and double of `make_add_fns` at 2^20 rows.
+* the Jacobian add, mixed add and double of `make_add_fns` at 2^20 rows;
+* G2 bench points: 2^20 distinct BLS12-381 G2 points with known discrete
+  logs, built by the total `TCurve` add and `to_affine` over Fq2;
+* the 2^20 G2 MSM (c = 16, full-range scalars), three timed runs, each
+  checked against the known discrete logs, on the reference's Fq2
+  configuration: the Fq2 pre/post at every level, the Fq2 mul in the
+  inversions and the tail, the Fq2 square in the tail, and no G1 level
+  kernel;
+* the 2^20 G2 MSM with its squares through the square kernel and through
+  the product kernel, in turns (timed, outside the counted paths);
+* the G2 edge MSMs (duplicate bases, a base and its negation, infinity,
+  zero scalars; 300 points with one scalar), checked against the host
+  sum with no rerun.
 
-Then it holds every kernel against its plain PyTorch version bit for bit
-at the shapes a path gave it, and profiles one more 2^20 MSM for the
-device's busy share.  It fails if a kernel of a path was not launched on
-it.  One line per phase; before the last line the card's name and power
-limit and a JSON object of the kernels' launches and times; the last line
-is the result object.  Exits non-zero on any failure, and when there is
-no CUDA device.
+Every MSM lays out its bucket slots through the gather kernel.  Then it
+holds every kernel against its plain PyTorch version bit for bit at the
+shapes a path gave it, and profiles one more 2^20 G1 MSM and one more G2
+MSM for the device's busy share.  It fails if a kernel of a path was not
+launched on it.  One line per phase; before the last line the card's name
+and power limit and a JSON object of the kernels' launches and times; the
+last line is the result object.  Exits non-zero on any failure, and when
+there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import torch
 N_LOG = 20
 SEED = 20251016
 MSM_RUNS = 5                        # timed 2^20 MSMs, fresh scalars each
+G2_MSM_RUNS = 3                     # timed 2^20 G2 MSMs, fresh scalars each
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 # 32-bit integer multiply-adds: 64 per SM per clock on compute capability
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
@@ -53,6 +67,7 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_IMAD_PER_S = 132 * 64 * 1.98e9
 FQ_LIMBS = 12
 FQ_BYTES = 4 * FQ_LIMBS            # one Fq element, 12 x 32-bit limbs
+FQ2_BYTES = 2 * FQ_BYTES           # one Fq2 element
 
 
 def phase(name: str, **kv) -> None:
@@ -106,14 +121,20 @@ LEVEL_KERNELS = {
 }
 SAFE_KERNELS = LEVEL_KERNELS[("chunked", True)] \
     + LEVEL_KERNELS[("pre_post", True)]
+G1_LEVEL_KERNELS = sum(LEVEL_KERNELS.values(), ())
+# what a G2 MSM launches: the gather, the Fq2 level, mul and square, and
+# mont_mul (the base-field Fermat root of every Fq2 inversion)
+G2_KERNELS = ("gather_cols", "affine_level_pre_fq2", "affine_level_post_fq2",
+              "fq2_mul", "fq2_sqr", "mont_mul")
+FQ2_KERNELS = G2_KERNELS[1:5]
 
 
 def level_kernels(fast_widths, safe_widths, threshold: int) -> set:
-    """The kernels a run's level calls are dispatched to: mont_mul always,
+    """The kernels a G1 run dispatches to: the gather and mont_mul always,
     the chunked level for calls of at least `threshold` pairs, pre/post for
     the narrower ones; the fast variants for the fast calls, the total
     formula for the rerun's."""
-    names = {"mont_mul"}
+    names = {"gather_cols", "mont_mul"}
     for widths, safe in ((fast_widths, False), (safe_widths, True)):
         if any(w >= threshold for w in widths):
             names.update(LEVEL_KERNELS[("chunked", safe)])
@@ -186,6 +207,7 @@ def main() -> int:
     from crypto_tpu_torch.ops.kernels import field_kernels as fk
     from crypto_tpu_torch.ops.kernels import point_kernels as pk
 
+    t_start = time.time()
     dev = torch.device("cuda")
     card = card_line()
     phase("card", card=repr(card), torch=torch.__version__,
@@ -202,7 +224,9 @@ def main() -> int:
                ck.affine_level_pre_fast, ck.affine_level_post_fast,
                ck.chunked_level_prefix_fast, ck.chunked_level_down_fast,
                pk.jacobian_add, pk.jacobian_add_mixed, pk.jacobian_double,
-               pk.jacobian_normalize)
+               pk.jacobian_normalize, fk.fq2_mul, fk.fq2_sqr,
+               ck.affine_level_pre_fq2, ck.affine_level_post_fq2,
+               fk.gather_cols)
     thr = msm_v2.CHUNK_MIN_PAIRS
     paths = {}            # path -> (launches, level widths)
 
@@ -255,24 +279,26 @@ def main() -> int:
         if result != expect:
             raise AssertionError("2^20 MSM disagrees with the known-dlog "
                                  "result")
-        if timings["rerun_windows"] or any(launches[k]
-                                           for k in SAFE_KERNELS):
+        if timings["rerun_windows"] or any(launches[k] for k in
+                                           SAFE_KERNELS + FQ2_KERNELS):
             raise AssertionError(
                 f"2^20 MSM on distinct bases reran windows "
                 f"{timings['rerun_windows']} or launched a total-formula "
-                f"level kernel: {launches}")
+                f"or an Fq2 kernel: {launches}")
         widths = timings["level_pairs"]
         require("2^20 MSM", launches, level_kernels(widths, [], thr))
         secs.append(dt)
         main_runs.append((launches, widths))
         phase("msm_run", run=run, seconds=dt, points_per_s=n / dt,
-              phases=floats(timings), rerun_windows=[], correct=True)
+              phases=floats(timings), rerun_windows=[],
+              gather_launches=launches["gather_cols"], correct=True)
     main_launches, main_widths = main_runs[0]
     paths["msm_2^20"] = main_runs[0]
     med = statistics.median(secs)
     phase("msm", n=n, c=16, runs=MSM_RUNS, seconds=secs, median_s=med,
           spread=max(secs) / min(secs), points_per_s=n / med,
-          level_pairs=main_widths, chunk_min_pairs=thr,
+          level_pairs=main_widths, slots=timings["slots"],
+          chunk_min_pairs=thr,
           bench_points_seconds=round(t_points, 3), card=repr(card),
           correct=True)
 
@@ -382,16 +408,17 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_pts = points.X.shape[1]
 
-    def level_inputs(M: int):
-        """M pairs of real points: generic pairs, doublings, P + (-P) and
-        infinite operands on either or both sides."""
+    def level_inputs(M: int, pts=points, Fx=F):
+        """M pairs of real points of `pts` (over the field `Fx`): generic
+        pairs, doublings, P + (-P) and infinite operands on either or both
+        sides."""
         i1 = torch.randint(0, n_pts, (M,), generator=gen, device=dev)
         i2 = torch.randint(0, n_pts, (M,), generator=gen, device=dev)
         lane = torch.arange(M, device=dev)
         i2 = torch.where(lane % 7 < 2, i1, i2)             # same x
-        x1, y1 = points.X[:, i1], points.Y[:, i1]
-        x2, y2 = points.X[:, i2], points.Y[:, i2]
-        y2 = torch.where((lane % 7 == 1)[None], F.neg(y2), y2)   # P + (-P)
+        x1, y1 = pts.X[:, i1], pts.Y[:, i1]
+        x2, y2 = pts.X[:, i2], pts.Y[:, i2]
+        y2 = torch.where((lane % 7 == 1)[None], Fx.neg(y2), y2)  # P + (-P)
         m1 = ((lane % 11 == 3) | (lane % 13 == 5)).to(torch.int32)
         m2 = ((lane % 17 == 4) | (lane % 13 == 5)).to(torch.int32)
         return x1, y1, m1, x2, y2, m2
@@ -428,6 +455,137 @@ def main() -> int:
               k: af_launches[k] for k in ("jacobian_add",
                                           "jacobian_add_mixed",
                                           "jacobian_double")})
+
+    # ---- G2 bench points: 2^20 points over Fq2 -------------------------
+    tc2 = tcurve_for(bls.G2, dev)
+    F2 = tc2.F
+    G2 = bls.G2.generator()
+    not_g2 = G1_LEVEL_KERNELS + ("jacobian_add", "jacobian_add_mixed",
+                                 "jacobian_double", "jacobian_normalize")
+    t0 = time.time()
+    (points2, dlog2), bp2_launches = drive(
+        counted, lambda: make_bench_points(tc2, n))
+    torch.cuda.synchronize()
+    t_points2 = time.time() - t0
+    require("G2 bench points", bp2_launches, ("fq2_mul", "fq2_sqr",
+                                              "mont_mul"))
+    if any(bp2_launches[k] for k in not_g2):
+        raise AssertionError(f"G2 bench points launched a G1 kernel: "
+                             f"{bp2_launches}")
+    logs2 = [dlog2(i) for i in range(n)]
+    sample2 = list(range(0, n, n // 16))
+    got2 = tc2.unpack(TPoints(*(t[:, sample2] for t in points2)))
+    t0 = time.perf_counter()
+    want2 = [G2.mul_raw(logs2[i]) for i in sample2]
+    t_mul2 = (time.perf_counter() - t0) / len(sample2)  # one host G2 mul
+    if got2 != want2:
+        raise AssertionError("G2 bench points disagree with their discrete "
+                             "logs")
+    paths["g2_bench_points_2^20"] = (bp2_launches, [])
+    phase("g2_bench_points", n=n, seconds=round(t_points2, 3),
+          fq2_mul_launches=bp2_launches["fq2_mul"],
+          fq2_sqr_launches=bp2_launches["fq2_sqr"],
+          mont_mul_launches=bp2_launches["mont_mul"],
+          host_g2_mul_raw_s=t_mul2, sample_checked=len(sample2),
+          correct=True)
+
+    # ---- the G2 MSM: 2^20 points, c = 16, the reference's Fq2 levels ----
+    def g2_msm_checks(where: str, launches: dict, timings: dict) -> None:
+        """A G2 MSM runs the Fq2 kernels, the gather and mont_mul, no G1
+        level or point kernel, and no flag or rerun."""
+        require(where, launches, G2_KERNELS)
+        if any(launches[k] for k in not_g2) or timings["rerun_windows"] \
+                or "zero_chunks" in timings:
+            raise AssertionError(f"{where}: a G1 kernel, a flag or a rerun: "
+                                 f"{launches}, rerun "
+                                 f"{timings['rerun_windows']}")
+
+    _, warm2 = make_bench_scalars(bls.R, n, SEED + 60)
+    msm_v2.msm_device_scheduled(bls.G2, points2, warm2, c=16)
+    secs2, g2_runs = [], []
+    for run in range(G2_MSM_RUNS):
+        sc2, sb2 = make_bench_scalars(bls.R, n, SEED + 61 + run)
+        t2 = {}
+        torch.cuda.synchronize()
+
+        def timed2():
+            t = time.perf_counter()
+            res = msm_v2.msm_device_scheduled(bls.G2, points2, sb2, c=16,
+                                              timings=t2)
+            return res, time.perf_counter() - t
+
+        (result, dt), launches = drive(counted, timed2)
+        expect = G2.mul_raw(sum(s * d for s, d in zip(sc2, logs2)) % bls.R)
+        if result != expect:
+            raise AssertionError("2^20 G2 MSM disagrees with the known-dlog "
+                                 "result")
+        g2_msm_checks("2^20 G2 MSM", launches, t2)
+        secs2.append(dt)
+        g2_runs.append((launches, t2))
+        phase("g2_msm_run", run=run, seconds=dt, points_per_s=n / dt,
+              phases=floats(t2), rerun_windows=[], correct=True)
+    g2_launches, t2 = g2_runs[0]
+    g2_widths = t2["level_pairs"]
+    paths["g2_msm_2^20"] = (g2_launches, g2_widths)
+    med2 = statistics.median(secs2)
+    phase("g2_msm", n=n, c=16, runs=G2_MSM_RUNS, seconds=secs2,
+          median_s=med2, spread=max(secs2) / min(secs2),
+          points_per_s=n / med2, g1_points_per_s=n / med,
+          g2_over_g1_time=med2 / med, level_pairs=g2_widths,
+          slots=t2["slots"], launches={k: g2_launches[k] for k in G2_KERNELS},
+          card=repr(card), correct=True)
+
+    # ---- the G2 MSM with its squares through the square kernel (the
+    # default) against the Karatsuba product kernel, in turns on one
+    # scalar set (product, square, square, product, product, square)
+    sq_turns = {"product": [], "square": []}
+    for kind in ("product", "square", "square", "product", "product",
+                 "square"):
+        if kind == "product":
+            F2.square = lambda a: F2.mul(a, a)
+        tt = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = msm_v2.msm_device_scheduled(bls.G2, points2, sb2, c=16,
+                                          timings=tt)
+        sq_turns[kind].append((time.perf_counter() - t, tt["tail"]))
+        F2.__dict__.pop("square", None)
+        if res != expect:
+            raise AssertionError(f"2^20 G2 MSM with squares by {kind} "
+                                 f"disagrees with the known-dlog result")
+    out = {}
+    for k, v in sq_turns.items():
+        out[f"{k}_s"] = [s for s, _ in v]
+        out[f"{k}_tail_s"] = [tail for _, tail in v]
+        out[f"{k}_median_s"] = statistics.median(s for s, _ in v)
+    phase("g2_square_vs_product", n=n, **out, correct=True)
+
+    # ---- G2 edge MSMs: duplicates, P and -P, infinity, zero scalars, and
+    # all-equal scalars (the grid path); the total formula, no rerun
+    hr = random.Random(SEED + 70)
+    q0, q1, *qs = (G2.mul_raw(hr.randrange(1, bls.R)) for _ in range(8))
+    e_pts = [q0] * 6 + [q1, -q1, bls.G2.infinity(), q0.double()] + qs
+    e_sc = [7] * 6 + [9, 9, 5, 0, 0, 3, 7, 11, 2, 13]
+    e_expect = bls.G2.infinity()
+    for p, s in zip(e_pts, e_sc):
+        e_expect = e_expect + p.mul_raw(s)
+    sub2 = TPoints(*(t[:, :m_eq].contiguous() for t in points2))
+    t_e1, t_e2 = {}, {}
+    (e_res, eq2_res), edge2_launches = drive(counted, lambda: (
+        msm_v2.msm_device_scheduled(bls.G2, e_pts, e_sc, timings=t_e1),
+        msm_v2.msm_device_scheduled(bls.G2, sub2, [s_eq] * m_eq,
+                                    timings=t_e2)))
+    if e_res != e_expect:
+        raise AssertionError("G2 edge MSM disagrees with the host sum")
+    if eq2_res != G2.mul_raw(s_eq * sum(logs2[:m_eq]) % bls.R):
+        raise AssertionError("G2 all-equal-scalar MSM disagrees with the "
+                             "host")
+    for tt in (t_e1, t_e2):
+        g2_msm_checks("G2 edge MSM", edge2_launches, tt)
+    g2_edge_widths = t_e1["level_pairs"] + t_e2["level_pairs"]
+    paths["g2_edge_msm"] = (edge2_launches, g2_edge_widths)
+    phase("g2_edge_msm", points=len(e_pts), all_equal_scalars_n=m_eq,
+          level_pairs=g2_edge_widths, rerun_windows=[], correct=True)
     phase("launches", **{k: v[0] for k, v in paths.items()})
     never = [f.__name__ for f in counted
              if not any(v[0][f.__name__] for v in paths.values())]
@@ -435,11 +593,12 @@ def main() -> int:
         raise AssertionError(f"kernels launched on no path: {never}")
 
     # ---- kernels vs plain, at the shapes a path gave them -------------
-    def row(name, src, rep, path, err, ms, plain_ms, bound, shape):
+    def row(name, src, rep, path, err, ms, plain_ms, bound, shape,
+            library_ms=None):
         return dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=paths[path][0][name], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                    library_ms=None, path=path, shape=shape)
+                    library_ms=library_ms, path=path, shape=shape)
 
     rows = []
     csrc = "crypto_tpu_torch/csrc/"
@@ -660,36 +819,169 @@ def main() -> int:
     phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
           muls_per_point=norm_muls, bit_exact=True)
 
-    # ---- device busy share of one more 2^20 MSM, by torch.profiler -----
+    # ---- the Fq2 mul at the first product-tree width of the G2 MSM's
+    # narrowest level, and a ragged count; random curve coordinates and
+    # the edges 0, 1, u, (p-1)(1 + u) and a square
+    w_fq2 = min(g2_widths) // 2
+    gen2 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    fq2_edges = F2.pack([bls.Fq2(0, 0), bls.Fq2(1, 0), bls.Fq2(0, 1),
+                         bls.Fq2(bls.P - 1, bls.P - 1)])
+    for M in (w_fq2, w_fq2 - 3):
+        a = points2.X[:, torch.randint(0, n, (M,), generator=gen2,
+                                       device=dev)]
+        b = points2.Y[:, torch.randint(0, n, (M,), generator=gen2,
+                                       device=dev)]
+        a[:, :4], b[:, :4] = fq2_edges, fq2_edges.flip(1)
+        b[:, 4] = a[:, 4]
+        pm, fq2_ms = timed_call(lambda: fk.fq2_mul_plain(F2.base, a, b))
+        e_fq2 = agree("fq2_mul", (fk.fq2_mul(F2.base, a, b),), (pm,),
+                      f"at M={M}")
+        if M == w_fq2:
+            rows.append(row(
+                "fq2_mul", csrc + "fq2_mul.cu", ref + "1066", "g2_msm_2^20",
+                e_fq2, cuda_ms(lambda: fk.fq2_mul(F2.base, a, b)), fq2_ms,
+                bound_ms(3 * FQ2_BYTES * M, 3 * mul_products * M), [24, M]))
+    phase("check_fq2_mul", pairs=[w_fq2, w_fq2 - 3], path="g2_msm_2^20",
+          bit_exact=True)
+
+    # ---- the Fq2 square at the G2 tail's widest (the first reduction of
+    # 16 windows x 2^15 buckets: 2^18 sums), and a ragged count, on the
+    # same kind of inputs
+    w_sq = 16 << 14
+    for M in (w_sq, w_sq - 5):
+        a = points2.Y[:, torch.randint(0, n, (M,), generator=gen2,
+                                       device=dev)]
+        a[:, :4] = fq2_edges
+        ps, sqr_ms = timed_call(lambda: fk.fq2_sqr_plain(F2.base, a))
+        e_sq = agree("fq2_sqr", (fk.fq2_sqr(F2.base, a),), (ps,),
+                     f"at M={M}")
+        if M == w_sq:
+            rows.append(row(
+                "fq2_sqr", csrc + "fq2_mul.cu", ref + "908", "g2_msm_2^20",
+                e_sq, cuda_ms(lambda: fk.fq2_sqr(F2.base, a)), sqr_ms,
+                bound_ms(2 * FQ2_BYTES * M, 2 * mul_products * M), [24, M]))
+    phase("check_fq2_sqr", elements=[w_sq, w_sq - 5], path="g2_msm_2^20",
+          bit_exact=True)
+
+    # ---- the Fq2 level at the G2 MSM's narrowest level, a ragged count
+    # and the G2 edge MSMs' widest level
+    def check_fq2_level(M: int, path: str | None):
+        ins = level_inputs(M, points2, F2)
+        kd = ck.affine_level_pre_fq2(F2, *ins)
+        pd, pre_ms = timed_call(lambda: ck.affine_level_pre_plain(F2, *ins))
+        e_pre = agree("affine_level_pre_fq2", kd, pd, f"at M={M}")
+        ndbl, ninf = int(kd[1].sum()), int(kd[2].sum())
+        if M > 64 and not (ndbl and ninf):
+            raise AssertionError("Fq2 level check inputs hold no doubling "
+                                 "or no infinite result")
+        x1, y1, m1, x2, y2, m2 = ins
+        args = (x1, y1, x2, y2, msm_v2.batch_inv_t(F2, kd[0]), kd[1], m1,
+                m2)
+        pp, post_ms = timed_call(lambda: ck.affine_level_post_plain(F2,
+                                                                    *args))
+        e_post = agree("affine_level_post_fq2",
+                       ck.affine_level_post_fq2(F2, *args), pp, f"at M={M}")
+        if path is None:
+            return
+        rows.append(row("affine_level_pre_fq2", csrc + "affine_level_fq2.cu",
+                        ref + "1014", path, e_pre,
+                        cuda_ms(lambda: ck.affine_level_pre_fq2(F2, *ins)),
+                        pre_ms, bound_ms(M * (5 * FQ2_BYTES + 16), 0),
+                        [24, M]))
+        rows.append(row("affine_level_post_fq2",
+                        csrc + "affine_level_fq2.cu", ref + "1029", path,
+                        e_post,
+                        cuda_ms(lambda: ck.affine_level_post_fq2(F2, *args)),
+                        post_ms,
+                        bound_ms(M * (7 * FQ2_BYTES + 12),
+                                 (8 * M + 2 * ndbl) * mul_products),
+                        [24, M]))
+
+    w_lvl = min(g2_widths)
+    check_fq2_level(w_lvl, "g2_msm_2^20")
+    check_fq2_level(w_lvl + 5, None)
+    check_fq2_level(max(g2_edge_widths), None)
+    phase("check_affine_level_fq2",
+          pairs=[w_lvl, w_lvl + 5, max(g2_edge_widths)], path="g2_msm_2^20",
+          bit_exact=True)
+
+    # ---- the gather at the G2 MSM's layout: (24, 2^20) coordinates into
+    # its slots, each point once a window at random slots, the rest empty
+    # (-1); and a ragged count with indices past the source (a zero
+    # column on both sides).  The library call is index_select on the
+    # clamped index with a zero fill, timed here and used nowhere.
+    W2 = (bls.Fr.bits + 16) // 16
+    src = points2.X
+    for M in (max(t2["slots"]), n + 3):
+        live = min(M, W2 * n)
+        idx = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        pos = torch.randperm(M, generator=gen2, device=dev)[:live]
+        idx[pos] = torch.cat([torch.randperm(n, generator=gen2, device=dev)
+                              for _ in range(W2)])[:live]
+        if M == n + 3:
+            idx[:3] = torch.tensor([n, n + 9, -5], device=dev)
+        pg, gather_ms = timed_call(lambda: fk.gather_cols_plain(src, idx))
+        e_g = agree("gather_cols", (fk.gather_cols(src, idx),), (pg,),
+                    f"at M={M}")
+        if M == n + 3:      # index_select would fault on the indices >= N
+            break
+
+        def library():
+            return src.index_select(1, idx.clamp(min=0)).masked_fill_(
+                idx < 0, 0)
+
+        agree("index_select", (library(),), (pg,), f"at M={M}")
+        cols = int(torch.unique(idx[idx >= 0]).numel())
+        rows.append(row("gather_cols", csrc + "gather.cu",
+                        "crypto_tpu/ops/pallas/field_kernels.py:356",
+                        "g2_msm_2^20", e_g,
+                        cuda_ms(lambda: fk.gather_cols(src, idx)), gather_ms,
+                        bound_ms(FQ2_BYTES * (cols + M) + 8 * M, 0),
+                        [24, M], library_ms=cuda_ms(library)))
+        g_live = live
+    phase("check_gather", slots=[max(t2["slots"]), n + 3], live=g_live,
+          path="g2_msm_2^20", bit_exact=True)
+
+    # ---- device busy share of one more 2^20 MSM of each curve ----------
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        msm_v2.msm_device_scheduled(bls.G1, points, sb, c=16)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            k = by_name.setdefault(e.name[:48], [0, 0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us()
-    busy_us, reach = 0, None          # union of the kernels' intervals
-    for start, end in sorted(spans):
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    busy = busy_us / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    phase("profile", wall_s=round(wall, 4),
-          device_busy_s=round(busy, 4) if busy else "not measured",
-          idle_share=round(1 - busy / wall, 4) if busy else "not measured",
-          device_launches=len(spans),
-          top_ms=[(name, cnt, round(us / 1e3, 3)) for name, (cnt, us) in top])
+
+    def device_profile(name: str, fn) -> None:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end))
+                k = by_name.setdefault(e.name[:48], [0, 0])
+                k[0] += 1
+                k[1] += e.time_range.elapsed_us()
+        busy_us, reach = 0, None          # union of the kernels' intervals
+        for start, end in sorted(spans):
+            if reach is None or start > reach:
+                busy_us += end - start
+                reach = end
+            elif end > reach:
+                busy_us += end - reach
+                reach = end
+        busy = busy_us / 1e6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        phase(name, wall_s=round(wall, 4),
+              device_busy_s=round(busy, 4) if busy else "not measured",
+              idle_share=round(1 - busy / wall, 4) if busy
+              else "not measured",
+              device_launches=len(spans),
+              top_ms=[(k, cnt, round(us / 1e3, 3))
+                      for k, (cnt, us) in top])
+
+    device_profile("profile", lambda: msm_v2.msm_device_scheduled(
+        bls.G1, points, sb, c=16))
+    device_profile("profile_g2", lambda: msm_v2.msm_device_scheduled(
+        bls.G2, points2, sb, c=16))
+    phase("total", seconds=round(time.time() - t_start, 3))
 
     print(card)
     print(json.dumps({"kernels": rows}))

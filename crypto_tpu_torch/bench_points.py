@@ -1,13 +1,17 @@
-"""Distinct G1 points with known discrete logs, built on the device.
+"""Distinct G1 or G2 points with known discrete logs, built on the device.
 
 The port's counterpart of `bench.py` `make_bench_points`: point (i, u, v)
 is A_i + (C_u + D_v), three families with full-range random discrete logs
 from a seeded generator, so its log a_i + c_u + d_v mod r is a uniform
 ~255-bit value and base collisions or in-bucket partial-sum collisions
-have probability ~2^-215.  As in `bench.py`, two batched calls of the
-full-add kernel (`make_add_fns`) build the Jacobian sums and one call of
-the normalize kernel (`make_normalize_fn`) makes them affine.
-`make_bench_scalars` gives the full-range scalars of `bench.py`.
+have probability ~2^-215.  On G1, as in `bench.py`, two batched calls of
+the full-add kernel (`make_add_fns`) build the Jacobian sums and one call
+of the normalize kernel (`make_normalize_fn`) makes them affine.  On G2,
+whose bench points the reference does not make, the total `TCurve.add`
+(its products and squares through the Fq2 kernels) and
+`TCurve.to_affine` do the same.  The 320 family points are multiples of
+the generator computed on the host (`mul_raw`).  `make_bench_scalars`
+gives the full-range scalars of `bench.py`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,23 @@ from . import resolve_device
 from .curves.tcurve import TCurve, TPoints
 from .ops.kernels.point_kernels import make_add_fns, make_normalize_fn
 from .ops.msm_v2 import scalars_to_bytes
+
+
+def _total_point_fns(tc: TCurve):
+    """(add_fn, normalize_fn) with `make_add_fns`' and
+    `make_normalize_fn`'s signatures over the total `TCurve` ops (the
+    add never raises the doubling flag: it doubles)."""
+    def add_fn(P: TPoints, Q: TPoints):
+        S = tc.add(P, Q)
+        return S, torch.zeros((), dtype=torch.bool, device=S.X.device)
+
+    def normalize_fn(P: TPoints) -> TPoints:
+        aff = tc.to_affine(P)
+        F = tc.F
+        z = F.select(aff.inf, F.zeros(aff.inf.shape), F.ones(aff.inf.shape))
+        return TPoints(aff.X, aff.Y, z)
+
+    return add_fn, normalize_fn
 
 
 def make_bench_points(tc: TCurve, n: int, seed: int = 0xBE7C4):
@@ -41,7 +62,11 @@ def make_bench_points(tc: TCurve, n: int, seed: int = 0xBE7C4):
     base = tc.curve.generator()
     A, C, D = (tc.pack_points([base.mul_raw(s) for s in ss])
                for ss in (a_s, c_s, d_s))
-    add_fn, _affine_add, _double = make_add_fns(tc)
+    if tc.F.U == tc.F.L:                          # G1: the bench's kernels
+        add_fn, _affine_add, _double = make_add_fns(tc)
+        normalize_fn = make_normalize_fn(tc)
+    else:
+        add_fn, normalize_fn = _total_point_fns(tc)
     flags = []
 
     def outer_sum(P: TPoints, Q: TPoints) -> TPoints:
@@ -56,7 +81,7 @@ def make_bench_points(tc: TCurve, n: int, seed: int = 0xBE7C4):
         raise RuntimeError("bench point construction hit a doubling")
     if bool(tc.is_infinity(S).any()):
         raise RuntimeError("bench point construction hit infinity")
-    points = make_normalize_fn(tc)(S)
+    points = normalize_fn(S)
 
     def dlog_fn(i: int) -> int:
         a, rest = divmod(i, m)

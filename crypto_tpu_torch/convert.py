@@ -7,7 +7,9 @@ limbs, least significant first, in Montgomery form with R_jax =
 as `(L, ...)` int32 with 32-bit limbs (uint32 bit patterns), R = 2^(32L).
 Conversion goes through plain Python ints: unpack, multiply by
 R_jax^-1 * R mod p, repack.  The limb widths and radices are constants
-here, so nothing of the JAX package is needed.
+here, so nothing of the JAX package is needed.  An Fq2 element is
+`(..., 2, L_jax)` in the JAX package and `(2L, ...)` in the port
+(`jax_to_port_fq2`, `port_to_jax_fq2`).
 """
 
 from __future__ import annotations
@@ -73,3 +75,20 @@ def port_to_jax(t: torch.Tensor, p: int, mont: bool = True) -> np.ndarray:
             out[i, j] = v & mask
             v >>= JAX_LIMB_BITS
     return out.reshape(shape + (Lj,))
+
+
+def jax_to_port_fq2(arr, p: int, mont: bool = True,
+                    device="cuda") -> torch.Tensor:
+    """Fq2 over the base prime p: (..., 2, L_jax) array (the JAX package's
+    `JQuadField` layout) -> (2L, ...) tensor on `device`, c0's limbs in
+    rows [:L] and c1's in [L:] (`fields/ttower.py`)."""
+    a = np.asarray(arr)
+    return torch.cat([jax_to_port(a[..., k, :], p, mont, device)
+                      for k in (0, 1)])
+
+
+def port_to_jax_fq2(t: torch.Tensor, p: int, mont: bool = True) -> np.ndarray:
+    """(2L, ...) Fq2 tensor -> (..., 2, L_jax) array."""
+    L = port_limbs(p)
+    return np.stack([port_to_jax(t[:L], p, mont), port_to_jax(t[L:], p, mont)],
+                    axis=-2)

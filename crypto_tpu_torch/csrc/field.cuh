@@ -1,7 +1,8 @@
 // Shared device code of the port's kernels: prime-field arithmetic on
-// N 32-bit limbs held in registers, and the batched-affine level helpers
+// N 32-bit limbs held in registers, the batched-affine level helpers
 // that affine_level.cu and chunked_level.cu both use (the total formula
-// and the doubling-free fast one).
+// and the doubling-free fast one), and Fq2 arithmetic for fq2_mul.cu and
+// affine_level_fq2.cu.
 //
 // Layout: a batch of M field elements is limb-major, (N, M) uint32 (int32
 // tensors on the Python side); thread i reads limb j of element i at
@@ -295,6 +296,65 @@ __device__ __forceinline__ void unified_apply(uint32_t x3[FQ_LIMBS], uint32_t y3
     copy<FQ_LIMBS>(x3, x1);
     copy<FQ_LIMBS>(y3, y1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Fq2 = Fq[u]/(u^2 + 1) over BLS12-381 Fq (beta = -1)
+// ---------------------------------------------------------------------------
+//
+// An element is 24 limbs: c0's 12 in [0, 12), c1's in [12, 24), which is
+// the (24, M) row order of the Python side (crypto_tpu_torch.fields.ttower).
+// add, sub, neg, eq and is_zero are the base templates on each half (or on
+// all 24 limbs at once for eq and is_zero); a product takes three
+// Montgomery products, a square two.
+
+constexpr int FQ2_LIMBS = 2 * FQ_LIMBS;
+
+__device__ __forceinline__ void fq2_add(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
+                                        const uint32_t b[FQ2_LIMBS], const Fq& m) {
+  add<FQ_LIMBS>(r, a, b, m);
+  add<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, b + FQ_LIMBS, m);
+}
+
+__device__ __forceinline__ void fq2_sub(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
+                                        const uint32_t b[FQ2_LIMBS], const Fq& m) {
+  sub<FQ_LIMBS>(r, a, b, m);
+  sub<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, b + FQ_LIMBS, m);
+}
+
+__device__ __forceinline__ void fq2_neg(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
+                                        const Fq& m) {
+  neg<FQ_LIMBS>(r, a, m);
+  neg<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, m);
+}
+
+// r = a*b by Karatsuba over three Montgomery products (crypto_tpu's
+// Fq2Ctx.mul): v0 = a0*b0, v1 = a1*b1, c0 = v0 - v1, c1 = (a0 + a1)(b0 +
+// b1) - v0 - v1.  r may alias a or b.
+__device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
+                                        const uint32_t b[FQ2_LIMBS], const Fq& m) {
+  uint32_t v0[FQ_LIMBS], v1[FQ_LIMBS], s[FQ_LIMBS], t[FQ_LIMBS];
+  mont_mul<FQ_LIMBS>(v0, a, b, m);
+  mont_mul<FQ_LIMBS>(v1, a + FQ_LIMBS, b + FQ_LIMBS, m);
+  add<FQ_LIMBS>(s, a, a + FQ_LIMBS, m);
+  add<FQ_LIMBS>(t, b, b + FQ_LIMBS, m);
+  mont_mul<FQ_LIMBS>(t, s, t, m);
+  sub<FQ_LIMBS>(r, v0, v1, m);
+  sub<FQ_LIMBS>(t, t, v0, m);
+  sub<FQ_LIMBS>(r + FQ_LIMBS, t, v1, m);
+}
+
+// r = a^2 by complex squaring over two Montgomery products (crypto_tpu's
+// Fq2Ctx.square): c0 = (a0 + a1)(a0 - a1), c1 = 2*a0*a1.  r may alias a.
+__device__ __forceinline__ void fq2_sqr(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
+                                        const Fq& m) {
+  uint32_t s[FQ_LIMBS], t[FQ_LIMBS];
+  add<FQ_LIMBS>(s, a, a + FQ_LIMBS, m);
+  sub<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+  mont_mul<FQ_LIMBS>(s, s, t, m);
+  mont_mul<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+  copy<FQ_LIMBS>(r, s);
+  add<FQ_LIMBS>(r + FQ_LIMBS, t, t, m);
 }
 
 inline int blocks_for(long long n, int threads) {

@@ -1,11 +1,14 @@
 """Batched short-Weierstrass point arithmetic on tensors (Jacobian, a = 0).
 
-Counterpart of `crypto_tpu/curves/jcurve.py` for curves over a prime field
-(BLS12-381 G1).  A batch of points is `TPoints(X, Y, Z)` with each
-coordinate a `(L, ...)` Montgomery limb tensor (`fields/tfield.py`); Z == 0
-encodes infinity, and `infinity()` is (1, 1, 0).  Every op is branch-free
-(select-based), total (doubling, P + (-P), infinity operands) and works on
-any batch shape.  Field muls run through the mont_mul kernel on the card.
+Counterpart of `crypto_tpu/curves/jcurve.py`, generic over the
+coefficient field: BLS12-381 G1 over Fq (`fields/tfield.py`, `(L, ...)`
+limb tensors) and G2 over Fq2 (`fields/ttower.py`, `(2L, ...)`).  A batch
+of points is `TPoints(X, Y, Z)` with each coordinate a Montgomery limb
+tensor; Z == 0 encodes infinity, and `infinity()` is (1, 1, 0).  Every op
+is branch-free (select-based), total (doubling, P + (-P), infinity
+operands), uses only the field protocol and works on any batch shape.
+Field muls run through the mont_mul kernel (G1) or the Fq2 mul kernel
+(G2) on the card.
 """
 
 from __future__ import annotations
@@ -16,8 +19,20 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..fields.host import Field
 from ..fields.tfield import tfield_for
+from ..fields.tower import QuadExtField
+from ..fields.ttower import tquad_for
 from .sw import Point, SWCurve
+
+
+def _device_field_for(K, device):
+    """Device field context for a host coefficient field (Fq or Fq2)."""
+    if isinstance(K, Field):
+        return tfield_for(K, device)
+    if isinstance(K, QuadExtField):
+        return tquad_for(K, device)
+    raise TypeError(f"no device field for coefficient field {K!r}")
 
 
 class TPoints(NamedTuple):
@@ -39,7 +54,7 @@ class TCurve:
         if not curve.a.is_zero():
             raise ValueError("the formulas assume a == 0")
         self.curve = curve
-        self.F = tfield_for(curve.K, device)
+        self.F = _device_field_for(curve.K, device)
 
     # ------------------------------------------------------------------
     # constructors / conversion
@@ -51,17 +66,18 @@ class TCurve:
 
     def pack_points(self, points) -> TPoints:
         """Host points -> device Jacobian batch (normalized to Z = 1 / 0)."""
+        K = self.curve.K
         xs, ys, zs = [], [], []
         for p in points:
             if p.is_infinity():
-                xs.append(1)
-                ys.append(1)
-                zs.append(0)
+                xs.append(K.one())
+                ys.append(K.one())
+                zs.append(K.zero())
             else:
                 x, y = p.to_affine()
-                xs.append(int(x))
-                ys.append(int(y))
-                zs.append(1)
+                xs.append(x)
+                ys.append(y)
+                zs.append(K.one())
         F = self.F
         return TPoints(F.pack(xs), F.pack(ys), F.pack(zs))
 

@@ -22,7 +22,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.kernels.field_kernels import MASK32, Modulus, limbs32, mont_mul, \
-    to_i32, u32
+    mont_mul_plain, to_i32, u32
 from .host import Field
 
 
@@ -35,6 +35,7 @@ class TField:
         self.field = field
         self.p = field.p
         self.L = field.num_limbs
+        self.U = self.L            # rows per element (2L for Fq2, `TQuadField`)
         self.device = resolve_device(device)
         self.mod = Modulus(field.p, self.L)
         dev = self.device
@@ -152,8 +153,16 @@ class TField:
                        b.reshape(self.L, -1).contiguous(), self.mod)
         return out.reshape(shape)
 
+    def mul_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """What `mul` computes on (L, M) batches, in plain tensor ops on any
+        device (the kernels' plain versions use it)."""
+        return mont_mul_plain(a, b, self.mod)
+
     def square(self, a: torch.Tensor) -> torch.Tensor:
         return self.mul(a, a)
+
+    def square_plain(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mul_plain(a, a)
 
     def pow_fixed(self, a: torch.Tensor, e: int) -> torch.Tensor:
         """a^e for a fixed exponent, square-and-multiply."""

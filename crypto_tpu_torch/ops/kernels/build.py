@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("mont_mul.cu", "affine_level.cu", "chunked_level.cu",
-           "jacobian.cu", "normalize.cu")
+           "jacobian.cu", "normalize.cu", "fq2_mul.cu", "affine_level_fq2.cu",
+           "gather.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -49,6 +50,11 @@ SIGNATURES = {
     "crypto_jac_add_mixed": [_P] * 8 + [_I64, _P, _U32, _P],
     "crypto_jac_double": [_P] * 6 + [_I64, _P, _U32, _P],
     "crypto_normalize": [_P] * 6 + [_I64, _P, _U32, _P, _P, _P],
+    "crypto_fq2_mul": [_P, _P, _P, _I64, _P, _U32, _P],
+    "crypto_fq2_sqr": [_P, _P, _I64, _P, _U32, _P],
+    "crypto_affine_pre_fq2": [_P] * 9 + [_I64, _P, _U32, _P],
+    "crypto_affine_post_fq2": [_P] * 10 + [_I64, _P, _U32, _P],
+    "crypto_gather_cols": [_P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

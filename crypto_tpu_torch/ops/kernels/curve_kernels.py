@@ -28,6 +28,17 @@ infinite, and d == 0 left as 0 so a colliding pair shows):
   `chunked_level_kernels_fast`: prefix -> (prefix, total, inf3), a total
   of 0 where a pair of its thread collides; down -> (x3, y3).
 
+The total formula over Fq2 (BLS12-381 G2, whose MSM runs it at every
+level with no chunked level, as the reference does):
+
+* `affine_level_pre_fq2` / `affine_level_post_fq2` replace
+  `affine_kernels_for_fq2` (`call_pre` / `call_post`),
+  `csrc/affine_level_fq2.cu`: the contract of `affine_level_pre` /
+  `affine_level_post` with (24, M) coordinates (c0's limbs in rows
+  [:12], c1's in [12:], `fields/ttower.py`); the limb-0 1 of a dead lane
+  is in row 0 (c0).  Their plain versions are `affine_level_pre_plain` /
+  `affine_level_post_plain`, which are generic over the field.
+
 Coordinates are (12, M) limb-major int32 tensors (see `fields/tfield.py`),
 masks (M,) int32, nonzero meaning infinity (m1, m2, inf3) or doubling
 (dbl).  What bounds each kernel on the H100 and what the design does about
@@ -45,11 +56,11 @@ import ctypes
 import torch
 
 from .build import check, load_library
-from .field_kernels import (check_limbs, check_masks, mont_mul_plain, on_card,
-                            stream_of)
+from .field_kernels import (FQ_LIMBS, check_limbs, check_masks,
+                            mont_mul_plain, on_card, stream_of)
 
 CHUNK_K = 8        # pairs each thread of the chunked level owns
-FQ_LIMBS = 12
+FQ2_ROWS = 2 * FQ_LIMBS
 
 
 # ---------------------------------------------------------------------------
@@ -72,13 +83,11 @@ def _denom_dbl_inf(F, x1, y1, x2, y2, i1, i2):
 
 
 def _unified_apply(F, x1, y1, x2, y2, dinv, is_dbl, i1, i2):
-    def mul(a, b):
-        return mont_mul_plain(a, b, F.mod)
-
-    x1sq = mul(x1, x1)
+    mul = F.mul_plain
+    x1sq = F.square_plain(x1)
     num = F.select(is_dbl, F.add(F.double(x1sq), x1sq), F.sub(y2, y1))
     lam = mul(num, dinv)
-    x3 = F.sub(F.sub(mul(lam, lam), x1), x2)
+    x3 = F.sub(F.sub(F.square_plain(lam), x1), x2)
     y3 = F.sub(mul(lam, F.sub(x1, x3)), y1)
     x3 = F.select(i1, x2, F.select(i2, x1, x3))
     y3 = F.select(i1, y2, F.select(i2, y1, y3))
@@ -95,9 +104,7 @@ def _denom_fast(F, x1, x2, i1, i2):
 
 
 def _fast_apply(F, x1, y1, x2, y2, dinv, i1, i2):
-    def mul(a, b):
-        return mont_mul_plain(a, b, F.mod)
-
+    mul = F.mul_plain
     lam = mul(F.sub(y2, y1), dinv)
     x3 = F.sub(F.sub(mul(lam, lam), x1), x2)
     y3 = F.sub(mul(lam, F.sub(x1, x3)), y1)
@@ -204,11 +211,13 @@ def chunked_level_down_fast_plain(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, F, coords, masks):
-    if F.L != FQ_LIMBS:
-        raise ValueError(f"{name}: the level kernels take BLS12-381 Fq "
-                         f"({FQ_LIMBS} limbs), got {F.L}")
-    M = check_limbs(name, F.L, *coords)
+def _check(name, F, coords, masks, rows=FQ_LIMBS):
+    """Checks of the level wrappers; `rows` per element: 12 for the Fq
+    kernels, 24 for the Fq2 ones."""
+    if F.L != FQ_LIMBS or F.U != rows:
+        raise ValueError(f"{name}: the kernel takes {rows} rows of "
+                         f"BLS12-381 Fq limbs an element, got {F.U}")
+    M = check_limbs(name, rows, *coords)
     check_masks(name, M, coords[0].device, *masks)
     return M
 
@@ -253,6 +262,43 @@ def affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
                                      *_c_args(F, M, x1.device)),
               "affine_level_post")
         affine_level_post.launches += 1
+    return x3, y3
+
+
+def affine_level_pre_fq2(F, x1, y1, m1, x2, y2, m2):
+    """Fq2 level denominators and case masks: (d (24, M), dbl, inf3)."""
+    M = _check("affine_level_pre_fq2", F, (x1, y1, x2, y2), (m1, m2),
+               FQ2_ROWS)
+    if not on_card("affine_level_pre_fq2", x1.device):
+        return affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2)
+    d = torch.empty_like(x1)
+    dbl = torch.empty_like(m1)
+    inf3 = torch.empty_like(m1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_affine_pre_fq2(*_ptrs(x1, y1, m1, x2, y2, m2, d,
+                                               dbl, inf3),
+                                        *_c_args(F, M, x1.device)),
+              "affine_level_pre_fq2")
+        affine_level_pre_fq2.launches += 1
+    return d, dbl, inf3
+
+
+def affine_level_post_fq2(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
+    """The unified Fq2 add/double given dinv: (x3, y3)."""
+    M = _check("affine_level_post_fq2", F, (x1, y1, x2, y2, dinv),
+               (dbl, m1, m2), FQ2_ROWS)
+    if not on_card("affine_level_post_fq2", x1.device):
+        return affine_level_post_plain(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
+    if M:
+        lib = load_library()
+        check(lib.crypto_affine_post_fq2(*_ptrs(x1, y1, x2, y2, dinv, dbl,
+                                                m1, m2, x3, y3),
+                                         *_c_args(F, M, x1.device)),
+              "affine_level_post_fq2")
+        affine_level_post_fq2.launches += 1
     return x3, y3
 
 
@@ -390,5 +436,6 @@ def chunked_level_down_fast(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
 
 for _fn in (affine_level_pre, affine_level_post, chunked_level_prefix,
             chunked_level_down, affine_level_pre_fast, affine_level_post_fast,
-            chunked_level_prefix_fast, chunked_level_down_fast):
+            chunked_level_prefix_fast, chunked_level_down_fast,
+            affine_level_pre_fq2, affine_level_post_fq2):
     _fn.launches = 0

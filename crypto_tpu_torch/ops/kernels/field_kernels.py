@@ -1,9 +1,11 @@
-"""Batched Montgomery multiplication: the CUDA kernel, its wrapper and its
+"""Batched field kernels: Montgomery multiplication, the Fq2 Karatsuba
+mul and the column gather; each with its CUDA kernel, its wrapper and its
 plain PyTorch version.
 
-Replaces `crypto_tpu/ops/pallas/field_kernels.py` `mont_mul_t_fn` (the
-TPU kernel behind every device field mul, `_mont_mul_body`).  Same
-function, a·b·R^-1 mod p over `(L, M)` limb-major batches, in the port's
+`mont_mul` replaces `crypto_tpu/ops/pallas/field_kernels.py`
+`mont_mul_t_fn` (the TPU kernel behind every device field mul,
+`_mont_mul_body`).  Same function, a·b·R^-1 mod p over `(L, M)`
+limb-major batches, in the port's
 representation: L 32-bit limbs (L = 12 for BLS12-381 Fq, 8 for Fr) held
 in int32 tensors as uint32 bit patterns, R = 2^(32L).  The TPU kernel's
 MXU one-hot columns, Toeplitz REDC and Kogge-Stone row carries are TPU
@@ -21,6 +23,23 @@ The plain version computes the same CIOS result `(a·b + m·p)/R`, less p
 once if that is >= p, for any operands below R, so kernel and plain agree
 bit for bit (canonical operands give the canonical product).  It works in
 16-bit half-limbs held in int64 so no intermediate reaches 2^63.
+
+`fq2_mul` replaces `crypto_tpu/ops/pallas/curve_kernels.py` `fq2_mul_t_fn`
+(`Fq2Ctx.mul`, beta = -1): (2L, M) x (2L, M) -> (2L, M), c0's limbs in
+rows [:L] and c1's in [L:], by Karatsuba over three base Montgomery
+products (`csrc/fq2_mul.cu`, BLS12-381 Fq only).  It moves 288 bytes
+against 3 x 300 wide products, just on the operations side of the card's
+balance point.  `fq2_sqr` is the reference's complex squaring
+(`Fq2Ctx.square`, `JQuadField.square`): c0 = (a0+a1)(a0-a1), c1 =
+2·a0·a1, two base products, in the same source.
+
+`gather_cols` replaces `crypto_tpu/ops/pallas/field_kernels.py`
+`gather_rows_t_fn`, the row gather that lays out the MSM's bucket slots:
+(src (U, N) int32, idx (M,) int64) -> (U, M), column idx[j] of src in
+column j, a zero column where idx[j] is outside [0, N), on both sides
+(`csrc/gather.cu`).  The port's
+payload is already limb-major, so it gathers columns and needs no
+transpose.  It is bound by bytes: coalesced writes, scattered reads.
 """
 
 from __future__ import annotations
@@ -174,4 +193,109 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
     return out
 
 
+FQ_LIMBS = 12      # the Fq2 kernel's base field: BLS12-381 Fq
+
+
+def fq2_mul_plain(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Karatsuba product of (2L, M) Fq2 batches over the base
+    field context F (any device): c0 = v0 - v1, c1 = (a0+a1)(b0+b1) - v0
+    - v1, with v0 = a0·b0 and v1 = a1·b1."""
+    L = F.L
+    a0, a1, b0, b1 = a[:L], a[L:], b[:L], b[L:]
+    v0 = mont_mul_plain(a0, b0, F.mod)
+    v1 = mont_mul_plain(a1, b1, F.mod)
+    t = mont_mul_plain(F.add(a0, a1), F.add(b0, b1), F.mod)
+    return torch.cat([F.sub(v0, v1), F.sub(F.sub(t, v0), v1)])
+
+
+def fq2_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fq2 product of (2L, M) batches over the base field context F.  CUDA
+    tensors launch `csrc/fq2_mul.cu`; CPU tensors take `fq2_mul_plain`."""
+    if F.L != FQ_LIMBS:
+        raise ValueError(f"fq2_mul: the kernel takes BLS12-381 Fq "
+                         f"({FQ_LIMBS} limbs), got {F.L}")
+    M = check_limbs("fq2_mul", 2 * F.L, a, b)
+    if not on_card("fq2_mul", a.device):
+        return fq2_mul_plain(F, a, b)
+    out = torch.empty_like(a)
+    if M == 0:
+        return out
+    lib = load_library()
+    check(lib.crypto_fq2_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), M,
+                             ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+                             stream_of(a.device)), "fq2_mul")
+    fq2_mul.launches += 1
+    return out
+
+
+def fq2_sqr_plain(F, a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch complex square of a (2L, M) Fq2 batch over the base
+    field context F (any device): c0 = (a0+a1)(a0-a1), c1 = 2·a0·a1."""
+    L = F.L
+    a0, a1 = a[:L], a[L:]
+    t0 = mont_mul_plain(a0, a1, F.mod)
+    t1 = mont_mul_plain(F.add(a0, a1), F.sub(a0, a1), F.mod)
+    return torch.cat([t1, F.add(t0, t0)])
+
+
+def fq2_sqr(F, a: torch.Tensor) -> torch.Tensor:
+    """Fq2 square of a (2L, M) batch over the base field context F.  CUDA
+    tensors launch `csrc/fq2_mul.cu`'s square; CPU tensors take
+    `fq2_sqr_plain`."""
+    if F.L != FQ_LIMBS:
+        raise ValueError(f"fq2_sqr: the kernel takes BLS12-381 Fq "
+                         f"({FQ_LIMBS} limbs), got {F.L}")
+    M = check_limbs("fq2_sqr", 2 * F.L, a)
+    if not on_card("fq2_sqr", a.device):
+        return fq2_sqr_plain(F, a)
+    out = torch.empty_like(a)
+    if M == 0:
+        return out
+    lib = load_library()
+    check(lib.crypto_fq2_sqr(a.data_ptr(), out.data_ptr(), M,
+                             ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+                             stream_of(a.device)), "fq2_sqr")
+    fq2_sqr.launches += 1
+    return out
+
+
+def gather_cols_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch column gather (any device): src[:, idx], with a zero
+    column where idx is outside [0, N)."""
+    live = (idx >= 0) & (idx < src.shape[1])
+    out = src.index_select(1, torch.where(live, idx, 0))
+    return torch.where(live, out, 0)
+
+
+def gather_cols(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(U, N) int32 x (M,) int64 indices -> (U, M) int32: column idx[j] of
+    src in column j, zero where idx[j] is outside [0, N) (the MSM marks an
+    empty slot with -1).  CUDA tensors launch `csrc/gather.cu`; CPU
+    tensors take `gather_cols_plain`."""
+    if src.dtype != torch.int32 or src.dim() != 2 or not src.is_contiguous():
+        raise ValueError(f"gather_cols: expected a contiguous int32 (U, N) "
+                         f"source, got {tuple(src.shape)} {src.dtype}")
+    if idx.dtype != torch.int64 or idx.dim() != 1 \
+            or not idx.is_contiguous() or idx.device != src.device:
+        raise ValueError(f"gather_cols: expected a contiguous int64 (M,) "
+                         f"index on {src.device}, got {tuple(idx.shape)} "
+                         f"{idx.dtype} on {idx.device}")
+    if not on_card("gather_cols", src.device):
+        return gather_cols_plain(src, idx)
+    U, N = src.shape
+    M = idx.shape[0]
+    out = torch.empty((U, M), dtype=torch.int32, device=src.device)
+    if U * M == 0:
+        return out
+    lib = load_library()
+    check(lib.crypto_gather_cols(src.data_ptr(), idx.data_ptr(),
+                                 out.data_ptr(), U, N, M,
+                                 stream_of(src.device)), "gather_cols")
+    gather_cols.launches += 1
+    return out
+
+
 mont_mul.launches = 0
+fq2_mul.launches = 0
+fq2_sqr.launches = 0
+gather_cols.launches = 0

@@ -9,7 +9,10 @@ bases) shows as a zero denominator, flags its window, and the flagged
 windows are rerun with the total unified add/double before the tail.
 `safe=True` runs the total formula everywhere (the reference's
 `CRYPTO_TPU_SAFE_AFFINE`), exact for every input with no flag and no
-rerun.  The steps:
+rerun.  A curve over Fq2 (BLS12-381 G2) runs the reference's Fq2
+configuration whatever `safe` says: the total-formula Fq2 pre/post at
+every level, no chunked level, no flag and no rerun.  Every layout is
+read in rows per element, `F.U` (L for Fq, 2L for Fq2).  The steps:
 
 1. signed c-bit window digits on the device (`device_digits`);
 2. a stable-argsort bucket plan per window, with the buckets sorted by
@@ -26,7 +29,7 @@ rerun.  The steps:
 5. one pull of the flags, and the flagged windows' levels again with the
    total formula, whose bucket sums replace theirs;
 6. the Jacobian weighted tail (`tail_fn`), whose field muls run through
-   the mont_mul kernel;
+   the mont_mul kernel (the Fq2 mul kernel on G2);
 7. the window combine by Horner's rule on the host.
 
 Differences from the reference, all from the card's side of the design:
@@ -45,8 +48,10 @@ Differences from the reference, all from the card's side of the design:
   level call (and, in the chunked level, its thread's chunk total) with
   other windows, so `pair_add_t` keeps the inversion valid and flags
   every window the zero touched, and only those are rerun.
-* x and the sign-applied y are gathered as two (12, slots) limb tensors;
-  the reference's packed 30-bit x|y payload was a TPU gather trick.
+* x and the sign-applied y are gathered as two (U, slots) limb tensors
+  by the gather kernel (the reference's `gather_rows_t_fn`, there behind
+  `CRYPTO_TPU_DMA_GATHER`), an empty slot taking a zero column; the
+  reference's packed 30-bit x|y payload was a TPU gather trick.
 * N is not padded to a power of two: the reference did so to share one
   compiled XLA program per size class, and nothing here is compiled per
   shape.
@@ -66,7 +71,9 @@ import torch
 from .. import resolve_device
 from ..curves.sw import Point, SWCurve
 from ..curves.tcurve import TCurve, TPoints, tcurve_for
+from ..fields.ttower import TQuadField
 from .kernels import curve_kernels as ck
+from .kernels import field_kernels as fk
 
 logger = logging.getLogger("crypto_tpu_torch.msm")
 
@@ -127,10 +134,11 @@ def device_digits(sbytes: torch.Tensor, c: int, nbits: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def batch_inv_t(F, v: torch.Tensor) -> torch.Tensor:
-    """Limb-major (L, n) nonzero -> elementwise inverses, via the
+    """Limb-major (U, n) nonzero -> elementwise inverses, via the
     half-split product tree (3 muls an element, every one through the
-    mont_mul kernel) and one Fermat inversion at the root.  Odd widths are
-    padded with a plain 1 at each level of the tree."""
+    field's mul kernel: mont_mul, or fq2_mul over Fq2) and one Fermat
+    inversion at the root.  Odd widths are padded with a plain limb-0 1
+    (nonzero in Fq and in Fq2) at each level of the tree."""
     n = v.shape[1]
     levels = []
     cur = v
@@ -341,7 +349,9 @@ def pair_add_t(F, x1, y1, m1, x2, y2, m2, fast: bool = False,
     zero).  The `_fused_ctx` dispatch: the chunked level kernels around
     the inversion of the chunk totals from CHUNK_MIN_PAIRS pairs, else pre
     -> batch inversion -> post; the doubling-free kernels when `fast`,
-    else the total formula.
+    else the total formula.  Over Fq2 (a `TQuadField`, G2) every width
+    takes the Fq2 pre -> batch inversion -> post on the total formula, as
+    in the reference (no chunked level; `fast` is ignored).
 
     `zero` (M,) bool marks the lanes whose result is unreliable: on the
     fast path a colliding pair (P + P or P + (-P)) has d == 0, which zeroes
@@ -359,6 +369,12 @@ def pair_add_t(F, x1, y1, m1, x2, y2, m2, fast: bool = False,
     M = x1.shape[1]
     if trace is not None:
         trace.setdefault("level_pairs", []).append(M)
+    if isinstance(F, TQuadField):
+        d, dbl, inf3 = ck.affine_level_pre_fq2(F, x1, y1, m1, x2, y2, m2)
+        x3, y3 = ck.affine_level_post_fq2(F, x1, y1, x2, y2,
+                                          batch_inv_t(F, d), dbl, m1, m2)
+        return x3, y3, inf3, torch.zeros(M, dtype=torch.bool,
+                                          device=x1.device)
     if M >= CHUNK_MIN_PAIRS:
         pad = (-M) % CHUNK_PAD
         x1, y1, x2, y2 = (_pad_cols(t, pad, 0) for t in (x1, y1, x2, y2))
@@ -405,19 +421,19 @@ def _window_flags(zero: torch.Tensor, windows: int) -> torch.Tensor:
 
 
 def _level(F, lefts, rights, fast=False, trace=None):
-    """pair_add_t over segment pairs, each segment (x (L, Wb, w), y, m
+    """pair_add_t over segment pairs, each segment (x (U, Wb, w), y, m
     (Wb, w)); returns the sums split back by the left widths, and the
     (Wb,) flags of the windows with a spoiled lane."""
-    L = F.L
+    U = F.U
     Wb = lefts[0][2].shape[0]
-    cat_x = [torch.cat([s[k] for s in side], dim=2).reshape(L, -1)
+    cat_x = [torch.cat([s[k] for s in side], dim=2).reshape(U, -1)
              for side in (lefts, rights) for k in (0, 1)]
     cat_m = [torch.cat([s[2] for s in side], dim=1).reshape(-1)
              for side in (lefts, rights)]
     cx, cy, cm, zero = pair_add_t(F, cat_x[0], cat_x[1], cat_m[0],
                                   cat_x[2], cat_x[3], cat_m[1], fast, trace,
                                   Wb)
-    cx, cy, cm = cx.reshape(L, Wb, -1), cy.reshape(L, Wb, -1), \
+    cx, cy, cm = cx.reshape(U, Wb, -1), cy.reshape(U, Wb, -1), \
         cm.reshape(Wb, -1)
     out, off = [], 0
     for s in lefts:
@@ -431,27 +447,33 @@ def _level(F, lefts, rights, fast=False, trace=None):
 def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
                                invperm, bands: tuple, B: int, fast=False,
                                trace=None):
-    """Bucket sums of Wb windows under one band layout: (x, y (L, Wb, B),
+    """Bucket sums of Wb windows under one band layout: (x, y (U, Wb, B),
     inf (Wb, B)) in natural bucket order, and the (Wb,) flags of the
     windows that a colliding pair spoiled (fast levels only).
 
     One gather lays out every band's slots (rank-major, so halving a band
-    pairs equal buckets); then one `pair_add_t` per halving level across
+    pairs equal buckets), through the gather kernel, index -1 on the
+    empty slots, which get zero coordinates and an infinity mask (every
+    level kernel replaces the denominator of an infinite operand, so the
+    zeros raise no flag); then one `pair_add_t` per halving level across
     all active bands, and a padded tree combine of the band results
     (bands are prefix-nested, Q descending)."""
-    L = F.L
+    U = F.U
     Wb, N = digits.shape
     bg, rk = band_grids(bands, digits.device)
     pos = starts_p[:, bg] + rk
     valid = rk < counts_p[:, bg]
     src = torch.gather(order, 1, torch.where(valid, pos, 0))
-    src = torch.where(valid, src, 0)
     neg = torch.gather(digits, 1, src) < 0
     ytab = torch.cat([y, F.neg(y)], dim=1)
-    flat = src.reshape(-1)
-    xs = x.index_select(1, flat).reshape(L, Wb, -1)
-    ys = ytab.index_select(1, (src + N * neg).reshape(-1)).reshape(L, Wb, -1)
+    xs = fk.gather_cols(x.contiguous(),
+                        torch.where(valid, src, -1).reshape(-1))
+    ys = fk.gather_cols(ytab, torch.where(valid, src + N * neg, -1)
+                        .reshape(-1))
+    xs, ys = xs.reshape(U, Wb, -1), ys.reshape(U, Wb, -1)
     ms = (~valid).to(torch.int32)
+    if trace is not None:
+        trace.setdefault("slots", []).append(valid.numel())
     wflag = torch.zeros(Wb, dtype=torch.bool, device=digits.device)
     segs, off = [], 0
     for (Q, h, _r0) in bands:
@@ -485,7 +507,7 @@ def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
         wflag |= fl
         finals = nxt + ([finals[-1]] if len(finals) % 2 else [])
     ax, ay, am = pad_dead(finals[0], B)
-    idx = invperm.unsqueeze(0).expand(L, Wb, B)
+    idx = invperm.unsqueeze(0).expand(U, Wb, B)
     return (torch.gather(ax, 2, idx), torch.gather(ay, 2, idx),
             torch.gather(am, 1, invperm) != 0, wflag)
 
@@ -495,7 +517,7 @@ def _window_sums(F, bands: tuple, ws: list, digits, points, order, starts_p,
     """Bucket sums of the windows `ws` under one band layout, in pieces of
     at most SLOT_CAP slots whose sums are added: (x, y, inf, flags), the
     (len(ws),) flags as in `_bucket_sums_bands_unified`."""
-    L = F.L
+    U = F.U
     wi = torch.tensor(ws, device=digits.device)
     acc = None
     for piece in _pieces(bands, len(ws)):
@@ -504,9 +526,9 @@ def _window_sums(F, bands: tuple, ws: list, digits, points, order, starts_p,
             counts_p[wi], invperm[wi], piece, B, fast, trace)
         if acc is not None:
             x3, y3, i3, zero = pair_add_t(
-                F, acc[0].reshape(L, -1), acc[1].reshape(L, -1),
-                acc[2].reshape(-1).to(torch.int32), sx.reshape(L, -1),
-                sy.reshape(L, -1), sinf.reshape(-1).to(torch.int32), fast,
+                F, acc[0].reshape(U, -1), acc[1].reshape(U, -1),
+                acc[2].reshape(-1).to(torch.int32), sx.reshape(U, -1),
+                sy.reshape(U, -1), sinf.reshape(-1).to(torch.int32), fast,
                 trace, len(ws))
             sx, sy = x3.reshape(sx.shape), y3.reshape(sy.shape)
             sinf = i3.reshape(sinf.shape) != 0
@@ -532,7 +554,7 @@ def _jac_reduce(tc: TCurve, P: TPoints, dim: int) -> TPoints:
 
 
 def tail_fn(tc: TCurve, c: int):
-    """Bucket sums (L, Wb, B) -> each window's point, via the two-axis
+    """Bucket sums (U, Wb, B) -> each window's point, via the two-axis
     weighted reduction: bucket b = q*C + j has weight b + 1, so the sum is
     C * sum_q q*S_q + sum_j (j+1)*T_j (S_q summing row q, T_j column j).
     Jacobian coordinates and the total `TCurve.add`; runs every window of
@@ -602,22 +624,25 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
                          safe: bool = False) -> Point:
     """sum_i scalars[i] * points[i] on the device; returns a host Point.
 
-    `points`: host Point list or `TPoints` with Z in {0, 1}.
+    `curve`: BLS12-381 G1 or G2.  `points`: host Point list or `TPoints`
+    with Z in {0, 1}.
     `scalars`: int sequence, (N, nbytes) uint8 LE bytes (numpy or tensor),
     or a (W, N) int32 digit tensor from `device_digits`.
     `pad`: run the grid with this many ranks per bucket (at least the
     largest bucket).  `safe`: run every level with the total formula (the
     reference's `CRYPTO_TPU_SAFE_AFFINE`); by default the levels are
     doubling-free and the windows a colliding pair spoiled are rerun with
-    the total formula, each named in a warning.  `timings`: if a dict, the
-    seconds of each phase are stored in it (the device is synchronised
-    between phases), the rerun windows in its list "rerun_windows", and
-    each level call's record as `pair_add_t`'s `trace` describes (the
-    rerun's calls in the dict "rerun_trace")."""
+    the total formula, each named in a warning (G2 always runs the total
+    formula).  `timings`: if a dict, the seconds of each phase are stored
+    in it (the device is synchronised between phases), the rerun windows
+    in its list "rerun_windows", the slots of each layout in its list
+    "slots", and each level call's record as `pair_add_t`'s `trace`
+    describes (the rerun's calls in the dict "rerun_trace")."""
     dev = resolve_device(device)
     tc = tcurve_for(curve, dev)
     F = tc.F
-    fast = not safe
+    # G2 (Fq2) runs the total formula only, as the reference forces
+    fast = not safe and not isinstance(F, TQuadField)
     t0 = time.perf_counter()
     if nbits is None:
         nbits = curve.scalar_field.bits
@@ -677,8 +702,7 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
         timings["digits_plan"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    L = F.L
-    bx = torch.empty((L, W, B), dtype=torch.int32, device=dev)
+    bx = torch.empty((F.U, W, B), dtype=torch.int32, device=dev)
     by = torch.empty_like(bx)
     binf = torch.empty((W, B), dtype=torch.bool, device=dev)
     flags = torch.zeros(W, dtype=torch.bool, device=dev)

@@ -75,8 +75,41 @@ def _jax_to_port():
     convert.jax_to_port(np.zeros((2, 17), np.int32), 97)
 
 
+def _jax_to_port_fq2():
+    import numpy as np
+    from crypto_tpu_torch import convert
+    convert.jax_to_port_fq2(np.zeros((2, 2, 26), np.int32), 97)
+
+
+def _tquad_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.ttower import tquad_for
+    tquad_for(tb.Fq2)
+
+
+def _tquad_field():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.ttower import TQuadField
+    TQuadField(tb.Fq2)
+
+
+def _tcurve_for_g2():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.curves.tcurve import tcurve_for
+    tcurve_for(tb.G2)
+
+
+def _msm_g2():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.ops.msm_v2 import msm_device_scheduled
+    G = tb.G2.generator()
+    msm_device_scheduled(tb.G2, [G, G.double()], [1, 2])
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
-                                   _tfield, _jax_to_port],
+                                   _tfield, _jax_to_port, _jax_to_port_fq2,
+                                   _tquad_for, _tquad_field, _tcurve_for_g2,
+                                   _msm_g2],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
