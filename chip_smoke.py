@@ -48,10 +48,12 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -68,6 +70,28 @@ H100_IMAD_PER_S = 132 * 64 * 1.98e9
 FQ_LIMBS = 12
 FQ_BYTES = 4 * FQ_LIMBS            # one Fq element, 12 x 32-bit limbs
 FQ2_BYTES = 2 * FQ_BYTES           # one Fq2 element
+# 32x32 -> 64-bit products: a Montgomery mul (CIOS), an Fq2 product
+# (three unreduced 12 x 12 products and two reductions) and an Fq2 square
+# (two Montgomery muls)
+MUL = 2 * FQ_LIMBS * FQ_LIMBS + FQ_LIMBS
+FQ2_MUL = 3 * FQ_LIMBS * FQ_LIMBS + 2 * (FQ_LIMBS * FQ_LIMBS + FQ_LIMBS)
+FQ2_SQR = 2 * MUL
+# CUDA kernel function -> the entry point that launches it
+KERNEL_ENTRY = {
+    "mont_mul_kernel": "mont_mul", "mont_pow_kernel": "mont_pow",
+    "pre_kernel": "affine_level_pre", "post_kernel": "affine_level_post",
+    "prefix_kernel": "chunked_level_prefix",
+    "down_kernel": "chunked_level_down",
+    "pre_fast_kernel": "affine_level_pre_fast",
+    "post_fast_kernel": "affine_level_post_fast",
+    "prefix_fast_kernel": "chunked_level_prefix_fast",
+    "down_fast_kernel": "chunked_level_down_fast",
+    "full_add_kernel": "jacobian_add", "mixed_add_kernel": "jacobian_add_mixed",
+    "double_kernel": "jacobian_double", "normalize_kernel": "jacobian_normalize",
+    "fq2_mul_kernel": "fq2_mul", "fq2_sqr_kernel": "fq2_sqr",
+    "pre_fq2_kernel": "affine_level_pre_fq2",
+    "post_fq2_kernel": "affine_level_post_fq2", "gather_kernel": "gather_cols",
+}
 
 
 def phase(name: str, **kv) -> None:
@@ -105,6 +129,78 @@ def bound_ms(nbytes: float, wide_products: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def chain_muls(e: int) -> int:
+    """Montgomery products of a short addition chain for x^e: a sliding
+    window over e's bits (the odd powers below 2^w, then a square per bit
+    and a product per window), the fewest over widths 1 to 8.  Width 1 is
+    the binary chain that mont_pow and normalize run (608 products for p -
+    2); the best width takes 460 for p - 2 and 312 for r - 2, so the
+    bound counts the chain the function needs, not the one it runs."""
+    bits, best = bin(e)[2:], None
+    for w in range(1, 9):
+        n, i, first = 2 ** (w - 1) if w > 1 else 0, 0, True
+        while i < len(bits):
+            if bits[i] == "0":
+                n, i = n + 1, i + 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            n += 0 if first else j - i + 1
+            i, first = j, False
+        best = n if best is None else min(best, n)
+    return best
+
+
+def work(name: str, args: tuple) -> tuple:
+    """(bytes, 32x32 -> 64-bit products) that one launch of entry point
+    `name` on wrapper arguments `args` needs at least: each input read
+    once, each output written once; data-dependent work (doublings,
+    gathered columns) counted from these inputs."""
+    if name in ("mont_mul", "mont_pow"):
+        L, M = args[0].shape          # 12 limbs (Fq) or 8 (Fr)
+        mul = MUL if L == FQ_LIMBS else 2 * L * L + L
+        if name == "mont_mul":
+            return 3 * 4 * L * M, mul * M
+        return 2 * 4 * L * M, chain_muls(args[1]) * mul * M
+    if name == "gather_cols":
+        src, idx = args
+        live = idx[(idx >= 0) & (idx < src.shape[1])]
+        cols = int(torch.unique(live).numel())
+        return 4 * src.shape[0] * (cols + idx.shape[0]) + 8 * idx.shape[0], 0
+    from crypto_tpu_torch.ops.kernels.curve_kernels import CHUNK_K
+    M = args[1].shape[1]                 # args[0] is the field context
+    strips, totals = M - M // CHUNK_K, M // CHUNK_K * FQ_BYTES
+    return {
+        "fq2_mul": lambda: (3 * FQ2_BYTES * M, FQ2_MUL * M),
+        "fq2_sqr": lambda: (2 * FQ2_BYTES * M, FQ2_SQR * M),
+        "affine_level_pre": lambda: (M * (5 * FQ_BYTES + 16), 0),
+        "affine_level_post": lambda: (M * (7 * FQ_BYTES + 12),
+                                      (3 * M + int(args[6].sum())) * MUL),
+        "affine_level_pre_fast": lambda: (M * (3 * FQ_BYTES + 12), 0),
+        "affine_level_post_fast": lambda: (M * (7 * FQ_BYTES + 8),
+                                           3 * M * MUL),
+        "affine_level_pre_fq2": lambda: (M * (5 * FQ2_BYTES + 16), 0),
+        "affine_level_post_fq2": lambda: (
+            M * (7 * FQ2_BYTES + 12),
+            (2 * FQ2_MUL + FQ2_SQR) * M + FQ2_SQR * int(args[6].sum())),
+        "chunked_level_prefix": lambda: (M * (5 * FQ_BYTES + 16) + totals,
+                                         strips * MUL),
+        "chunked_level_down": lambda: (
+            M * (7 * FQ_BYTES + 12) + totals,
+            (2 * strips + 3 * M + int(args[9].sum())) * MUL),
+        "chunked_level_prefix_fast": lambda: (
+            M * (3 * FQ_BYTES + 12) + totals, strips * MUL),
+        "chunked_level_down_fast": lambda: (M * (7 * FQ_BYTES + 8) + totals,
+                                            (2 * strips + 3 * M) * MUL),
+        "jacobian_add": lambda: (M * (9 * FQ_BYTES + 4), 16 * M * MUL),
+        "jacobian_add_mixed": lambda: (M * (7 * FQ_BYTES + 4), 6 * M * MUL),
+        "jacobian_double": lambda: (M * 6 * FQ_BYTES, 7 * M * MUL),
+        "jacobian_normalize": lambda: (M * 6 * FQ_BYTES,
+                                       (chain_muls(args[0].p - 2) + 4) * M * MUL),
+    }[name]()
+
+
 def max_err(a, b) -> int:
     """Largest |kernel - plain| over the outputs' int32 words."""
     return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
@@ -123,18 +219,19 @@ SAFE_KERNELS = LEVEL_KERNELS[("chunked", True)] \
     + LEVEL_KERNELS[("pre_post", True)]
 G1_LEVEL_KERNELS = sum(LEVEL_KERNELS.values(), ())
 # what a G2 MSM launches: the gather, the Fq2 level, mul and square, and
-# mont_mul (the base-field Fermat root of every Fq2 inversion)
+# mont_mul and mont_pow (the norm and the base-field Fermat root of every
+# Fq2 inversion)
 G2_KERNELS = ("gather_cols", "affine_level_pre_fq2", "affine_level_post_fq2",
-              "fq2_mul", "fq2_sqr", "mont_mul")
+              "fq2_mul", "fq2_sqr", "mont_mul", "mont_pow")
 FQ2_KERNELS = G2_KERNELS[1:5]
 
 
 def level_kernels(fast_widths, safe_widths, threshold: int) -> set:
-    """The kernels a G1 run dispatches to: the gather and mont_mul always,
-    the chunked level for calls of at least `threshold` pairs, pre/post for
-    the narrower ones; the fast variants for the fast calls, the total
-    formula for the rerun's."""
-    names = {"gather_cols", "mont_mul"}
+    """The kernels a G1 run dispatches to: the gather, mont_mul and
+    mont_pow (the Fermat roots) always, the chunked level for calls of at
+    least `threshold` pairs, pre/post for the narrower ones; the fast
+    variants for the fast calls, the total formula for the rerun's."""
+    names = {"gather_cols", "mont_mul", "mont_pow"}
     for widths, safe in ((fast_widths, False), (safe_widths, True)):
         if any(w >= threshold for w in widths):
             names.update(LEVEL_KERNELS[("chunked", safe)])
@@ -180,6 +277,56 @@ def floats(timings: dict) -> dict:
     return {k: v for k, v in timings.items() if isinstance(v, float)}
 
 
+def record_work(counted, fn):
+    """fn() with every counted wrapper replaced, in each module of the
+    port that holds it, by a shim that sums `work` over the calls that
+    launched; returns fn()'s result and {name: [launches, summed bound
+    ms]}.  The wrappers' own counts go to the shims meanwhile."""
+    totals = {f.__name__: [0, 0.0] for f in counted}
+    shims = {}
+    for f in counted:
+        def shim(*args, _f=f):
+            before = shims[_f].launches
+            out = _f(*args)
+            if shims[_f].launches > before:
+                tot = totals[_f.__name__]
+                tot[0] += 1
+                tot[1] += bound_ms(*work(_f.__name__, args))[0]
+            return out
+        shim.launches = 0
+        shim.__name__ = f.__name__
+        shims[f] = shim
+    patched = []
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith("crypto_tpu_torch"):
+            continue
+        for k, v in list(vars(mod).items()):
+            if callable(v) and v in shims:
+                patched.append((mod, k, v))
+                setattr(mod, k, shims[v])
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for mod, k, v in patched:
+            setattr(mod, k, v)
+    return out, totals
+
+
+def device_ms_by_entry(prof) -> dict:
+    """{entry point: (kernels, device ms)} from a profile's key_averages,
+    summed over each entry point's kernel functions."""
+    out = {}
+    for e in prof.key_averages():
+        hit = re.search(r"(\w+_kernel)\b", e.key)
+        name = KERNEL_ENTRY.get(hit.group(1)) if hit else None
+        if name is None:
+            continue
+        cnt, ms = out.get(name, (0, 0.0))
+        out[name] = (cnt + e.count, ms + e.self_device_time_total / 1e3)
+    return out
+
+
 def timed_call(fn):
     """(fn(), milliseconds of that one call on the card)."""
     torch.cuda.synchronize()
@@ -218,8 +365,21 @@ def main() -> int:
     phase("build", seconds=round(time.time() - t0, 3),
           nvcc_seconds=round(build.build_info["seconds"], 3),
           lib=build.build_info["path"])
+    res = build.kernel_resources(
+        Path(build.build_info["path"]).with_suffix(".log").read_text())
+    sass = build.sass_counts(build.build_info["path"])
+    phase("kernel_resources", registers_spill_stores_spill_loads_sass=json.dumps(
+        {k: [v.get("registers"), v.get("spill_stores"), v.get("spill_loads"),
+             sass.get(k)] for k, v in res.items()}))
+    spills = sorted(k for k, v in res.items()
+                    if v.get("spill_stores") or v.get("spill_loads"))
+    unreported = sorted(set(KERNEL_ENTRY) - {k.split("<")[0] for k in res})
+    if spills or unreported:
+        raise AssertionError(f"ptxas: spills in {spills}, no report for "
+                             f"{unreported}")
 
-    counted = (fk.mont_mul, ck.affine_level_pre, ck.affine_level_post,
+    counted = (fk.mont_mul, fk.mont_pow, ck.affine_level_pre,
+               ck.affine_level_post,
                ck.chunked_level_prefix, ck.chunked_level_down,
                ck.affine_level_pre_fast, ck.affine_level_post_fast,
                ck.chunked_level_prefix_fast, ck.chunked_level_down_fast,
@@ -291,7 +451,9 @@ def main() -> int:
         main_runs.append((launches, widths))
         phase("msm_run", run=run, seconds=dt, points_per_s=n / dt,
               phases=floats(timings), rerun_windows=[],
-              gather_launches=launches["gather_cols"], correct=True)
+              gather_launches=launches["gather_cols"],
+              mont_mul_launches=launches["mont_mul"],
+              mont_pow_launches=launches["mont_pow"], correct=True)
     main_launches, main_widths = main_runs[0]
     paths["msm_2^20"] = main_runs[0]
     med = statistics.median(secs)
@@ -468,7 +630,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_points2 = time.time() - t0
     require("G2 bench points", bp2_launches, ("fq2_mul", "fq2_sqr",
-                                              "mont_mul"))
+                                              "mont_mul", "mont_pow"))
     if any(bp2_launches[k] for k in not_g2):
         raise AssertionError(f"G2 bench points launched a G1 kernel: "
                              f"{bp2_launches}")
@@ -486,13 +648,14 @@ def main() -> int:
           fq2_mul_launches=bp2_launches["fq2_mul"],
           fq2_sqr_launches=bp2_launches["fq2_sqr"],
           mont_mul_launches=bp2_launches["mont_mul"],
+          mont_pow_launches=bp2_launches["mont_pow"],
           host_g2_mul_raw_s=t_mul2, sample_checked=len(sample2),
           correct=True)
 
     # ---- the G2 MSM: 2^20 points, c = 16, the reference's Fq2 levels ----
     def g2_msm_checks(where: str, launches: dict, timings: dict) -> None:
-        """A G2 MSM runs the Fq2 kernels, the gather and mont_mul, no G1
-        level or point kernel, and no flag or rerun."""
+        """A G2 MSM runs the Fq2 kernels, the gather, mont_mul and
+        mont_pow, no G1 level or point kernel, and no flag or rerun."""
         require(where, launches, G2_KERNELS)
         if any(launches[k] for k in not_g2) or timings["rerun_windows"] \
                 or "zero_chunks" in timings:
@@ -593,8 +756,11 @@ def main() -> int:
         raise AssertionError(f"kernels launched on no path: {never}")
 
     # ---- kernels vs plain, at the shapes a path gave them -------------
-    def row(name, src, rep, path, err, ms, plain_ms, bound, shape,
+    def row(name, src, rep, path, err, ms, plain_ms, args, shape,
             library_ms=None):
+        """The kernels-line entry of `name`, its bound from `work` on the
+        wrapper arguments `args` it was timed on."""
+        bound = bound_ms(*work(name, args))
         return dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=paths[path][0][name], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
@@ -603,7 +769,6 @@ def main() -> int:
     rows = []
     csrc = "crypto_tpu_torch/csrc/"
     ref = "crypto_tpu/ops/pallas/curve_kernels.py:"
-    mul_products = 2 * FQ_LIMBS * FQ_LIMBS + FQ_LIMBS   # per Montgomery mul
 
     def agree(name, kernel_out, plain_out, where):
         err = max_err(kernel_out, plain_out)
@@ -636,9 +801,81 @@ def main() -> int:
                 "mont_mul", csrc + "mont_mul.cu",
                 "crypto_tpu/ops/pallas/field_kernels.py:386", "msm_2^20",
                 err, cuda_ms(lambda: fk.mont_mul(ra, rb, Fx.mod)), plain_ms,
-                bound_ms(3 * FQ_BYTES * M, (2 * L * L + L) * M), [L, M]))
+                (ra, rb, Fx.mod), [L, M]))
     phase("check_mont_mul", fq_pairs=16 << 15, fr_pairs=1 << 16,
           bit_exact=True)
+
+    # mont_pow's Fermat root at 1 element (each batch_inv_t root), 16 (the
+    # tail's to_affine) and 2^16, with zeros (0 -> 0), Fq and Fr, against
+    # its plain version on the card
+    for fld in (bls.Fq, bls.Fr):
+        Fx = tfield_for(fld, dev)
+        e = fld.p - 2
+        hr = random.Random(SEED + 3)
+        for M, zero in ((1, False), (1, True), (16, False), (1 << 16, False)):
+            x = Fx.pack([0 if zero else hr.randrange(1, fld.p)
+                         for _ in range(M)])
+            x[:, 3::5] = 0
+            plain, plain_ms = timed_call(lambda: fk.mont_pow_plain(x, e,
+                                                                   Fx.mod))
+            err = agree("mont_pow", (fk.mont_pow(x, e, Fx.mod),), (plain,),
+                        f"on {fld.name} at M={M}")
+            if fld is bls.Fq and (M, zero) == (1, False):
+                rows.append(row(
+                    "mont_pow", csrc + "mont_mul.cu",
+                    "crypto_tpu/ops/pallas/field_kernels.py:386", "msm_2^20",
+                    err, cuda_ms(lambda: fk.mont_pow(x, e, Fx.mod)),
+                    plain_ms, (x, e, Fx.mod), [Fx.L, M]))
+    phase("check_mont_pow", elements=[1, 16, 1 << 16], zeros=True,
+          fields=["Fq", "Fr"], bit_exact=True)
+
+    # one Fermat root, in turns: the chain of 608 mont_mul launches from a
+    # host loop (what TField.inv did) against one mont_pow launch
+    Fq_ = tfield_for(bls.Fq, dev)
+    e = bls.P - 2
+
+    def chain(a):
+        acc = a
+        for bit in bin(e)[3:]:
+            acc = fk.mont_mul(acc, acc, Fq_.mod)
+            if bit == "1":
+                acc = fk.mont_mul(acc, a, Fq_.mod)
+        return acc
+
+    hr = random.Random(SEED + 4)
+    root = {}
+    for M in (1, 16):
+        a = Fq_.pack([hr.randrange(1, bls.P) for _ in range(M)])
+        want = fk.mont_pow_plain(a, e, Fq_.mod)
+        for kind in ("chain", "mont_pow", "mont_pow", "chain"):
+            fn = (lambda: chain(a)) if kind == "chain" else \
+                (lambda: fk.mont_pow(a, e, Fq_.mod))
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            out = fn()
+            stop.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            if not torch.equal(out, want):
+                raise AssertionError(f"Fermat root by {kind} disagrees at "
+                                     f"M={M}")
+            root.setdefault(f"{kind}_{M}_wall_ms", []).append(wall)
+            root.setdefault(f"{kind}_{M}_event_ms", []).append(
+                start.elapsed_time(stop))
+    # the chain runs one product a launch; at 1 to 16 elements the floor
+    # that binds is the latency of the shortest chain's dependent
+    # products, here at mont_pow's own time a product
+    before = fk.mont_mul.launches
+    chain(a)
+    run = fk.mont_mul.launches - before
+    per_product_us = statistics.median(root["mont_pow_1_event_ms"]) / run * 1e3
+    phase("fermat_root", launches_chain=run, chain_muls_bound=chain_muls(e),
+          per_product_us=per_product_us,
+          latency_floor_ms=chain_muls(e) * per_product_us / 1e3, **root,
+          correct=True)
 
     def check_pre_post(M: int, path: str | None, fast: bool):
         x1, y1, m1, x2, y2, m2 = level_inputs(M)
@@ -663,20 +900,15 @@ def main() -> int:
         e_post = agree(post.__name__, post(F, *args), pp, f"at M={M}")
         if path is None:
             return
-        nmul = 3 * M if fast else 3 * M + int(kd[1].sum())
-        pre_bytes = M * (3 * FQ_BYTES + 12) if fast else \
-            M * (5 * FQ_BYTES + 16)
-        post_bytes = M * (7 * FQ_BYTES + 8) if fast else \
-            M * (7 * FQ_BYTES + 12)
         lines = ("739", "752") if fast else ("533", "548")
         rows.append(row(pre.__name__, csrc + "affine_level.cu",
                         ref + lines[0], path, e_pre,
-                        cuda_ms(lambda: pre(F, *ins)), pre_ms,
-                        bound_ms(pre_bytes, 0), [12, M]))
+                        cuda_ms(lambda: pre(F, *ins)), pre_ms, (F,) + ins,
+                        [12, M]))
         rows.append(row(post.__name__, csrc + "affine_level.cu",
                         ref + lines[1], path, e_post,
                         cuda_ms(lambda: post(F, *args)), post_ms,
-                        bound_ms(post_bytes, nmul * mul_products), [12, M]))
+                        (F,) + args, [12, M]))
 
     for fast, widths in ((False, edge_safe), (True, edge_widths)):
         w_pre = max(w for w in widths if w < thr)
@@ -719,28 +951,15 @@ def main() -> int:
         e_down = agree(down.__name__, down(F, *args), pdn, f"at M={M}")
         if path is None:
             return
-        K = ck.CHUNK_K
-        strips = Mp - Mp // K
-        if fast:
-            pre_b, pre_mul = Mp * (3 * FQ_BYTES + 12), strips
-            down_b, down_mul = Mp * (7 * FQ_BYTES + 8), 2 * strips + 3 * Mp
-            lines = ("669", "683")
-        else:
-            ndbl = int(kq[2].sum())
-            pre_b, pre_mul = Mp * (5 * FQ_BYTES + 16), strips
-            down_b = Mp * (7 * FQ_BYTES + 12)
-            down_mul = 2 * strips + 3 * Mp + ndbl
-            lines = ("844", "860")
+        lines = ("669", "683") if fast else ("844", "860")
         rows.append(row(prefix.__name__, csrc + "chunked_level.cu",
                         ref + lines[0], path, e_pre,
                         cuda_ms(lambda: prefix(F, *ins)), prefix_ms,
-                        bound_ms(pre_b + Mp // K * FQ_BYTES,
-                                 pre_mul * mul_products), [12, Mp]))
+                        (F,) + ins, [12, Mp]))
         rows.append(row(down.__name__, csrc + "chunked_level.cu",
                         ref + lines[1], path, e_down,
                         cuda_ms(lambda: down(F, *args)), down_ms,
-                        bound_ms(down_b + Mp // K * FQ_BYTES,
-                                 down_mul * mul_products), [12, Mp]))
+                        (F,) + args, [12, Mp]))
 
     for fast, path, widths in ((False, "rerun_2^20", rr_widths),
                                (True, "msm_2^20", main_widths)):
@@ -785,47 +1004,46 @@ def main() -> int:
     rows.append(row("jacobian_add", csrc + "jacobian.cu", ref + "334",
                     "bench_points_2^20", e_add,
                     cuda_ms(lambda: pk.jacobian_add(F, *args)), add_ms,
-                    bound_ms(n * (9 * FQ_BYTES + 4), 16 * n * mul_products),
-                    [12, n]))
+                    (F,) + args, [12, n]))
     pm, mix_ms = timed_call(lambda: pk.jacobian_add_mixed_plain(F, *aff))
     e_mix = agree("jacobian_add_mixed", pk.jacobian_add_mixed(F, *aff), pm,
                   f"at M={n}")
     rows.append(row("jacobian_add_mixed", csrc + "jacobian.cu", ref + "347",
                     "add_fns_2^20", e_mix,
                     cuda_ms(lambda: pk.jacobian_add_mixed(F, *aff)), mix_ms,
-                    bound_ms(n * (7 * FQ_BYTES + 4), 6 * n * mul_products),
-                    [12, n]))
+                    (F,) + aff, [12, n]))
     pdb, dbl_ms = timed_call(lambda: pk.jacobian_double_plain(F, *J))
     e_dbl = agree("jacobian_double", pk.jacobian_double(F, *J), pdb,
                   f"at M={n}")
     rows.append(row("jacobian_double", csrc + "jacobian.cu", ref + "360",
                     "add_fns_2^20", e_dbl,
                     cuda_ms(lambda: pk.jacobian_double(F, *J)), dbl_ms,
-                    bound_ms(n * 6 * FQ_BYTES, 7 * n * mul_products),
-                    [12, n]))
+                    (F,) + J, [12, n]))
     phase("check_jacobian", full_add_rows=[1 << 14, n], mixed_add_rows=n,
           double_rows=n, bit_exact=True)
-    fermat = bls.P - 2
-    norm_muls = (fermat.bit_length() - 1) + (bin(fermat).count("1") - 1) + 4
     pn, norm_ms = timed_call(lambda: pk.jacobian_normalize_plain(F, *J))
     e_norm = agree("jacobian_normalize", pk.jacobian_normalize(F, *J), pn,
                    f"at M={n}")
     rows.append(row("jacobian_normalize", csrc + "normalize.cu",
                     ref + "390", "bench_points_2^20", e_norm,
                     cuda_ms(lambda: pk.jacobian_normalize(F, *J), reps=2),
-                    norm_ms,
-                    bound_ms(n * 6 * FQ_BYTES, norm_muls * n * mul_products),
-                    [12, n]))
+                    norm_ms, (F,) + J, [12, n]))
     phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
-          muls_per_point=norm_muls, bit_exact=True)
+          bound_muls_per_point=chain_muls(bls.P - 2) + 4, bit_exact=True)
 
     # ---- the Fq2 mul at the first product-tree width of the G2 MSM's
-    # narrowest level, and a ragged count; random curve coordinates and
-    # the edges 0, 1, u, (p-1)(1 + u) and a square
+    # narrowest level, and a ragged count; random curve coordinates, the
+    # edges 0, 1, u, (p-1)(1 + u) and a square, and the canonical limbs
+    # that bound the lazy reduction: a0 + a1 >= p ((p-1)(1 + u) squared),
+    # v0 = 0 with v1 = (p-1)^2 ((p-1)u squared), 0, 1 and p - 1 + u
     w_fq2 = min(g2_widths) // 2
     gen2 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    P = bls.P
     fq2_edges = F2.pack([bls.Fq2(0, 0), bls.Fq2(1, 0), bls.Fq2(0, 1),
-                         bls.Fq2(bls.P - 1, bls.P - 1)])
+                         bls.Fq2(P - 1, P - 1)])
+    fq2_limb_edges = F2.pack([bls.Fq2(P - 1, P - 1), bls.Fq2(0, P - 1),
+                              bls.Fq2(0, 0), bls.Fq2(1, 0),
+                              bls.Fq2(P - 1, 1)], mont=False)
     for M in (w_fq2, w_fq2 - 3):
         a = points2.X[:, torch.randint(0, n, (M,), generator=gen2,
                                        device=dev)]
@@ -833,6 +1051,8 @@ def main() -> int:
                                        device=dev)]
         a[:, :4], b[:, :4] = fq2_edges, fq2_edges.flip(1)
         b[:, 4] = a[:, 4]
+        a[:, 5:10], b[:, 5:10] = fq2_limb_edges, fq2_limb_edges
+        a[:, 10:15], b[:, 10:15] = fq2_limb_edges, fq2_limb_edges.flip(1)
         pm, fq2_ms = timed_call(lambda: fk.fq2_mul_plain(F2.base, a, b))
         e_fq2 = agree("fq2_mul", (fk.fq2_mul(F2.base, a, b),), (pm,),
                       f"at M={M}")
@@ -840,9 +1060,9 @@ def main() -> int:
             rows.append(row(
                 "fq2_mul", csrc + "fq2_mul.cu", ref + "1066", "g2_msm_2^20",
                 e_fq2, cuda_ms(lambda: fk.fq2_mul(F2.base, a, b)), fq2_ms,
-                bound_ms(3 * FQ2_BYTES * M, 3 * mul_products * M), [24, M]))
+                (F2.base, a, b), [24, M]))
     phase("check_fq2_mul", pairs=[w_fq2, w_fq2 - 3], path="g2_msm_2^20",
-          bit_exact=True)
+          limb_edges=True, bit_exact=True)
 
     # ---- the Fq2 square at the G2 tail's widest (the first reduction of
     # 16 windows x 2^15 buckets: 2^18 sums), and a ragged count, on the
@@ -859,7 +1079,7 @@ def main() -> int:
             rows.append(row(
                 "fq2_sqr", csrc + "fq2_mul.cu", ref + "908", "g2_msm_2^20",
                 e_sq, cuda_ms(lambda: fk.fq2_sqr(F2.base, a)), sqr_ms,
-                bound_ms(2 * FQ2_BYTES * M, 2 * mul_products * M), [24, M]))
+                (F2.base, a), [24, M]))
     phase("check_fq2_sqr", elements=[w_sq, w_sq - 5], path="g2_msm_2^20",
           bit_exact=True)
 
@@ -886,16 +1106,12 @@ def main() -> int:
         rows.append(row("affine_level_pre_fq2", csrc + "affine_level_fq2.cu",
                         ref + "1014", path, e_pre,
                         cuda_ms(lambda: ck.affine_level_pre_fq2(F2, *ins)),
-                        pre_ms, bound_ms(M * (5 * FQ2_BYTES + 16), 0),
-                        [24, M]))
+                        pre_ms, (F2,) + ins, [24, M]))
         rows.append(row("affine_level_post_fq2",
                         csrc + "affine_level_fq2.cu", ref + "1029", path,
                         e_post,
                         cuda_ms(lambda: ck.affine_level_post_fq2(F2, *args)),
-                        post_ms,
-                        bound_ms(M * (7 * FQ2_BYTES + 12),
-                                 (8 * M + 2 * ndbl) * mul_products),
-                        [24, M]))
+                        post_ms, (F2,) + args, [24, M]))
 
     w_lvl = min(g2_widths)
     check_fq2_level(w_lvl, "g2_msm_2^20")
@@ -931,21 +1147,20 @@ def main() -> int:
                 idx < 0, 0)
 
         agree("index_select", (library(),), (pg,), f"at M={M}")
-        cols = int(torch.unique(idx[idx >= 0]).numel())
         rows.append(row("gather_cols", csrc + "gather.cu",
                         "crypto_tpu/ops/pallas/field_kernels.py:356",
                         "g2_msm_2^20", e_g,
                         cuda_ms(lambda: fk.gather_cols(src, idx)), gather_ms,
-                        bound_ms(FQ2_BYTES * (cols + M) + 8 * M, 0),
-                        [24, M], library_ms=cuda_ms(library)))
+                        (src, idx), [24, M], library_ms=cuda_ms(library)))
         g_live = live
     phase("check_gather", slots=[max(t2["slots"]), n + 3], live=g_live,
           path="g2_msm_2^20", bit_exact=True)
 
-    # ---- device busy share of one more 2^20 MSM of each curve ----------
+    # ---- device busy share of one more 2^20 MSM of each curve, and each
+    # kernel's device time and summed bound over one MSM ----------------
     from torch.profiler import ProfilerActivity, profile
 
-    def device_profile(name: str, fn) -> None:
+    def device_profile(name: str, fn) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
@@ -976,11 +1191,17 @@ def main() -> int:
               device_launches=len(spans),
               top_ms=[(k, cnt, round(us / 1e3, 3))
                       for k, (cnt, us) in top])
+        return device_ms_by_entry(prof)
 
-    device_profile("profile", lambda: msm_v2.msm_device_scheduled(
-        bls.G1, points, sb, c=16))
-    device_profile("profile_g2", lambda: msm_v2.msm_device_scheduled(
-        bls.G2, points2, sb, c=16))
+    for tag, curve, pts in (("", bls.G1, points), ("_g2", bls.G2, points2)):
+        def msm():
+            return msm_v2.msm_device_scheduled(curve, pts, sb, c=16)
+
+        _, bounds = record_work(counted, msm)
+        device = device_profile("profile" + tag, msm)
+        phase("per_msm" + tag, launches_device_ms_bound_ms=json.dumps(
+            {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 4)]
+             for k, (cnt, b) in bounds.items() if cnt}))
     phase("total", seconds=round(time.time() - t_start, 3))
 
     print(card)

@@ -16,9 +16,10 @@
 //
 // Bound on the H100: pre moves 4 coordinates in and 1 out (96 bytes each)
 // with no multiplication: memory-bound.  post moves 5 in and 2 out
-// against 2 Fq2 products (3 Montgomery products each) and 1 square, 2
-// when doubling (complex squaring, 2 products each, as the reference's
-// Fq2Ctx.square): 8 or 10 Montgomery products, on the operations side.
+// against 2 Fq2 products (field.cuh fq2_mul: Karatsuba with lazy
+// reduction, 744 32x32->64-bit products each) and 1 square, 2 when
+// doubling (complex squaring, 2 Montgomery products each, as the
+// reference's Fq2Ctx.square), on the operations side.
 // One thread per pair.  post's 5 inputs, lambda and the
 // results would hold over 200 words and spill; it computes lambda first,
 // so that dinv and y2 die, and reloads x2, y1 and y2 from memory where
@@ -69,7 +70,7 @@ __global__ void __launch_bounds__(T) post_fq2_kernel(
     const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
     const uint32_t* __restrict__ dinv, const int* __restrict__ dbl,
     const int* __restrict__ m1, const int* __restrict__ m2, uint32_t* __restrict__ x3,
-    uint32_t* __restrict__ y3, long long M, ctt::Fq m) {
+    uint32_t* __restrict__ y3, long long M, ctt::Fq m, ctt::FqSquare p2) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
   const bool is_dbl = dbl[i] != 0, i1 = m1[i] != 0, i2 = m2[i] != 0;
@@ -85,14 +86,14 @@ __global__ void __launch_bounds__(T) post_fq2_kernel(
     ctt::fq2_sub(lam, lam, t, m);                          // y2 - y1
   }
   ctt::load<FQ2_LIMBS>(t, dinv, M, i);
-  ctt::fq2_mul(lam, lam, t, m);                            // lambda
+  ctt::fq2_mul(lam, lam, t, m, p2);                            // lambda
   uint32_t X3[FQ2_LIMBS];
   ctt::fq2_sqr(X3, lam, m);
   ctt::fq2_sub(X3, X3, X1, m);
   ctt::load<FQ2_LIMBS>(t, x2, M, i);
   ctt::fq2_sub(X3, X3, t, m);                              // x3 = lambda^2 - x1 - x2
   ctt::fq2_sub(t, X1, X3, m);
-  ctt::fq2_mul(t, lam, t, m);
+  ctt::fq2_mul(t, lam, t, m, p2);
   ctt::load<FQ2_LIMBS>(lam, y1, M, i);
   ctt::fq2_sub(t, t, lam, m);                              // y3 = lambda (x1 - x3) - y1
   if (i1) {
@@ -128,6 +129,7 @@ extern "C" int crypto_affine_post_fq2(const void* x1, const void* y1, const void
       (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)x2, (const uint32_t*)y2,
       (const uint32_t*)dinv, (const int*)dbl, (const int*)m1, (const int*)m2,
       (uint32_t*)x3, (uint32_t*)y3, M,
-      ctt::make_mod<ctt::FQ_LIMBS>((const uint32_t*)p, n0inv));
+      ctt::make_mod<ctt::FQ_LIMBS>((const uint32_t*)p, n0inv),
+      ctt::make_fq_square((const uint32_t*)p));
   return (int)cudaGetLastError();
 }

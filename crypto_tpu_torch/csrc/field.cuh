@@ -8,13 +8,22 @@
 // tensors on the Python side); thread i reads limb j of element i at
 // j*M + i, so a warp's loads of one limb are contiguous.
 //
+// The Montgomery product is a CIOS whose rows run on PTX carry chains
+// (ptx.cuh: mad.lo.cc / madc.hi.cc / addc.cc), the Fq2 product Karatsuba
+// with lazy reduction (three unreduced products, two reductions), and
+// pow_fixed the square-and-multiply chain of a fixed exponent in one
+// thread.
+//
 // Every function below computes exactly what the plain PyTorch versions
-// in crypto_tpu_torch compute (canonical results for canonical inputs), so
-// kernels and plain versions agree bit for bit.
+// in crypto_tpu_torch compute (canonical results for canonical inputs;
+// mont_mul also for any inputs below R), so kernels and plain versions
+// agree bit for bit.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ptx.cuh"
 
 namespace ctt {
 
@@ -76,10 +85,76 @@ __device__ __forceinline__ bool eq(const uint32_t a[N], const uint32_t b[N]) {
   return acc == 0;
 }
 
+// ---------------------------------------------------------------------------
+// Montgomery arithmetic on PTX carry chains (ptx.cuh)
+// ---------------------------------------------------------------------------
+//
+// The running value t of a product is held in N + 2 words.  A row adds
+// a*b_i (mul_row), or adds m_i*p and drops the low word, which that makes
+// 0 (reduce_row).  Each row is two carry chains (mad_pass): the products
+// of the even limbs, then those of the odd limbs, each product's low and
+// high halves side by side in its chain, so that ptxas can issue the pair
+// as one 64-bit multiply-add with carry.
+
+// t[j] += lo(a_j*b), t[j + 1] += hi(a_j*b) for j = S, S + 2, ... < N in one
+// carry chain; its carry out of t[N - 1 + S] is left in the flag.  N even.
+template <int N, int S>
+__device__ __forceinline__ void mad_pass(uint32_t* t, const uint32_t* a, uint32_t b) {
+  static_assert(N % 2 == 0, "the passes pair limbs");
+  t[S] = ptx::mad_lo_cc(a[S], b, t[S]);
+  t[S + 1] = ptx::madc_hi_cc(a[S], b, t[S + 1]);
+#pragma unroll
+  for (int j = S + 2; j < N; j += 2) {
+    t[j] = ptx::madc_lo_cc(a[j], b, t[j]);
+    t[j + 1] = ptx::madc_hi_cc(a[j], b, t[j + 1]);
+  }
+}
+
+// t += a*bi, for t < 2R on entry (t[N] <= 1, t[N + 1] = 0).
+template <int N>
+__device__ __forceinline__ void mul_row(uint32_t t[N + 2], const uint32_t a[N],
+                                        uint32_t bi) {
+  mad_pass<N, 0>(t, a, bi);
+  t[N] = ptx::addc(t[N], 0);
+  mad_pass<N, 1>(t, a, bi);
+  t[N + 1] = ptx::addc(t[N + 1], 0);
+}
+
+// t = (t + m_i*p) / 2^32 with m_i = t[0] * n0inv, which makes the low word
+// 0; t[N + 1] is 0 after.
+template <int N>
+__device__ __forceinline__ void reduce_row(uint32_t t[N + 2], const Mod<N>& m) {
+  const uint32_t mi = t[0] * m.n0inv;
+  mad_pass<N, 0>(t, m.p, mi);
+  t[N] = ptx::addc_cc(t[N], 0);
+  t[N + 1] = ptx::addc(t[N + 1], 0);
+  mad_pass<N, 1>(t, m.p, mi);
+  t[N + 1] = ptx::addc(t[N + 1], 0);
+#pragma unroll
+  for (int j = 0; j <= N; ++j) t[j] = t[j + 1];
+  t[N + 1] = 0;
+}
+
+// r = the (N + 1)-word value (top, t) less p if that is >= p, else t
+// (top <= 1).
+template <int N>
+__device__ __forceinline__ void sub_p_once(uint32_t r[N], const uint32_t t[N], uint32_t top,
+                                           const Mod<N>& m) {
+  uint32_t d[N];
+  d[0] = ptx::sub_cc(t[0], m.p[0]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) d[j] = ptx::subc_cc(t[j], m.p[j]);
+  const bool lt = ptx::subc(top, 0) == 0xFFFFFFFFu;
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = lt ? t[j] : d[j];
+}
+
 // Montgomery product r = a*b*2^(-32N) mod p, CIOS (coarsely integrated
-// operand scanning).  Returns (a*b + m*p)/R, less p once if that is >= p:
-// canonical for canonical inputs, and the same value as the plain
-// version for any inputs below R.  r may alias a or b.
+// operand scanning): N rows of mul_row then reduce_row, 2N^2 + N wide
+// products.  Returns (a*b + m*p)/R, less p once if that is >= p:
+// canonical for canonical inputs, and the same value as the plain version
+// for any inputs below R (t < a + p < 2R after every row).  r may alias a
+// or b.
 template <int N>
 __device__ __forceinline__ void mont_mul(uint32_t r[N], const uint32_t a[N],
                                          const uint32_t b[N], const Mod<N>& m) {
@@ -88,40 +163,103 @@ __device__ __forceinline__ void mont_mul(uint32_t r[N], const uint32_t a[N],
   for (int j = 0; j < N + 2; ++j) t[j] = 0;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[N] + c;
-    t[N] = (uint32_t)s;
-    t[N + 1] = (uint32_t)(s >> 32);
-    uint32_t mi = t[0] * m.n0inv;
-    s = (uint64_t)mi * m.p[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      s = (uint64_t)mi * m.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[N] + c;
-    t[N - 1] = (uint32_t)s;
-    t[N] = t[N + 1] + (uint32_t)(s >> 32);
+    mul_row<N>(t, a, b[i]);
+    reduce_row<N>(t, m);
   }
-  uint32_t d[N];
-  uint32_t br = 0;
+  sub_p_once<N>(r, t, t[N], m);
+}
+
+// w = a*b in 2N words, schoolbook: N rows of the same two passes, N^2
+// wide products.
+template <int N>
+__device__ __forceinline__ void mul_wide(uint32_t w[2 * N], const uint32_t a[N],
+                                         const uint32_t b[N]) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t s = (uint64_t)t[j] - m.p[j] - br;
-    d[j] = (uint32_t)s;
-    br = (uint32_t)(s >> 63);
+  for (int j = 0; j < 2 * N; ++j) w[j] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mad_pass<N, 0>(w + i, a, b[i]);
+    w[i + N] = ptx::addc(w[i + N], 0);
+    mad_pass<N, 1>(w + i, a, b[i]);  // no carry out: a*b fits 2N words
   }
-  bool ge = (t[N] != 0) || (br == 0);
+}
+
+// r = a + b and r = a - b over W words, for sums that fit and differences
+// that are not negative (no carry or borrow out).
+template <int W>
+__device__ __forceinline__ void add_words(uint32_t r[W], const uint32_t a[W],
+                                          const uint32_t b[W]) {
+  r[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < N; ++j) r[j] = ge ? d[j] : t[j];
+  for (int j = 1; j < W - 1; ++j) r[j] = ptx::addc_cc(a[j], b[j]);
+  r[W - 1] = ptx::addc(a[W - 1], b[W - 1]);
+}
+
+template <int W>
+__device__ __forceinline__ void sub_words(uint32_t r[W], const uint32_t a[W],
+                                          const uint32_t b[W]) {
+  r[0] = ptx::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < W - 1; ++j) r[j] = ptx::subc_cc(a[j], b[j]);
+  r[W - 1] = ptx::subc(a[W - 1], b[W - 1]);
+}
+
+// Montgomery reduction r = T*R^-1 mod p, canonical, for 0 <= T < p*R in
+// 2N words: N reduce_rows over T's low half give (T_lo + m*p)/R <= p,
+// then T's high half is added: (T + m*p)/R < 2p, so one subtraction of p
+// ends it.  N^2 + N wide products.
+template <int N>
+__device__ __forceinline__ void redc(uint32_t r[N], const uint32_t T[2 * N],
+                                     const Mod<N>& m) {
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int j = 0; j < N; ++j) t[j] = T[j];
+  t[N] = 0;
+  t[N + 1] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) reduce_row<N>(t, m);
+  t[0] = ptx::add_cc(t[0], T[N]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) t[j] = ptx::addc_cc(t[j], T[N + j]);
+  const uint32_t top = ptx::addc(t[N], 0);
+  sub_p_once<N>(r, t, top, m);
+}
+
+// Fixed exponents for pow_fixed, by value in the kernel parameters: up to
+// EXP_WORDS 32-bit words and the index of the top set bit.  Every thread
+// reads the same bits, so pow_fixed's branch never diverges.
+constexpr int EXP_WORDS = 12;
+
+struct Exponent {
+  uint32_t w[EXP_WORDS];
+  int top;  // index of the most significant set bit; -1 for e = 0
+};
+
+__host__ inline Exponent make_exponent(const uint32_t* e) {
+  Exponent ex;
+  ex.top = -1;
+  for (int j = 0; j < EXP_WORDS; ++j) {
+    ex.w[j] = e[j];
+    for (int b = 0; b < 32; ++b)
+      if ((ex.w[j] >> b) & 1u) ex.top = 32 * j + b;
+  }
+  return ex;
+}
+
+// r = a^e (e >= 1) by left-to-right square-and-multiply over e's bits
+// below the top one: the order of TField.pow_fixed's plain version.  0^e
+// = 0.  r may alias a.
+template <int N>
+__device__ __forceinline__ void pow_fixed(uint32_t r[N], const uint32_t a[N],
+                                          const Exponent& e, const Mod<N>& m) {
+  uint32_t acc[N];
+  copy<N>(acc, a);
+#pragma unroll 1
+  for (int b = e.top - 1; b >= 0; --b) {
+    mont_mul<N>(acc, acc, acc, m);
+    if ((e.w[b >> 5] >> (b & 31)) & 1u) mont_mul<N>(acc, acc, a, m);
+  }
+  copy<N>(r, acc);
 }
 
 // r = a + b mod p (a, b < p)
@@ -306,9 +444,31 @@ __device__ __forceinline__ void unified_apply(uint32_t x3[FQ_LIMBS], uint32_t y3
 // the (24, M) row order of the Python side (crypto_tpu_torch.fields.ttower).
 // add, sub, neg, eq and is_zero are the base templates on each half (or on
 // all 24 limbs at once for eq and is_zero); a product takes three
-// Montgomery products, a square two.
+// unreduced products and two reductions, a square two Montgomery
+// products.
 
 constexpr int FQ2_LIMBS = 2 * FQ_LIMBS;
+
+// p^2 in 24 words, the offset of fq2_mul's lazy reduction, built on the
+// host and passed by value only to the kernels that call fq2_mul.
+struct FqSquare {
+  uint32_t w[FQ2_LIMBS];
+};
+
+__host__ inline FqSquare make_fq_square(const uint32_t* p) {
+  FqSquare s;
+  for (int i = 0; i < FQ2_LIMBS; ++i) s.w[i] = 0;
+  for (int i = 0; i < FQ_LIMBS; ++i) {
+    uint64_t c = 0;
+    for (int j = 0; j < FQ_LIMBS; ++j) {
+      uint64_t t = (uint64_t)p[i] * p[j] + s.w[i + j] + c;
+      s.w[i + j] = (uint32_t)t;
+      c = t >> 32;
+    }
+    s.w[i + FQ_LIMBS] = (uint32_t)c;
+  }
+  return s;
+}
 
 __device__ __forceinline__ void fq2_add(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
                                         const uint32_t b[FQ2_LIMBS], const Fq& m) {
@@ -328,20 +488,31 @@ __device__ __forceinline__ void fq2_neg(uint32_t r[FQ2_LIMBS], const uint32_t a[
   neg<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, m);
 }
 
-// r = a*b by Karatsuba over three Montgomery products (crypto_tpu's
-// Fq2Ctx.mul): v0 = a0*b0, v1 = a1*b1, c0 = v0 - v1, c1 = (a0 + a1)(b0 +
-// b1) - v0 - v1.  r may alias a or b.
+// r = a*b by Karatsuba with lazy reduction (blst's mul_mont_384x): three
+// unreduced 12 x 12-word products v0 = a0*b0, v1 = a1*b1 and t = (a0 +
+// a1)(b0 + b1), the sums left unreduced (below 2p < 2^384), then two
+// reductions: c0 = redc(v0 + p^2 - v1) and c1 = redc(t - v0 - v1).  Both
+// inputs lie in [0, 2p^2), below p*R, so each redc ends canonical: for
+// canonical inputs the result is the canonical product, which the
+// reference's three Montgomery products (Fq2Ctx.mul) also give.  744 wide
+// products (3 x 144 + 2 x 156) against 900 for three CIOS products.  r
+// may alias a or b.
 __device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
-                                        const uint32_t b[FQ2_LIMBS], const Fq& m) {
-  uint32_t v0[FQ_LIMBS], v1[FQ_LIMBS], s[FQ_LIMBS], t[FQ_LIMBS];
-  mont_mul<FQ_LIMBS>(v0, a, b, m);
-  mont_mul<FQ_LIMBS>(v1, a + FQ_LIMBS, b + FQ_LIMBS, m);
-  add<FQ_LIMBS>(s, a, a + FQ_LIMBS, m);
-  add<FQ_LIMBS>(t, b, b + FQ_LIMBS, m);
-  mont_mul<FQ_LIMBS>(t, s, t, m);
-  sub<FQ_LIMBS>(r, v0, v1, m);
-  sub<FQ_LIMBS>(t, t, v0, m);
-  sub<FQ_LIMBS>(r + FQ_LIMBS, t, v1, m);
+                                        const uint32_t b[FQ2_LIMBS], const Fq& m,
+                                        const FqSquare& p2) {
+  constexpr int L = FQ_LIMBS, W = 2 * FQ_LIMBS;
+  uint32_t sa[L], sb[L], v0[W], v1[W], t[W];
+  add_words<L>(sa, a, a + L);
+  add_words<L>(sb, b, b + L);
+  mul_wide<L>(v0, a, b);
+  mul_wide<L>(v1, a + L, b + L);
+  add_words<W>(t, v0, p2.w);
+  sub_words<W>(t, t, v1);                 // v0 + p^2 - v1
+  add_words<W>(v0, v0, v1);               // v0 + v1 < 2p^2
+  redc<L>(r, t, m);
+  mul_wide<L>(t, sa, sb);
+  sub_words<W>(t, t, v0);                 // a0*b1 + a1*b0
+  redc<L>(r + L, t, m);
 }
 
 // r = a^2 by complex squaring over two Montgomery products (crypto_tpu's

@@ -17,7 +17,9 @@
 // 7 muls against 6 sit near the balance point.  All intermediates stay in
 // registers; the reference's (L, B) blocks of 1,536 lanes in VMEM become
 // one thread per point, and its lax.map over fixed blocks (a compile-count
-// workaround) becomes one launch over the whole batch.
+// workaround) becomes one launch over the whole batch.  The full add's
+// live set is near the 255-register limit: it drops Z1 and Z2 once Z3 is
+// computed and reloads what an infinite operand passes through.
 #include "field.cuh"
 
 namespace {
@@ -63,7 +65,8 @@ __global__ void __launch_bounds__(T) full_add_kernel(
   ctt::mont_mul<FQ_LIMBS>(r, t, Z1Z1, m);                  // S2 = Y2*Z1*Z1Z1
   ctt::sub<FQ_LIMBS>(r, r, S1, m);
   ctt::add<FQ_LIMBS>(r, r, r, m);                          // r = 2*(S2 - S1)
-  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) * H, before Z1 and Z2 are dropped
+  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) * H, before Z1 and Z2 are dropped (an
+  // infinite operand's pass-through reloads them)
   uint32_t Z3[FQ_LIMBS];
   ctt::add<FQ_LIMBS>(t, Z1, Z2, m);
   ctt::mont_mul<FQ_LIMBS>(t, t, t, m);
@@ -98,11 +101,11 @@ __global__ void __launch_bounds__(T) full_add_kernel(
   if (p_inf) {
     ctt::load<FQ_LIMBS>(X3, x2, M, i);
     ctt::load<FQ_LIMBS>(Y3, y2, M, i);
-    ctt::copy<FQ_LIMBS>(Z3, Z2);
+    ctt::load<FQ_LIMBS>(Z3, z2, M, i);
   } else if (q_inf) {
     ctt::load<FQ_LIMBS>(X3, x1, M, i);
     ctt::load<FQ_LIMBS>(Y3, y1, M, i);
-    ctt::copy<FQ_LIMBS>(Z3, Z1);
+    ctt::load<FQ_LIMBS>(Z3, z1, M, i);
   }
   ctt::store<FQ_LIMBS>(x3, X3, M, i);
   ctt::store<FQ_LIMBS>(y3, Y3, M, i);

@@ -12,7 +12,9 @@
 //
 // Bound on the H100: 380 squarings, 228 multiplies and 4 more Montgomery
 // muls a point against 6 coordinates moved, so it is bound by the integer
-// multiply rate by two orders of magnitude.  The exponent's bits are the
+// multiply rate by two orders of magnitude; the bound counts the 460
+// products of a 5-bit sliding-window chain for p - 2, not the 608 of the
+// binary chain run here.  The exponent's bits are the
 // same for every thread, so the square-and-multiply branch never diverges.
 #include "field.cuh"
 
@@ -26,25 +28,15 @@ struct Limbs {
   uint32_t w[FQ_LIMBS];
 };
 
-struct Exponent {
-  uint32_t w[FQ_LIMBS];
-  int top;  // index of the most significant set bit
-};
-
 __global__ void __launch_bounds__(T) normalize_kernel(
     const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
     const uint32_t* __restrict__ z, uint32_t* __restrict__ xo, uint32_t* __restrict__ yo,
-    uint32_t* __restrict__ zo, long long M, Fq m, Exponent e, Limbs one) {
+    uint32_t* __restrict__ zo, long long M, Fq m, ctt::Exponent e, Limbs one) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
   uint32_t Z[FQ_LIMBS], acc[FQ_LIMBS], t[FQ_LIMBS];
   ctt::load<FQ_LIMBS>(Z, z, M, i);
-  ctt::copy<FQ_LIMBS>(acc, Z);
-#pragma unroll 1
-  for (int b = e.top - 1; b >= 0; --b) {
-    ctt::mont_mul<FQ_LIMBS>(acc, acc, acc, m);
-    if ((e.w[b >> 5] >> (b & 31)) & 1u) ctt::mont_mul<FQ_LIMBS>(acc, acc, Z, m);
-  }
+  ctt::pow_fixed<FQ_LIMBS>(acc, Z, e, m);                  // z^(p-2)
   uint32_t inv2[FQ_LIMBS];
   ctt::mont_mul<FQ_LIMBS>(inv2, acc, acc, m);              // z^-2
   ctt::load<FQ_LIMBS>(t, x, M, i);
@@ -67,15 +59,10 @@ extern "C" int crypto_normalize(const void* x, const void* y, const void* z, voi
                                 void* yo, void* zo, long long M, const void* p,
                                 unsigned int n0inv, const void* e, const void* one,
                                 void* stream) {
-  Exponent ex;
+  static_assert(ctt::EXP_WORDS == FQ_LIMBS, "p - 2 is passed in FQ_LIMBS words");
+  const ctt::Exponent ex = ctt::make_exponent((const uint32_t*)e);
   Limbs r;
-  ex.top = -1;
-  for (int j = 0; j < FQ_LIMBS; ++j) {
-    ex.w[j] = ((const uint32_t*)e)[j];
-    r.w[j] = ((const uint32_t*)one)[j];
-    for (int b = 0; b < 32; ++b)
-      if ((ex.w[j] >> b) & 1u) ex.top = 32 * j + b;
-  }
+  for (int j = 0; j < FQ_LIMBS; ++j) r.w[j] = ((const uint32_t*)one)[j];
   if (ex.top < 0) return (int)cudaErrorInvalidValue;
   normalize_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)xo,

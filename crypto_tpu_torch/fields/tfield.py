@@ -6,9 +6,11 @@ patterns), least significant first, limb-major, in Montgomery form with
 R = 2^(32L).  Limb-major is the kernels' layout, so `mul` hands a batch to
 the Montgomery kernel without a transpose.
 
-`mul` (and everything built on it: `square`, `pow_fixed`, `inv`,
-`to_mont`, `from_mont`) goes through `ops/kernels/field_kernels.mont_mul`:
-the CUDA kernel for tensors on the card, its plain version on the CPU.
+`mul` (and everything built on it: `square`, `to_mont`, `from_mont`)
+goes through `ops/kernels/field_kernels.mont_mul`, and `pow_fixed` and
+`inv` through `field_kernels.mont_pow` (the whole Fermat chain in one
+launch): the CUDA kernels for tensors on the card, their plain versions
+on the CPU.
 `add`, `sub`, `neg`, `double` and the predicates are plain tensor code on
 either device.  Carries run as one integer addition over a packed bit mask
 (the carry-lookahead identity: carries = ((P|G) + G) ^ P), so an add costs
@@ -22,7 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.kernels.field_kernels import MASK32, Modulus, limbs32, mont_mul, \
-    mont_mul_plain, to_i32, u32
+    mont_mul_plain, mont_pow, to_i32, u32
 from .host import Field
 
 
@@ -165,15 +167,12 @@ class TField:
         return self.mul_plain(a, a)
 
     def pow_fixed(self, a: torch.Tensor, e: int) -> torch.Tensor:
-        """a^e for a fixed exponent, square-and-multiply."""
+        """a^e for a fixed exponent, square-and-multiply, through the
+        mont_pow kernel: the whole chain in one launch."""
         if e == 0:
             return self.ones(a.shape[1:])
-        acc = a
-        for bit in bin(e)[3:]:
-            acc = self.square(acc)
-            if bit == "1":
-                acc = self.mul(acc, a)
-        return acc
+        return mont_pow(a.reshape(self.L, -1).contiguous(), e,
+                        self.mod).reshape(a.shape)
 
     def inv(self, a: torch.Tensor) -> torch.Tensor:
         """Batched Fermat inversion a^(p-2); 0 maps to 0."""

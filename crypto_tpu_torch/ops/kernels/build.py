@@ -9,6 +9,12 @@ PyTorch headers are included, which keeps a build to seconds.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises when that is not 0.
+
+    python3 -m crypto_tpu_torch.ops.kernels.build [--lib LIB]
+
+prints every kernel's registers and spills (from ptxas's `-v` report in
+the build log, kept beside the library) and its SASS instruction count
+(`cuobjdump --dump-sass`), on the machine with the card.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("mont_mul.cu", "affine_level.cu", "chunked_level.cu",
            "jacobian.cu", "normalize.cu", "fq2_mul.cu", "affine_level_fq2.cu",
            "gather.cu")
-HEADERS = ("field.cuh",)
+HEADERS = ("field.cuh", "ptx.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +45,7 @@ _INT = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "crypto_mont_mul": [_P, _P, _P, _I64, _INT, _P, _U32, _P],
+    "crypto_mont_pow": [_P, _P, _I64, _INT, _P, _U32, _P, _P],
     "crypto_affine_pre": [_P] * 9 + [_I64, _P, _U32, _P],
     "crypto_affine_post": [_P] * 10 + [_I64, _P, _U32, _P],
     "crypto_chunked_prefix": [_P] * 10 + [_I64, _P, _U32, _P],
@@ -101,7 +109,8 @@ def _build(target: Path) -> None:
         if proc.returncode != 0:
             failed.append(name)
     log = "\n".join(logs)
-    (BUILD_DIR / f"{target.stem}.{pid}.log").write_text(log)
+    log_tmp = BUILD_DIR / f"{target.stem}.{pid}.log"
+    log_tmp.write_text(log)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{log[-6000:]}")
     tmp = target.with_suffix(f".{pid}.tmp")
@@ -109,10 +118,11 @@ def _build(target: Path) -> None:
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(log_tmp, target.with_suffix(".log"))
     os.replace(tmp, target)
     for obj in objs:
         obj.unlink()
-    build_info.update(seconds=time.time() - t0, log=log)
+    build_info.update(seconds=time.time() - t0)
 
 
 def load_library() -> ctypes.CDLL:
@@ -137,3 +147,84 @@ def load_library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def _short_names(mangled) -> dict:
+    """Mangled kernel names -> `name<args>`, demangled by c++filt (in the
+    binutils that nvcc's host compiler needs)."""
+    mangled = sorted(set(mangled))
+    out = subprocess.run(["c++filt"], input="\n".join(mangled),
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()
+    names = {}
+    for m, d in zip(mangled, out):
+        hit = re.search(r"(\w+_kernel(<[^>]*>)?)\(", d)
+        names[m] = hit.group(1) if hit else d
+    return names
+
+
+def kernel_resources(log: str) -> dict:
+    """ptxas's `-v` report in a build log -> {kernel: {"registers": r,
+    "spill_stores": bytes, "spill_loads": bytes}} for every entry
+    function."""
+    res, cur = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            cur = res.setdefault(hit.group(1), {})
+            continue
+        if cur is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit:
+            cur["spill_stores"], cur["spill_loads"] = map(int, hit.groups())
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            cur["registers"] = int(hit.group(1))
+            cur = None
+    names = _short_names(res)
+    return {names[k]: v for k, v in sorted(res.items())}
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: SASS instructions, NOPs left out} of a built library, from
+    `cuobjdump --dump-sass`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in dump.splitlines():
+        hit = re.match(r"\s*Function : (\S+)", line)
+        if hit:
+            cur = hit.group(1)
+            counts[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+            counts[cur] += 1
+    names = _short_names(counts)
+    return {names[k]: v for k, v in sorted(counts.items())}
+
+
+def main(argv=None) -> int:
+    """Print every kernel's registers, spills and SASS instruction count,
+    one JSON object a line, for the checkout's library (built if need be)
+    or for the library given by --lib (its build log beside it)."""
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--lib", help="a built library; default: this "
+                    "checkout's, built on first use")
+    args = ap.parse_args(argv)
+    if not args.lib:
+        load_library()
+    lib = Path(args.lib or build_info["path"])
+    logs = sorted(lib.parent.glob(lib.stem + ".*log"))
+    res = kernel_resources(logs[-1].read_text() if logs else "")
+    for name, n in sass_counts(str(lib)).items():
+        print(json.dumps(dict(kernel=name, sass_instructions=n,
+                              **res.get(name, {}))))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

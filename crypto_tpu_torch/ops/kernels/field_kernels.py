@@ -1,6 +1,6 @@
-"""Batched field kernels: Montgomery multiplication, the Fq2 Karatsuba
-mul and the column gather; each with its CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Batched field kernels: Montgomery multiplication, the fixed-exponent
+power, the Fq2 Karatsuba mul and square and the column gather; each with
+its CUDA kernel, its wrapper and its plain PyTorch version.
 
 `mont_mul` replaces `crypto_tpu/ops/pallas/field_kernels.py`
 `mont_mul_t_fn` (the TPU kernel behind every device field mul,
@@ -12,26 +12,43 @@ MXU one-hot columns, Toeplitz REDC and Kogge-Stone row carries are TPU
 artefacts and are not carried over.
 
 On the H100 (`csrc/mont_mul.cu`): one thread per element, CIOS Montgomery
-over the L limbs in registers, the modulus passed by value (it lands in
+over the L limbs in registers, each row's carries on PTX carry chains
+(`mad.lo.cc` / `madc.hi.cc`), the modulus passed by value (it lands in
 the constant bank).  For L = 12 a mul moves 144 bytes and does 2L^2 + L =
 300 32x32->64-bit products (600 32-bit multiply-adds), so at the card's
-published rates it sits close to the line between the two bounds; the
-design keeps every intermediate in registers so the bytes are only the
-operands and the result.
+published rates it sits close to the line between the two bounds, on
+the bytes side; the design keeps every intermediate in registers so the
+bytes are only the operands and the result.
 
 The plain version computes the same CIOS result `(a·b + m·p)/R`, less p
 once if that is >= p, for any operands below R, so kernel and plain agree
 bit for bit (canonical operands give the canonical product).  It works in
 16-bit half-limbs held in int64 so no intermediate reaches 2^63.
 
+`mont_pow` computes a^e for a fixed 1 <= e < 2^384 (0^e = 0): the
+reference's `JField.pow_fixed` / `JField.inv`, a `lax.scan` of
+square-and-multiply steps over its mont_mul.  On the H100 the whole
+chain runs in one launch (`csrc/mont_mul.cu`, one thread per element),
+so `TField.inv`'s Fermat root is one launch instead of 608; its plain
+version is the same square-and-multiply over `mont_mul_plain`.  At the
+MSM's roots (1 to 16 elements) it is bound by the latency of one
+thread's chain of dependent products; at width by the multiply rate (96
+bytes against the 460 x 300 wide products of a sliding-window chain for
+p - 2; the binary chain it runs takes 608 products).
+
 `fq2_mul` replaces `crypto_tpu/ops/pallas/curve_kernels.py` `fq2_mul_t_fn`
 (`Fq2Ctx.mul`, beta = -1): (2L, M) x (2L, M) -> (2L, M), c0's limbs in
-rows [:L] and c1's in [L:], by Karatsuba over three base Montgomery
-products (`csrc/fq2_mul.cu`, BLS12-381 Fq only).  It moves 288 bytes
-against 3 x 300 wide products, just on the operations side of the card's
-balance point.  `fq2_sqr` is the reference's complex squaring
-(`Fq2Ctx.square`, `JQuadField.square`): c0 = (a0+a1)(a0-a1), c1 =
-2·a0·a1, two base products, in the same source.
+rows [:L] and c1's in [L:] (`csrc/fq2_mul.cu`, BLS12-381 Fq only).  The
+kernel is Karatsuba with lazy reduction: three unreduced 12 x 12-limb
+products v0 = a0·b0, v1 = a1·b1, t = (a0+a1)(b0+b1), then c0 =
+REDC(v0 + p² − v1) and c1 = REDC(t − v0 − v1), 744 wide products against
+288 bytes, on the operations side of the card's balance point.  Its
+contract: for canonical inputs (below p) it returns the canonical
+product, so it equals the plain version, which stays the reference's
+three Montgomery products, bit for bit; every path feeds canonical
+inputs.  `fq2_sqr` is the reference's complex squaring (`Fq2Ctx.square`,
+`JQuadField.square`): c0 = (a0+a1)(a0-a1), c1 = 2·a0·a1, two base
+products, in the same source.
 
 `gather_cols` replaces `crypto_tpu/ops/pallas/field_kernels.py`
 `gather_rows_t_fn`, the row gather that lays out the MSM's bucket slots:
@@ -140,6 +157,18 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus):
     return _join(out)
 
 
+def mont_pow_plain(a: torch.Tensor, e: int, mod: Modulus) -> torch.Tensor:
+    """Plain PyTorch a^e of an (L, M) batch (any device), e >= 1: square
+    and multiply over e's bits below the top one, left to right, on
+    `mont_mul_plain`."""
+    acc = a.clone()
+    for bit in bin(e)[3:]:
+        acc = mont_mul_plain(acc, acc, mod)
+        if bit == "1":
+            acc = mont_mul_plain(acc, a, mod)
+    return acc
+
+
 def check_limbs(name: str, L: int, *ts: torch.Tensor) -> int:
     """Shared wrapper checks: int32, contiguous, (L, M), one device.
     Returns M."""
@@ -190,6 +219,33 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
                               mod.L, ctypes.addressof(mod.p_c), mod.n0inv,
                               stream_of(a.device)), "mont_mul")
     mont_mul.launches += 1
+    return out
+
+
+POW_WORDS = 12     # the exponent words mont_pow passes (ctt::EXP_WORDS)
+
+
+def mont_pow(a: torch.Tensor, e: int, mod: Modulus) -> torch.Tensor:
+    """a^e over an (L, M) batch for a fixed 1 <= e < 2^384, 0^e = 0.  CUDA
+    tensors launch `csrc/mont_mul.cu`'s power kernel (the whole
+    square-and-multiply chain in one launch); CPU tensors take
+    `mont_pow_plain`."""
+    M = check_limbs("mont_pow", mod.L, a)
+    if not 0 < e < 1 << (32 * POW_WORDS):
+        raise ValueError(f"mont_pow: the exponent must lie in [1, "
+                         f"2^{32 * POW_WORDS}), got {e}")
+    if not on_card("mont_pow", a.device):
+        return mont_pow_plain(a, e, mod)
+    out = torch.empty_like(a)
+    if M == 0:
+        return out
+    lib = load_library()
+    e_c = (ctypes.c_uint32 * POW_WORDS)(*limbs32(e, POW_WORDS))
+    check(lib.crypto_mont_pow(a.data_ptr(), out.data_ptr(), M, mod.L,
+                              ctypes.addressof(mod.p_c), mod.n0inv,
+                              ctypes.addressof(e_c), stream_of(a.device)),
+          "mont_pow")
+    mont_pow.launches += 1
     return out
 
 
@@ -296,6 +352,7 @@ def gather_cols(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 mont_mul.launches = 0
+mont_pow.launches = 0
 fq2_mul.launches = 0
 fq2_sqr.launches = 0
 gather_cols.launches = 0

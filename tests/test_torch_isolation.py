@@ -106,10 +106,27 @@ def _msm_g2():
     msm_device_scheduled(tb.G2, [G, G.double()], [1, 2])
 
 
+def _mont_pow():
+    """The Fermat root on a tensor the wrapper routes to the card, as it
+    routes a CUDA tensor: it builds and launches the kernel or raises, and
+    never falls back to the plain version."""
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.tfield import tfield_for
+    from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    T = tfield_for(tb.Fq, "cpu")
+    a = T.pack([3, 0])
+    on_card = fk.on_card
+    fk.on_card = lambda name, device: True
+    try:
+        fk.mont_pow(a, tb.Fq.p - 2, T.mod)
+    finally:
+        fk.on_card = on_card
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
-                                   _msm_g2],
+                                   _msm_g2, _mont_pow],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
