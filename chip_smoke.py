@@ -34,7 +34,9 @@ before it and read just after:
   zero scalars; 300 points with one scalar), checked against the host
   sum with no rerun.
 
-Every MSM lays out its bucket slots through the gather kernel.  Then it
+Every MSM builds its two point-major slot tables with the table kernel,
+once, and lays out its bucket slots from them through the row gather
+kernel.  Then it
 holds every kernel against its plain PyTorch version bit for bit at the
 shapes a path gave it, and profiles one more 2^20 G1 MSM and one more G2
 MSM for the device's busy share.  It fails if a kernel of a path was not
@@ -90,7 +92,9 @@ KERNEL_ENTRY = {
     "double_kernel": "jacobian_double", "normalize_kernel": "jacobian_normalize",
     "fq2_mul_kernel": "fq2_mul", "fq2_sqr_kernel": "fq2_sqr",
     "pre_fq2_kernel": "affine_level_pre_fq2",
-    "post_fq2_kernel": "affine_level_post_fq2", "gather_kernel": "gather_cols",
+    "post_fq2_kernel": "affine_level_post_fq2",
+    "gather_rows_t_kernel": "gather_rows_t",
+    "slot_tables_kernel": "slot_tables",
 }
 
 
@@ -163,11 +167,14 @@ def work(name: str, args: tuple) -> tuple:
         if name == "mont_mul":
             return 3 * 4 * L * M, mul * M
         return 2 * 4 * L * M, chain_muls(args[1]) * mul * M
-    if name == "gather_cols":
-        src, idx = args
-        live = idx[(idx >= 0) & (idx < src.shape[1])]
-        cols = int(torch.unique(live).numel())
-        return 4 * src.shape[0] * (cols + idx.shape[0]) + 8 * idx.shape[0], 0
+    if name == "gather_rows_t":
+        payload, idx = args             # (N, C) rows, (M,) int64
+        live = idx[(idx >= 0) & (idx < payload.shape[0])]
+        rows = int(torch.unique(live).numel())
+        return 4 * payload.shape[1] * (rows + idx.shape[0]) \
+            + 8 * idx.shape[0], 0
+    if name == "slot_tables":   # (F, x, y (U, N)) -> (N, U), (2N, U) rows
+        return 5 * 4 * args[1].numel(), 0
     from crypto_tpu_torch.ops.kernels.curve_kernels import CHUNK_K
     M = args[1].shape[1]                 # args[0] is the field context
     strips, totals = M - M // CHUNK_K, M // CHUNK_K * FQ_BYTES
@@ -221,8 +228,9 @@ G1_LEVEL_KERNELS = sum(LEVEL_KERNELS.values(), ())
 # what a G2 MSM launches: the gather, the Fq2 level, mul and square, and
 # mont_mul and mont_pow (the norm and the base-field Fermat root of every
 # Fq2 inversion)
-G2_KERNELS = ("gather_cols", "affine_level_pre_fq2", "affine_level_post_fq2",
-              "fq2_mul", "fq2_sqr", "mont_mul", "mont_pow")
+G2_KERNELS = ("gather_rows_t", "affine_level_pre_fq2",
+              "affine_level_post_fq2", "fq2_mul", "fq2_sqr", "mont_mul",
+              "mont_pow", "slot_tables")
 FQ2_KERNELS = G2_KERNELS[1:5]
 
 
@@ -231,7 +239,7 @@ def level_kernels(fast_widths, safe_widths, threshold: int) -> set:
     mont_pow (the Fermat roots) always, the chunked level for calls of at
     least `threshold` pairs, pre/post for the narrower ones; the fast
     variants for the fast calls, the total formula for the rerun's."""
-    names = {"gather_cols", "mont_mul", "mont_pow"}
+    names = {"slot_tables", "gather_rows_t", "mont_mul", "mont_pow"}
     for widths, safe in ((fast_widths, False), (safe_widths, True)):
         if any(w >= threshold for w in widths):
             names.update(LEVEL_KERNELS[("chunked", safe)])
@@ -386,7 +394,7 @@ def main() -> int:
                pk.jacobian_add, pk.jacobian_add_mixed, pk.jacobian_double,
                pk.jacobian_normalize, fk.fq2_mul, fk.fq2_sqr,
                ck.affine_level_pre_fq2, ck.affine_level_post_fq2,
-               fk.gather_cols)
+               fk.gather_rows_t, fk.slot_tables)
     thr = msm_v2.CHUNK_MIN_PAIRS
     paths = {}            # path -> (launches, level widths)
 
@@ -451,7 +459,7 @@ def main() -> int:
         main_runs.append((launches, widths))
         phase("msm_run", run=run, seconds=dt, points_per_s=n / dt,
               phases=floats(timings), rerun_windows=[],
-              gather_launches=launches["gather_cols"],
+              gather_launches=launches["gather_rows_t"],
               mont_mul_launches=launches["mont_mul"],
               mont_pow_launches=launches["mont_pow"], correct=True)
     main_launches, main_widths = main_runs[0]
@@ -1090,11 +1098,13 @@ def main() -> int:
         kd = ck.affine_level_pre_fq2(F2, *ins)
         pd, pre_ms = timed_call(lambda: ck.affine_level_pre_plain(F2, *ins))
         e_pre = agree("affine_level_pre_fq2", kd, pd, f"at M={M}")
-        ndbl, ninf = int(kd[1].sum()), int(kd[2].sum())
-        if M > 64 and not (ndbl and ninf):
-            raise AssertionError("Fq2 level check inputs hold no doubling "
-                                 "or no infinite result")
         x1, y1, m1, x2, y2, m2 = ins
+        # every warp mixes doublings, P + (-P) and infinite operands
+        warp = [kd[1][:32], kd[2][:32] & (m1[:32] == 0) & (m2[:32] == 0),
+                m1[:32], m2[:32]]
+        if M > 64 and not all(int(t.sum()) for t in warp):
+            raise AssertionError("Fq2 level check inputs: a warp without a "
+                                 "doubling, P + (-P) or an infinite operand")
         args = (x1, y1, x2, y2, msm_v2.batch_inv_t(F2, kd[0]), kd[1], m1,
                 m2)
         pp, post_ms = timed_call(lambda: ck.affine_level_post_plain(F2,
@@ -1117,44 +1127,76 @@ def main() -> int:
     check_fq2_level(w_lvl, "g2_msm_2^20")
     check_fq2_level(w_lvl + 5, None)
     check_fq2_level(max(g2_edge_widths), None)
+    check_fq2_level(96, None)
     phase("check_affine_level_fq2",
-          pairs=[w_lvl, w_lvl + 5, max(g2_edge_widths)], path="g2_msm_2^20",
-          bit_exact=True)
-
-    # ---- the gather at the G2 MSM's layout: (24, 2^20) coordinates into
-    # its slots, each point once a window at random slots, the rest empty
-    # (-1); and a ragged count with indices past the source (a zero
-    # column on both sides).  The library call is index_select on the
-    # clamped index with a zero fill, timed here and used nowhere.
-    W2 = (bls.Fr.bits + 16) // 16
-    src = points2.X
-    for M in (max(t2["slots"]), n + 3):
-        live = min(M, W2 * n)
-        idx = torch.full((M,), -1, dtype=torch.int64, device=dev)
-        pos = torch.randperm(M, generator=gen2, device=dev)[:live]
-        idx[pos] = torch.cat([torch.randperm(n, generator=gen2, device=dev)
-                              for _ in range(W2)])[:live]
-        if M == n + 3:
-            idx[:3] = torch.tensor([n, n + 9, -5], device=dev)
-        pg, gather_ms = timed_call(lambda: fk.gather_cols_plain(src, idx))
-        e_g = agree("gather_cols", (fk.gather_cols(src, idx),), (pg,),
-                    f"at M={M}")
-        if M == n + 3:      # index_select would fault on the indices >= N
-            break
-
-        def library():
-            return src.index_select(1, idx.clamp(min=0)).masked_fill_(
-                idx < 0, 0)
-
-        agree("index_select", (library(),), (pg,), f"at M={M}")
-        rows.append(row("gather_cols", csrc + "gather.cu",
-                        "crypto_tpu/ops/pallas/field_kernels.py:356",
-                        "g2_msm_2^20", e_g,
-                        cuda_ms(lambda: fk.gather_cols(src, idx)), gather_ms,
-                        (src, idx), [24, M], library_ms=cuda_ms(library)))
-        g_live = live
-    phase("check_gather", slots=[max(t2["slots"]), n + 3], live=g_live,
+          pairs=[w_lvl, w_lvl + 5, max(g2_edge_widths), 96],
           path="g2_msm_2^20", bit_exact=True)
+
+    # ---- the slot tables of each MSM's 2^20 points, and the gather at
+    # each MSM's layout: the curve's point-major x table (2^20 rows of 12
+    # or 24 words, as `slot_tables` builds it) into the MSM's largest slot
+    # count, each point once a window at random slots, the rest empty
+    # (-1); then a ragged count with indices past the table and below -1
+    # (a zero column on both sides) and one all-dead tile of 256 slots.
+    # The library call is index_select on the clamped index of the
+    # point-major table with a zero fill, timed here and used nowhere.
+    W2 = (bls.Fr.bits + 16) // 16
+    g_line = {}
+    for tag, Fx, pts, slots in (("g1", F, points, timings["slots"]),
+                                ("g2", F2, points2, t2["slots"])):
+        # the tables, with y = 0 at some points, and on G2 y's c1 alone
+        # at others (-0 = 0 in each component)
+        y = pts.Y.clone()
+        y[:, ::4097] = 0
+        if Fx.U == 24:
+            y[12:, 5::4097] = 0
+        pt, tables_ms = timed_call(lambda: fk.slot_tables_plain(Fx, pts.X,
+                                                                 y))
+        e_t = agree("slot_tables", fk.slot_tables(Fx, pts.X, y), pt,
+                    f"on {tag}")
+        t_tables = cuda_ms(lambda: fk.slot_tables(Fx, pts.X, y))
+        g_line[tag + "_tables_ms"] = t_tables
+        if tag == "g2":
+            rows.append(row("slot_tables", csrc + "gather.cu",
+                            "crypto_tpu/ops/msm_v2.py:719", "g2_msm_2^20",
+                            e_t, t_tables, tables_ms, (Fx, pts.X, y),
+                            [24, n]))
+        tab = pt[0]
+        for M in (max(slots), n + 3):
+            live = min(M, W2 * n)
+            idx = torch.full((M,), -1, dtype=torch.int64, device=dev)
+            pos = torch.randperm(M, generator=gen2, device=dev)[:live]
+            idx[pos] = torch.cat([torch.randperm(n, generator=gen2,
+                                                 device=dev)
+                                  for _ in range(W2)])[:live]
+            if M == n + 3:
+                idx[:3] = torch.tensor([n, n + 9, -5], device=dev)
+                idx[256:512] = -1
+            pg, gather_ms = timed_call(lambda: fk.gather_rows_t_plain(tab,
+                                                                      idx))
+            e_g = agree("gather_rows_t", (fk.gather_rows_t(tab, idx),), (pg,),
+                        f"on {tag} at M={M}")
+            if M == n + 3:  # index_select would fault on the indices >= N
+                break
+
+            def library():
+                return tab.t().index_select(1, idx.clamp(min=0)) \
+                    .masked_fill_(idx < 0, 0)
+
+            agree("index_select", (library(),), (pg,), f"at M={M}")
+            t_kernel = cuda_ms(lambda: fk.gather_rows_t(tab, idx))
+            t_library = cuda_ms(library)
+            g_line[tag] = dict(U=Fx.U, slots=M, live=live, ms=t_kernel,
+                               plain_ms=gather_ms, library_ms=t_library,
+                               bound_ms=bound_ms(*work("gather_rows_t",
+                                                       (tab, idx)))[0])
+            if tag == "g2":
+                rows.append(row("gather_rows_t", csrc + "gather.cu",
+                                "crypto_tpu/ops/pallas/field_kernels.py:356",
+                                "g2_msm_2^20", e_g, t_kernel, gather_ms,
+                                (tab, idx), [24, M], library_ms=t_library))
+    phase("check_gather", ragged_slots=n + 3, dead_tile=[256, 512],
+          **g_line, bit_exact=True)
 
     # ---- device busy share of one more 2^20 MSM of each curve, and each
     # kernel's device time and summed bound over one MSM ----------------

@@ -20,10 +20,28 @@
 // reduction, 744 32x32->64-bit products each) and 1 square, 2 when
 // doubling (complex squaring, 2 Montgomery products each, as the
 // reference's Fq2Ctx.square), on the operations side.
-// One thread per pair.  post's 5 inputs, lambda and the
-// results would hold over 200 words and spill; it computes lambda first,
-// so that dinv and y2 die, and reloads x2, y1 and y2 from memory where
-// the result and the infinity selects need them.
+//
+// One thread per pair.  An Fq2 product alone keeps about 100 words live
+// (two operands, the Karatsuba sums and two double-width products), and
+// post needs x1 and lambda across its products besides: held in
+// registers that made 222, so 2 blocks of 128 threads an SM.  post
+// therefore keeps x1 and lambda in shared memory while a product runs,
+// one column per thread, word-major (a warp's accesses to one word are
+// consecutive, on distinct banks), and inside a product the Karatsuba
+// sums and v0 + v1 wait there too (fq2_mul_parked).  It writes x3,
+// selects applied, as soon as it is known, so x3 is not live in the
+// second product; x2, y1 and y2 are read from memory where they are
+// needed.  That fits the 128 registers that __launch_bounds__(T, 4)
+// allows (4 blocks, 16 warps an SM) with no spill; the three scratch
+// arrays take 36 KB a block, so post asks for the largest shared-memory
+// carveout.
+//
+// The other limit is the instruction cache: fully unrolled, each
+// Montgomery or wide product is several hundred instructions, and the
+// kernel several thousand.  The square of x1, which only doubling lanes
+// need (none on distinct bases), runs on the rolled CIOS
+// (mont_mul_rolled): a twelfth of its code, the same bits.  Unrolled,
+// warps that held a doubling lane ran far slower than the rest.
 #include "field.cuh"
 
 namespace {
@@ -65,46 +83,106 @@ __global__ void __launch_bounds__(T) pre_fq2_kernel(
   inf3[i] = is_inf3 ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(T) post_fq2_kernel(
+// Columns of per-thread scratch in shared memory, word-major.  The
+// accesses are volatile, so the compiler cannot forward a stash to its
+// fetch and keep the words in registers after all.
+__device__ __forceinline__ void stash(volatile uint32_t (*s)[T], const uint32_t a[FQ2_LIMBS]) {
+#pragma unroll
+  for (int j = 0; j < FQ2_LIMBS; ++j) s[j][threadIdx.x] = a[j];
+}
+
+__device__ __forceinline__ void fetch(uint32_t a[FQ2_LIMBS], volatile uint32_t (*s)[T]) {
+#pragma unroll
+  for (int j = 0; j < FQ2_LIMBS; ++j) a[j] = s[j][threadIdx.x];
+}
+
+// r = a*b, the Karatsuba product of field.cuh fq2_mul step for step (so
+// the same bits), with what waits parked in the scratch columns: the sums
+// a0 + a1 and b0 + b1 in `sums` while the half products v0 = a0*b0 and
+// v1 = a1*b1 are formed, and v0 + v1 in `vsum` while c0 is reduced.  At
+// most the operands' halves and two double-width products are live, 72
+// words.  r may alias a or b.
+__device__ __forceinline__ void fq2_mul_parked(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
+                                               const uint32_t b[FQ2_LIMBS], const ctt::Fq& m,
+                                               const ctt::FqSquare& p2,
+                                               volatile uint32_t (*sums)[T],
+                                               volatile uint32_t (*vsum)[T]) {
+  constexpr int L = ctt::FQ_LIMBS, W = 2 * L;
+  uint32_t v0[W], t[W];
+  {
+    uint32_t sab[W];
+    ctt::add_words<L>(sab, a, a + L);
+    ctt::add_words<L>(sab + L, b, b + L);
+    stash(sums, sab);
+  }
+  ctt::mul_wide<L>(v0, a, b);
+  {
+    uint32_t v1[W];
+    ctt::mul_wide<L>(v1, a + L, b + L);
+    ctt::add_words<W>(t, v0, p2.w);
+    ctt::sub_words<W>(t, t, v1);         // v0 + p^2 - v1
+    ctt::add_words<W>(v0, v0, v1);       // v0 + v1 < 2p^2
+    stash(vsum, v0);
+  }
+  ctt::redc<L>(r, t, m);
+  fetch(v0, sums);
+  ctt::mul_wide<L>(t, v0, v0 + L);
+  fetch(v0, vsum);
+  ctt::sub_words<W>(t, t, v0);           // a0*b1 + a1*b0
+  ctt::redc<L>(r + L, t, m);
+}
+
+constexpr int POST_BLOCKS = 4;  // blocks an SM: at most 128 registers a thread
+
+__global__ void __launch_bounds__(T, POST_BLOCKS) post_fq2_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
     const uint32_t* __restrict__ dinv, const int* __restrict__ dbl,
     const int* __restrict__ m1, const int* __restrict__ m2, uint32_t* __restrict__ x3,
     uint32_t* __restrict__ y3, long long M, ctt::Fq m, ctt::FqSquare p2) {
+  // x1; lambda, or a product's Karatsuba sums; a product's v0 + v1
+  __shared__ volatile uint32_t s_x1[FQ2_LIMBS][T], s_lam[FQ2_LIMBS][T], s_v[FQ2_LIMBS][T];
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
+  if (i >= M) return;  // no barrier below: each thread owns its columns
   const bool is_dbl = dbl[i] != 0, i1 = m1[i] != 0, i2 = m2[i] != 0;
-  uint32_t X1[FQ2_LIMBS], lam[FQ2_LIMBS], t[FQ2_LIMBS];
-  ctt::load<FQ2_LIMBS>(X1, x1, M, i);
+  uint32_t a[FQ2_LIMBS], b[FQ2_LIMBS];
+  ctt::load<FQ2_LIMBS>(a, x1, M, i);
+  stash(s_x1, a);
   if (is_dbl) {
-    ctt::fq2_sqr(t, X1, m);
-    ctt::fq2_add(lam, t, t, m);
-    ctt::fq2_add(lam, lam, t, m);                          // 3 x1^2
+    ctt::fq2_sqr<true>(b, a, m);                           // rare: rolled
+    ctt::fq2_add(a, b, b, m);
+    ctt::fq2_add(a, a, b, m);                              // 3 x1^2
   } else {
-    ctt::load<FQ2_LIMBS>(lam, y2, M, i);
-    ctt::load<FQ2_LIMBS>(t, y1, M, i);
-    ctt::fq2_sub(lam, lam, t, m);                          // y2 - y1
+    ctt::load<FQ2_LIMBS>(a, y2, M, i);
+    ctt::load<FQ2_LIMBS>(b, y1, M, i);
+    ctt::fq2_sub(a, a, b, m);                              // y2 - y1
   }
-  ctt::load<FQ2_LIMBS>(t, dinv, M, i);
-  ctt::fq2_mul(lam, lam, t, m, p2);                            // lambda
-  uint32_t X3[FQ2_LIMBS];
-  ctt::fq2_sqr(X3, lam, m);
-  ctt::fq2_sub(X3, X3, X1, m);
-  ctt::load<FQ2_LIMBS>(t, x2, M, i);
-  ctt::fq2_sub(X3, X3, t, m);                              // x3 = lambda^2 - x1 - x2
-  ctt::fq2_sub(t, X1, X3, m);
-  ctt::fq2_mul(t, lam, t, m, p2);
-  ctt::load<FQ2_LIMBS>(lam, y1, M, i);
-  ctt::fq2_sub(t, t, lam, m);                              // y3 = lambda (x1 - x3) - y1
+  ctt::load<FQ2_LIMBS>(b, dinv, M, i);
+  fq2_mul_parked(a, a, b, m, p2, s_lam, s_v);              // lambda
+  stash(s_lam, a);
+  ctt::fq2_sqr(a, a, m);
+  fetch(b, s_x1);
+  ctt::fq2_sub(a, a, b, m);
+  ctt::load<FQ2_LIMBS>(b, x2, M, i);
+  ctt::fq2_sub(a, a, b, m);                                // x3 = lambda^2 - x1 - x2
+  fetch(b, s_x1);
+  ctt::fq2_sub(b, b, a, m);                                // x1 - x3
   if (i1) {
-    ctt::load<FQ2_LIMBS>(X3, x2, M, i);
-    ctt::load<FQ2_LIMBS>(t, y2, M, i);
+    ctt::load<FQ2_LIMBS>(a, x2, M, i);
   } else if (i2) {
-    ctt::copy<FQ2_LIMBS>(X3, X1);
-    ctt::copy<FQ2_LIMBS>(t, lam);
+    fetch(a, s_x1);
   }
-  ctt::store<FQ2_LIMBS>(x3, X3, M, i);
-  ctt::store<FQ2_LIMBS>(y3, t, M, i);
+  ctt::store<FQ2_LIMBS>(x3, a, M, i);                      // x3 is dead from here
+  fetch(a, s_lam);
+  fq2_mul_parked(a, a, b, m, p2, s_lam, s_v);
+  ctt::load<FQ2_LIMBS>(b, y1, M, i);
+  ctt::fq2_sub(a, a, b, m);                                // y3 = lambda (x1 - x3) - y1
+  if (i1) {
+    ctt::load<FQ2_LIMBS>(a, y2, M, i);
+  } else if (i2) {
+    ctt::copy<FQ2_LIMBS>(a, b);
+  }
+  ctt::store<FQ2_LIMBS>(y3, a, M, i);
 }
 
 }  // namespace
@@ -125,6 +203,11 @@ extern "C" int crypto_affine_post_fq2(const void* x1, const void* y1, const void
                                       const void* m1, const void* m2, void* x3, void* y3,
                                       long long M, const void* p, unsigned int n0inv,
                                       void* stream) {
+  // room in shared memory for POST_BLOCKS blocks an SM
+  const cudaError_t err = cudaFuncSetAttribute(
+      post_fq2_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
   post_fq2_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)x2, (const uint32_t*)y2,
       (const uint32_t*)dinv, (const int*)dbl, (const int*)m1, (const int*)m2,

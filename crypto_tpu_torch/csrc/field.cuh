@@ -169,6 +169,30 @@ __device__ __forceinline__ void mont_mul(uint32_t r[N], const uint32_t a[N],
   sub_p_once<N>(r, t, t[N], m);
 }
 
+// mont_mul with its row loop rolled: b rotates down a word a row, so
+// every index stays static and the product stays in registers.  The same
+// operations in the same order (the same result as mont_mul), in about a
+// twelfth of the code, for 11 moves more a row: for a product that a
+// kernel runs rarely, whose unrolled rows would only crowd the
+// instruction cache.
+template <int N>
+__device__ __forceinline__ void mont_mul_rolled(uint32_t r[N], const uint32_t a[N],
+                                                const uint32_t b[N], const Mod<N>& m) {
+  uint32_t t[N + 2], bb[N];
+#pragma unroll
+  for (int j = 0; j < N + 2; ++j) t[j] = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) bb[j] = b[j];
+#pragma unroll 1
+  for (int i = 0; i < N; ++i) {
+    mul_row<N>(t, a, bb[0]);
+    reduce_row<N>(t, m);
+#pragma unroll
+    for (int j = 0; j < N - 1; ++j) bb[j] = bb[j + 1];
+  }
+  sub_p_once<N>(r, t, t[N], m);
+}
+
 // w = a*b in 2N words, schoolbook: N rows of the same two passes, N^2
 // wide products.
 template <int N>
@@ -517,13 +541,20 @@ __device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[
 
 // r = a^2 by complex squaring over two Montgomery products (crypto_tpu's
 // Fq2Ctx.square): c0 = (a0 + a1)(a0 - a1), c1 = 2*a0*a1.  r may alias a.
+// Rolled = true takes mont_mul_rolled (the same result, less code).
+template <bool Rolled = false>
 __device__ __forceinline__ void fq2_sqr(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
                                         const Fq& m) {
   uint32_t s[FQ_LIMBS], t[FQ_LIMBS];
   add<FQ_LIMBS>(s, a, a + FQ_LIMBS, m);
   sub<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
-  mont_mul<FQ_LIMBS>(s, s, t, m);
-  mont_mul<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+  if constexpr (Rolled) {
+    mont_mul_rolled<FQ_LIMBS>(s, s, t, m);
+    mont_mul_rolled<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+  } else {
+    mont_mul<FQ_LIMBS>(s, s, t, m);
+    mont_mul<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+  }
   copy<FQ_LIMBS>(r, s);
   add<FQ_LIMBS>(r + FQ_LIMBS, t, t, m);
 }

@@ -1,44 +1,137 @@
-// Column gather: (src (U, N) uint32, idx (M,) int64) -> (U, M), column
-// idx[j] of src in column j, and a zero column where idx[j] < 0 (an empty
-// slot) or idx[j] >= N.
+// Row gather with transposed output: (payload (N, C) uint32, point-major,
+// idx (M,) int64) -> (C, M) limb-major: row idx[j] of the payload in
+// column j, and a zero column where idx[j] < 0 (an empty slot) or
+// idx[j] >= N.
 //
 // Replaces crypto_tpu/ops/pallas/field_kernels.py gather_rows_t_fn, the
 // row gather with transposed output that lays out the MSM's bucket slots
-// (there a scalar-prefetch DMA gather of payload rows, dead slots issuing
-// no DMA).  The port's payload is limb-major already, so the gather is of
-// columns and no transpose is left to do.  The kernel reads no address
-// outside src, and gives what the plain version gives for every index.
+// (there a scalar-prefetch DMA of each live slot's payload row into VMEM,
+// dead slots issuing no DMA, and one transpose of the block).  The
+// contract is the reference's: rows of a point-major payload in, the
+// limb-major layout the level kernels read out.  The kernel reads no
+// address outside the payload, and gives what the plain version gives
+// for every index.
 //
-// Bound on the H100: bytes; it does no arithmetic.  One thread per (row,
-// output column), the row in blockIdx.y: a warp's writes and index loads
-// are contiguous (coalesced), its reads of src are scattered, as in any
-// gather, one 4-byte word each.  The index is read once per row, from
-// L2 after the first.
-#include <cstdint>
-#include <cuda_runtime.h>
+// Bound on the H100: bytes; it does no arithmetic.  Most of them are the
+// output (C words a slot, live or dead); then each live slot's row and
+// each slot's index.
+//
+// Design: one thread per slot, T slots a block.  A thread loads its
+// slot's index once, and, if the slot is live, its row as C/4 16-byte
+// vector loads from contiguous addresses (3 for C = 12, 48 bytes; 6 for
+// C = 24, 96 bytes: three whole 32-byte sectors), all issued before the
+// first is used, so 6 x 2,048 loads are in flight on an SM at full
+// occupancy; a dead slot loads nothing.  The transpose happens in
+// registers: the thread owns its slot's output column, so for each word
+// w a warp stores 32 consecutive slots of row w, 128 contiguous bytes.
+// The stores stream (evict-first), so the 1-2 GB of output does not push
+// the payload out of L2.  Rows are 12 or 24 words (an Fq or Fq2
+// coordinate) and the payload 16-byte aligned: the wrapper refuses
+// others.
+//
+// slot_tables_kernel builds the gather's two payloads of an MSM, once per
+// MSM, from its limb-major coordinates: (x, y (U, N)) -> xtab (N, U), x's
+// rows, and ytab (2N, U), y's rows then -y's (p - y in each base-field
+// component, 0 staying 0), so a slot's sign picks its row.  In the
+// reference XLA builds the payload (crypto_tpu/ops/msm_v2.py:719-721, x
+// and the signed y packed in 30 bits).  One thread a point: its limb
+// loads are coalesced across the warp, its rows go out as 16-byte
+// stores.  Bound by bytes: 2 coordinates in, 3 rows out.
+#include "field.cuh"
 
 namespace {
 
 constexpr int T = 256;
 
-__global__ void __launch_bounds__(T) gather_kernel(const uint32_t* __restrict__ src,
-                                                   const long long* __restrict__ idx,
-                                                   uint32_t* __restrict__ out, long long N,
-                                                   long long M) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// C words a row, C a multiple of 4; payload 16-byte aligned.
+template <int C>
+__global__ void __launch_bounds__(T) gather_rows_t_kernel(const uint4* __restrict__ payload,
+                                                          const long long* __restrict__ idx,
+                                                          uint32_t* __restrict__ out,
+                                                          long long N, long long M) {
+  static_assert(C % 4 == 0, "rows of whole 16-byte vectors");
+  constexpr int Q = C / 4;
+  const long long j = (long long)blockIdx.x * T + threadIdx.x;
   if (j >= M) return;
-  const long long u = blockIdx.y;
   const long long c = idx[j];
-  out[u * M + j] = (c >= 0 && c < N) ? src[u * N + c] : 0u;
+  uint4 v[Q];
+  if (c >= 0 && c < N) {
+    const uint4* row = payload + c * Q;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q] = row[q];
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint32_t* col = out + j;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    __stcs(col + (4 * q + 0) * M, v[q].x);
+    __stcs(col + (4 * q + 1) * M, v[q].y);
+    __stcs(col + (4 * q + 2) * M, v[q].z);
+    __stcs(col + (4 * q + 3) * M, v[q].w);
+  }
+}
+
+// U = 12 (an Fq coordinate) or 24 (Fq2, c0's limbs then c1's).
+template <int U>
+__global__ void __launch_bounds__(T) slot_tables_kernel(const uint32_t* __restrict__ x,
+                                                        const uint32_t* __restrict__ y,
+                                                        uint4* __restrict__ xtab,
+                                                        uint4* __restrict__ ytab, long long N,
+                                                        ctt::Fq m) {
+  constexpr int L = ctt::FQ_LIMBS, Q = U / 4;
+  const long long i = (long long)blockIdx.x * T + threadIdx.x;
+  if (i >= N) return;
+  uint32_t r[U];
+  ctt::load<U>(r, x, N, i);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    xtab[i * Q + q] = make_uint4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+  ctt::load<U>(r, y, N, i);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    ytab[i * Q + q] = make_uint4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+#pragma unroll
+  for (int c = 0; c < U / L; ++c) ctt::neg<L>(r + c * L, r + c * L, m);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    ytab[(N + i) * Q + q] = make_uint4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
 }
 
 }  // namespace
 
-extern "C" int crypto_gather_cols(const void* src, const void* idx, void* out, long long U,
-                                  long long N, long long M, void* stream) {
-  if (U > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned int)((M + T - 1) / T), (unsigned int)U);
-  gather_kernel<<<grid, T, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)src, (const long long*)idx, (uint32_t*)out, N, M);
+extern "C" int crypto_slot_tables(const void* x, const void* y, void* xtab, void* ytab, long long U,
+                                  long long N, const void* p, unsigned int n0inv, void* stream) {
+  const unsigned int blocks = (unsigned int)((N + T - 1) / T);
+  const ctt::Fq m = ctt::make_mod<ctt::FQ_LIMBS>((const uint32_t*)p, n0inv);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (U == 12) {
+    slot_tables_kernel<12><<<blocks, T, 0, s>>>((const uint32_t*)x, (const uint32_t*)y,
+                                                (uint4*)xtab, (uint4*)ytab, N, m);
+  } else if (U == 24) {
+    slot_tables_kernel<24><<<blocks, T, 0, s>>>((const uint32_t*)x, (const uint32_t*)y,
+                                                (uint4*)xtab, (uint4*)ytab, N, m);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crypto_gather_rows_t(const void* payload, const void* idx, void* out,
+                                    long long N, long long C, long long M, void* stream) {
+  const unsigned int blocks = (unsigned int)((M + T - 1) / T);
+  if ((uintptr_t)payload % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint4* p = (const uint4*)payload;
+  const long long* ix = (const long long*)idx;
+  uint32_t* o = (uint32_t*)out;
+  if (C == 12) {
+    gather_rows_t_kernel<12><<<blocks, T, 0, s>>>(p, ix, o, N, M);
+  } else if (C == 24) {
+    gather_rows_t_kernel<24><<<blocks, T, 0, s>>>(p, ix, o, N, M);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,8 @@ SIGNATURES = {
     "crypto_fq2_sqr": [_P, _P, _I64, _P, _U32, _P],
     "crypto_affine_pre_fq2": [_P] * 9 + [_I64, _P, _U32, _P],
     "crypto_affine_post_fq2": [_P] * 10 + [_I64, _P, _U32, _P],
-    "crypto_gather_cols": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "crypto_gather_rows_t": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "crypto_slot_tables": [_P] * 4 + [_I64, _I64, _P, _U32, _P],
 }
 
 _lock = threading.Lock()

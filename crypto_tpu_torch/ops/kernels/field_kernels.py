@@ -1,5 +1,5 @@
 """Batched field kernels: Montgomery multiplication, the fixed-exponent
-power, the Fq2 Karatsuba mul and square and the column gather; each with
+power, the Fq2 Karatsuba mul and square and the row gather; each with
 its CUDA kernel, its wrapper and its plain PyTorch version.
 
 `mont_mul` replaces `crypto_tpu/ops/pallas/field_kernels.py`
@@ -50,13 +50,16 @@ inputs.  `fq2_sqr` is the reference's complex squaring (`Fq2Ctx.square`,
 `JQuadField.square`): c0 = (a0+a1)(a0-a1), c1 = 2·a0·a1, two base
 products, in the same source.
 
-`gather_cols` replaces `crypto_tpu/ops/pallas/field_kernels.py`
-`gather_rows_t_fn`, the row gather that lays out the MSM's bucket slots:
-(src (U, N) int32, idx (M,) int64) -> (U, M), column idx[j] of src in
-column j, a zero column where idx[j] is outside [0, N), on both sides
-(`csrc/gather.cu`).  The port's
-payload is already limb-major, so it gathers columns and needs no
-transpose.  It is bound by bytes: coalesced writes, scattered reads.
+`gather_rows_t` replaces `crypto_tpu/ops/pallas/field_kernels.py`
+`gather_rows_t_fn`, the row gather that lays out the MSM's bucket slots,
+with its contract: (payload (N, C) int32, point-major, idx (M,) int64) ->
+(C, M) limb-major, row idx[j] of the payload in column j, a zero column
+where idx[j] is outside [0, N), on both sides (`csrc/gather.cu`).  It is
+bound by bytes: one thread a slot reads the slot's row as 16-byte
+vectors (C = 12 or 24) and writes its column, coalesced across the warp.
+`slot_tables` builds its two payloads of an MSM from the limb-major
+coordinates, once per MSM: x's rows, and y's rows over -y's (the same
+source; the plain version is a transpose and `F.neg`).
 """
 
 from __future__ import annotations
@@ -315,44 +318,86 @@ def fq2_sqr(F, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_cols_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch column gather (any device): src[:, idx], with a zero
-    column where idx is outside [0, N)."""
-    live = (idx >= 0) & (idx < src.shape[1])
-    out = src.index_select(1, torch.where(live, idx, 0))
-    return torch.where(live, out, 0)
+def gather_rows_t_plain(payload: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch row gather with transposed output (any device):
+    payload[idx].T, with a zero column where idx is outside [0, N)."""
+    live = (idx >= 0) & (idx < payload.shape[0])
+    out = payload.index_select(0, torch.where(live, idx, 0)).t()
+    return torch.where(live, out, 0).contiguous()
 
 
-def gather_cols(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(U, N) int32 x (M,) int64 indices -> (U, M) int32: column idx[j] of
-    src in column j, zero where idx[j] is outside [0, N) (the MSM marks an
-    empty slot with -1).  CUDA tensors launch `csrc/gather.cu`; CPU
-    tensors take `gather_cols_plain`."""
-    if src.dtype != torch.int32 or src.dim() != 2 or not src.is_contiguous():
-        raise ValueError(f"gather_cols: expected a contiguous int32 (U, N) "
-                         f"source, got {tuple(src.shape)} {src.dtype}")
+def gather_rows_t(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(N, C) int32 point-major payload x (M,) int64 indices -> (C, M)
+    int32: row idx[j] of the payload in column j, zero where idx[j] is
+    outside [0, N) (the MSM marks an empty slot with -1).  CUDA tensors
+    launch `csrc/gather.cu`, for rows of 12 or 24 words (an Fq or Fq2
+    coordinate); CPU tensors take `gather_rows_t_plain`."""
+    if payload.dtype != torch.int32 or payload.dim() != 2 \
+            or not payload.is_contiguous():
+        raise ValueError(f"gather_rows_t: expected a contiguous int32 (N, C) "
+                         f"payload, got {tuple(payload.shape)} "
+                         f"{payload.dtype}")
     if idx.dtype != torch.int64 or idx.dim() != 1 \
-            or not idx.is_contiguous() or idx.device != src.device:
-        raise ValueError(f"gather_cols: expected a contiguous int64 (M,) "
-                         f"index on {src.device}, got {tuple(idx.shape)} "
-                         f"{idx.dtype} on {idx.device}")
-    if not on_card("gather_cols", src.device):
-        return gather_cols_plain(src, idx)
-    U, N = src.shape
+            or not idx.is_contiguous() or idx.device != payload.device:
+        raise ValueError(f"gather_rows_t: expected a contiguous int64 (M,) "
+                         f"index on {payload.device}, got "
+                         f"{tuple(idx.shape)} {idx.dtype} on {idx.device}")
+    if not on_card("gather_rows_t", payload.device):
+        return gather_rows_t_plain(payload, idx)
+    N, C = payload.shape
+    if C not in (12, 24) or payload.data_ptr() % 16:
+        raise ValueError(f"gather_rows_t: the kernel takes rows of 12 or 24 "
+                         f"words on a 16-byte boundary, got {C} words at "
+                         f"{payload.data_ptr():#x}")
     M = idx.shape[0]
-    out = torch.empty((U, M), dtype=torch.int32, device=src.device)
-    if U * M == 0:
+    out = torch.empty((C, M), dtype=torch.int32, device=payload.device)
+    if C * M == 0:
         return out
     lib = load_library()
-    check(lib.crypto_gather_cols(src.data_ptr(), idx.data_ptr(),
-                                 out.data_ptr(), U, N, M,
-                                 stream_of(src.device)), "gather_cols")
-    gather_cols.launches += 1
+    check(lib.crypto_gather_rows_t(payload.data_ptr(), idx.data_ptr(),
+                                   out.data_ptr(), N, C, M,
+                                   stream_of(payload.device)),
+          "gather_rows_t")
+    gather_rows_t.launches += 1
     return out
+
+
+def slot_tables_plain(F, x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """Plain PyTorch slot tables (any device): x.T, and y.T over
+    F.neg(y).T, both contiguous."""
+    return x.t().contiguous(), torch.cat([y.t(), F.neg(y).t()])
+
+
+def slot_tables(F, x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """The row gather's payloads of an MSM from its (U, N) limb-major
+    coordinates over the field context F (Fq, U = 12, or Fq2 over it, U =
+    24): (xtab (N, U), ytab (2N, U)), x's rows, and y's rows then -y's, so
+    row src + N*neg of ytab is the slot's signed y.  CUDA tensors launch
+    `csrc/gather.cu`'s table kernel; CPU tensors take
+    `slot_tables_plain`."""
+    M = check_limbs("slot_tables", F.U, x, y)
+    if not on_card("slot_tables", x.device):
+        return slot_tables_plain(F, x, y)
+    if F.mod.L != FQ_LIMBS:
+        raise ValueError(f"slot_tables: the kernel takes BLS12-381 Fq "
+                         f"({FQ_LIMBS} limbs) and Fq2 over it, got {F.mod.L}")
+    xtab = torch.empty((M, F.U), dtype=torch.int32, device=x.device)
+    ytab = torch.empty((2 * M, F.U), dtype=torch.int32, device=x.device)
+    if M == 0:
+        return xtab, ytab
+    lib = load_library()
+    check(lib.crypto_slot_tables(x.data_ptr(), y.data_ptr(), xtab.data_ptr(),
+                                 ytab.data_ptr(), F.U, M,
+                                 ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+                                 stream_of(x.device)), "slot_tables")
+    slot_tables.launches += 1
+    return xtab, ytab
 
 
 mont_mul.launches = 0
 mont_pow.launches = 0
 fq2_mul.launches = 0
 fq2_sqr.launches = 0
-gather_cols.launches = 0
+gather_rows_t.launches = 0
+slot_tables.launches = 0

@@ -50,11 +50,13 @@ Differences from the reference, all from the card's side of the design:
   every window the zero touched, and only those are rerun.
 * x and the sign-applied y are gathered as two (U, slots) limb tensors
   by the gather kernel (the reference's `gather_rows_t_fn`, there behind
-  `CRYPTO_TPU_DMA_GATHER`), an empty slot taking a zero column; the
-  reference's packed 30-bit x|y payload was a TPU gather trick.
+  `CRYPTO_TPU_DMA_GATHER`) from two point-major tables built once per
+  MSM (`slot_tables`: x, and y over -y), an empty slot taking a zero
+  column; the reference's packed 30-bit x|y payload was a TPU gather
+  trick.
 * N is not padded to a power of two: the reference did so to share one
   compiled XLA program per size class, and nothing here is compiled per
-  shape.
+  shape.  An MSM of no points returns infinity, as the reference's does.
 """
 
 from __future__ import annotations
@@ -444,20 +446,21 @@ def _level(F, lefts, rights, fast=False, trace=None):
     return out, _window_flags(zero, Wb)
 
 
-def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
-                               invperm, bands: tuple, B: int, fast=False,
-                               trace=None):
+def _bucket_sums_bands_unified(F, digits, xtab, ytab, order, starts_p,
+                               counts_p, invperm, bands: tuple, B: int,
+                               fast=False, trace=None):
     """Bucket sums of Wb windows under one band layout: (x, y (U, Wb, B),
     inf (Wb, B)) in natural bucket order, and the (Wb,) flags of the
     windows that a colliding pair spoiled (fast levels only).
 
-    One gather lays out every band's slots (rank-major, so halving a band
-    pairs equal buckets), through the gather kernel, index -1 on the
-    empty slots, which get zero coordinates and an infinity mask (every
-    level kernel replaces the denominator of an infinite operand, so the
-    zeros raise no flag); then one `pair_add_t` per halving level across
-    all active bands, and a padded tree combine of the band results
-    (bands are prefix-nested, Q descending)."""
+    One gather each of x and y (rows of `fk.slot_tables`) lays out every
+    band's slots (rank-major, so halving a band pairs equal buckets),
+    through the gather kernel, index -1 on the empty slots, which get zero
+    coordinates and an infinity mask (every level kernel replaces the
+    denominator of an infinite operand, so the zeros raise no flag); then
+    one `pair_add_t` per halving level across all active bands, and a
+    padded tree combine of the band results (bands are prefix-nested, Q
+    descending)."""
     U = F.U
     Wb, N = digits.shape
     bg, rk = band_grids(bands, digits.device)
@@ -465,11 +468,9 @@ def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
     valid = rk < counts_p[:, bg]
     src = torch.gather(order, 1, torch.where(valid, pos, 0))
     neg = torch.gather(digits, 1, src) < 0
-    ytab = torch.cat([y, F.neg(y)], dim=1)
-    xs = fk.gather_cols(x.contiguous(),
-                        torch.where(valid, src, -1).reshape(-1))
-    ys = fk.gather_cols(ytab, torch.where(valid, src + N * neg, -1)
-                        .reshape(-1))
+    xs = fk.gather_rows_t(xtab, torch.where(valid, src, -1).reshape(-1))
+    ys = fk.gather_rows_t(ytab, torch.where(valid, src + N * neg, -1)
+                          .reshape(-1))
     xs, ys = xs.reshape(U, Wb, -1), ys.reshape(U, Wb, -1)
     ms = (~valid).to(torch.int32)
     if trace is not None:
@@ -512,8 +513,9 @@ def _bucket_sums_bands_unified(F, digits, x, y, order, starts_p, counts_p,
             torch.gather(am, 1, invperm) != 0, wflag)
 
 
-def _window_sums(F, bands: tuple, ws: list, digits, points, order, starts_p,
-                 counts_p, invperm, B: int, fast: bool, trace=None):
+def _window_sums(F, bands: tuple, ws: list, digits, tables, order,
+                 starts_p, counts_p, invperm, B: int, fast: bool,
+                 trace=None):
     """Bucket sums of the windows `ws` under one band layout, in pieces of
     at most SLOT_CAP slots whose sums are added: (x, y, inf, flags), the
     (len(ws),) flags as in `_bucket_sums_bands_unified`."""
@@ -522,7 +524,7 @@ def _window_sums(F, bands: tuple, ws: list, digits, points, order, starts_p,
     acc = None
     for piece in _pieces(bands, len(ws)):
         sx, sy, sinf, fl = _bucket_sums_bands_unified(
-            F, digits[wi], points.X, points.Y, order[wi], starts_p[wi],
+            F, digits[wi], *tables, order[wi], starts_p[wi],
             counts_p[wi], invperm[wi], piece, B, fast, trace)
         if acc is not None:
             x3, y3, i3, zero = pair_add_t(
@@ -668,6 +670,8 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
     W = digits.shape[0]
     if digits.shape[1] != N:
         raise ValueError(f"{digits.shape[1]} scalars for {N} points")
+    if N == 0:
+        return curve.infinity()
     inf_mask = tc.is_infinity(points)
 
     B = 1 << (c - 1)
@@ -706,7 +710,8 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
     by = torch.empty_like(bx)
     binf = torch.empty((W, B), dtype=torch.bool, device=dev)
     flags = torch.zeros(W, dtype=torch.bool, device=dev)
-    plan = (digits, points, order, starts_p, counts_p, invperm, B)
+    tables = fk.slot_tables(F, points.X.contiguous(), points.Y.contiguous())
+    plan = (digits, tables, order, starts_p, counts_p, invperm, B)
 
     def run(bands, ws, fast_w, trace):
         sx, sy, sinf, fl = _window_sums(F, bands, ws, *plan, fast_w, trace)

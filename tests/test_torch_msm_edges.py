@@ -9,6 +9,7 @@ import logging
 import random
 
 import pytest
+import torch
 
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.ops import msm_v2 as tm
@@ -100,3 +101,27 @@ def test_pad_argument():
     with pytest.raises(ValueError, match="pad"):
         tm.msm_device_scheduled(tb.G1, pts, [5] * 16, c=8, nbits=16, pad=4,
                                 device="cpu")
+
+
+def test_msm_of_no_points_is_infinity():
+    """An empty MSM returns infinity, as the reference's does (it pads N
+    to at least 2 with infinity and zero scalars), for every form the
+    scalars may take."""
+    got = tm.msm_device_scheduled(tb.G1, [], [], device="cpu")
+    assert got == tb.G1.infinity() and got.is_infinity()
+    digits = tm.device_digits(torch.zeros((0, 32), dtype=torch.uint8), 8,
+                              tb.Fr.bits)
+    assert tm.msm_device_scheduled(tb.G1, [], digits, c=8,
+                                   device="cpu").is_infinity()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_tiny_msm_equals_host_sum(n):
+    """N = 1, 2 and 3 against the host sum, full-range scalars: the sizes
+    below the reference's pad to 2 and just above it."""
+    pts, _ = _points(n)
+    scs = [rng.randrange(tb.R) for _ in range(n)]
+    want = tb.G1.infinity()
+    for p, s in zip(pts, scs):
+        want = want + p.mul_raw(s)
+    assert tm.msm_device_scheduled(tb.G1, pts, scs, device="cpu") == want

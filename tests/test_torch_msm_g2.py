@@ -49,7 +49,7 @@ def run():
     """The MSM, with every G1 level kernel refusing to run, and the
     kernels it called."""
     dlogs, scal = _inputs()
-    called = {"gather_cols": 0, "affine_level_pre_fq2": 0}
+    called = {"gather_rows_t": 0, "affine_level_pre_fq2": 0}
     mp = pytest.MonkeyPatch()
 
     def refuse(*a, **k):
@@ -65,7 +65,7 @@ def run():
 
     for name in G1_LEVEL:
         mp.setattr(ck, name, refuse)
-    spy(fk, "gather_cols")
+    spy(fk, "gather_rows_t")
     spy(ck, "affine_level_pre_fq2")
     try:
         G = tb.G2.generator()
@@ -99,5 +99,12 @@ def test_g2_msm_runs_total_formula_without_flags(run):
     assert timings["rerun_windows"] == [] and "zero_chunks" not in timings
     assert timings["level_pairs"] and timings["slots"]
     # one gather each of x and y per layout, the Fq2 pre once a level
-    assert called["gather_cols"] == 2 * len(timings["slots"])
+    assert called["gather_rows_t"] == 2 * len(timings["slots"])
     assert called["affine_level_pre_fq2"] == len(timings["level_pairs"])
+
+
+def test_g2_msm_of_no_points_is_infinity():
+    """An empty G2 MSM returns infinity, as the reference's does (it pads
+    N to at least 2 with infinity and zero scalars)."""
+    got = tm.msm_device_scheduled(tb.G2, [], [], device="cpu")
+    assert got == tb.G2.infinity() and got.is_infinity()
