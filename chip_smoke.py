@@ -38,9 +38,13 @@ Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
 kernel.  Then it
 holds every kernel against its plain PyTorch version bit for bit at the
-shapes a path gave it, and profiles one more 2^20 G1 MSM and one more G2
-MSM for the device's busy share.  It fails if a kernel of a path was not
-launched on it.  One line per phase; before the last line the card's name
+shapes a path gave it (the fast chunked level's down pass also on inputs
+whose every warp holds an infinite operand, the Fq2 square also on a0 =
+a1 and a1 = 0), times the down pass at each of the 2^20 MSM's level
+widths and the Fq2 square from the G2 tail's widest call down to 16
+elements, and profiles one more 2^20 G1 MSM and one more G2 MSM for the
+device's busy share.  It fails if a kernel of a path was not launched on
+it.  One line per phase; before the last line the card's name
 and power limit and a JSON object of the kernels' launches and times; the
 last line is the result object.  Exits non-zero on any failure, and when
 there is no CUDA device.
@@ -72,12 +76,18 @@ H100_IMAD_PER_S = 132 * 64 * 1.98e9
 FQ_LIMBS = 12
 FQ_BYTES = 4 * FQ_LIMBS            # one Fq element, 12 x 32-bit limbs
 FQ2_BYTES = 2 * FQ_BYTES           # one Fq2 element
-# 32x32 -> 64-bit products: a Montgomery mul (CIOS), an Fq2 product
-# (three unreduced 12 x 12 products and two reductions) and an Fq2 square
-# (two Montgomery muls)
+# 32x32 -> 64-bit products, the fewest known for each function: a
+# Montgomery mul (CIOS), a wide 12-word square (the cross products once
+# and the squares), a reduction, a Montgomery square (a wide square and a
+# reduction), an Fq2 product (three unreduced 12 x 12 products and two
+# reductions) and an Fq2 square (Karatsuba on three wide squares and two
+# reductions; the port's kernel runs 600, two Montgomery muls)
 MUL = 2 * FQ_LIMBS * FQ_LIMBS + FQ_LIMBS
-FQ2_MUL = 3 * FQ_LIMBS * FQ_LIMBS + 2 * (FQ_LIMBS * FQ_LIMBS + FQ_LIMBS)
-FQ2_SQR = 2 * MUL
+SQR_WIDE = FQ_LIMBS * (FQ_LIMBS + 1) // 2
+REDC = FQ_LIMBS * FQ_LIMBS + FQ_LIMBS
+SQR = SQR_WIDE + REDC
+FQ2_MUL = 3 * FQ_LIMBS * FQ_LIMBS + 2 * REDC
+FQ2_SQR = 3 * SQR_WIDE + 2 * REDC
 # CUDA kernel function -> the entry point that launches it
 KERNEL_ENTRY = {
     "mont_mul_kernel": "mont_mul", "mont_pow_kernel": "mont_pow",
@@ -199,7 +209,8 @@ def work(name: str, args: tuple) -> tuple:
         "chunked_level_prefix_fast": lambda: (
             M * (3 * FQ_BYTES + 12) + totals, strips * MUL),
         "chunked_level_down_fast": lambda: (M * (7 * FQ_BYTES + 8) + totals,
-                                            (2 * strips + 3 * M) * MUL),
+                                            (2 * strips + 2 * M) * MUL
+                                            + M * SQR),
         "jacobian_add": lambda: (M * (9 * FQ_BYTES + 4), 16 * M * MUL),
         "jacobian_add_mixed": lambda: (M * (7 * FQ_BYTES + 4), 6 * M * MUL),
         "jacobian_double": lambda: (M * 6 * FQ_BYTES, 7 * M * MUL),
@@ -936,8 +947,25 @@ def main() -> int:
         m1, m2 = msm_v2._pad_cols(m1, pad, 1), msm_v2._pad_cols(m2, pad, 1)
         return x1, y1, m1, x2, y2, m2
 
-    def check_chunked(M: int, path: str | None, fast: bool):
+    def infinite_warps(ins):
+        """chunked_inputs with masks by warp: in every strip (pairs t +
+        j*T), warps of threads all with P1 infinite, all with P2, all
+        with both, and warps that mix the three with finite pairs."""
+        Mp = ins[0].shape[1]
+        lane = torch.arange(Mp, device=dev)
+        warp = lane % (Mp // ck.CHUNK_K) // 32
+        m1 = (warp % 4 == 0) | (warp % 4 == 2) \
+            | ((warp % 4 == 3) & (lane % 3 == 0))
+        m2 = (warp % 4 == 1) | (warp % 4 == 2) \
+            | ((warp % 4 == 3) & (lane % 3 == 1))
+        return ins[:2] + (m1.to(torch.int32),) + ins[3:5] \
+            + (m2.to(torch.int32),)
+
+    def check_chunked(M: int, path: str | None, fast: bool,
+                      inf_warps: bool = False):
         ins = chunked_inputs(M)
+        if inf_warps:
+            ins = infinite_warps(ins)
         Mp = ins[0].shape[1]
         if fast:
             prefix, down = (ck.chunked_level_prefix_fast,
@@ -974,8 +1002,28 @@ def main() -> int:
         w_chunk = min(w for w in widths if w >= thr)
         check_chunked(w_chunk, path, fast)
         check_chunked(w_chunk + 5, None, fast)
+        if fast:
+            check_chunked(w_chunk, None, fast, inf_warps=True)
         phase("check_chunked_level_fast" if fast else "check_chunked_level",
-              pairs=[w_chunk, w_chunk + 5], path=path, bit_exact=True)
+              pairs=[w_chunk, w_chunk + 5], path=path,
+              infinite_operand_in_every_warp=fast, bit_exact=True)
+
+    # the fast down pass at each level width of the 2^20 MSM: where its
+    # per-MSM time and its gap to the bound live
+    per_width = []
+    for w in main_widths:
+        ins = chunked_inputs(w)
+        fq = ck.chunked_level_prefix_fast(F, *ins)
+        tot = fq[1].clone()
+        tot[0] |= F.is_zero(tot).to(torch.int32)
+        args = ins + (fq[0], msm_v2.batch_inv_t(F, tot))
+        t_down = cuda_ms(lambda: ck.chunked_level_down_fast(F, *args))
+        bound = bound_ms(*work("chunked_level_down_fast", (F,) + args))[0]
+        per_width.append([ins[0].shape[1], t_down, bound, t_down / bound])
+        del ins, fq, tot, args
+    phase("down_fast_widths", pairs_ms_bound_ms_ratio=json.dumps(per_width),
+          ms_sum=sum(r[1] for r in per_width),
+          bound_sum=sum(r[2] for r in per_width))
 
     # the safe and the fast chunked level on the same 2^20 level's inputs,
     # timed in turns (safe, fast, fast, safe)
@@ -1074,12 +1122,18 @@ def main() -> int:
 
     # ---- the Fq2 square at the G2 tail's widest (the first reduction of
     # 16 windows x 2^15 buckets: 2^18 sums), and a ragged count, on the
-    # same kind of inputs
+    # same kind of inputs, with a0 = a1, a1 = 0, (p-1) + 0u and 0 + (p-1)u
+    # beside the edges and the canonical limbs of the product check
     w_sq = 16 << 14
+    sqr_edges = F2.pack([bls.Fq2(P - 1, 0), bls.Fq2(0, P - 1)])
     for M in (w_sq, w_sq - 5):
         a = points2.Y[:, torch.randint(0, n, (M,), generator=gen2,
                                        device=dev)]
         a[:, :4] = fq2_edges
+        a[:, 4:6] = sqr_edges
+        a[12:, 6] = a[:12, 6]                        # a0 = a1
+        a[12:, 7] = 0                                # a1 = 0
+        a[:, 8:13] = fq2_limb_edges
         ps, sqr_ms = timed_call(lambda: fk.fq2_sqr_plain(F2.base, a))
         e_sq = agree("fq2_sqr", (fk.fq2_sqr(F2.base, a),), (ps,),
                      f"at M={M}")
@@ -1089,7 +1143,27 @@ def main() -> int:
                 e_sq, cuda_ms(lambda: fk.fq2_sqr(F2.base, a)), sqr_ms,
                 (F2.base, a), [24, M]))
     phase("check_fq2_sqr", elements=[w_sq, w_sq - 5], path="g2_msm_2^20",
-          bit_exact=True)
+          edges="a0=a1,a1=0,(p-1)+0u,0+(p-1)u", bit_exact=True)
+
+    # the square's device time a launch from the tail's widest call down
+    # to 16 elements, where what is left is the floor of a launch: its
+    # start and one thread's dependent products
+    from torch.profiler import ProfilerActivity, profile
+    sq_widths = []
+    for M in (w_sq, 1 << 14, 1 << 11, 16):
+        a = points2.Y[:, :M].contiguous()
+        fk.fq2_sqr(F2.base, a)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fk.fq2_sqr(F2.base, a)
+            torch.cuda.synchronize()
+        k = [e for e in prof.key_averages() if "fq2_sqr_kernel" in e.key]
+        us = sum(e.self_device_time_total for e in k) / sum(e.count for e in k)
+        bound = bound_ms(*work("fq2_sqr", (F2.base, a)))[0]
+        sq_widths.append([M, us / 1e3, bound, us / 1e3 / bound])
+    phase("fq2_sqr_widths", elements_device_ms_bound_ms_ratio=json.dumps(
+        sq_widths))
 
     # ---- the Fq2 level at the G2 MSM's narrowest level, a ragged count
     # and the G2 edge MSMs' widest level
@@ -1200,8 +1274,6 @@ def main() -> int:
 
     # ---- device busy share of one more 2^20 MSM of each curve, and each
     # kernel's device time and summed bound over one MSM ----------------
-    from torch.profiler import ProfilerActivity, profile
-
     def device_profile(name: str, fn) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

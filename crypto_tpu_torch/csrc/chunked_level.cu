@@ -12,7 +12,8 @@
 // with d = x2 - x1 (denom_fast), so a colliding pair makes its thread's
 // total 0; the caller flags it and keeps the batch inversion valid.  The
 // fast pair drops the x1^2 of the doubling numerator, the equality tests
-// and the negation of y2 from every pair: prefix 1 mul a pair, down 5.
+// and the negation of y2 from every pair: prefix 1 mul a pair, down 4 and
+// a square.
 // The TPU kernel ran Montgomery's trick over k = 8 sub-slices of 512 lanes
 // in a block; here thread t owns the K = 8 pairs t + j*T (T = M/K, so a
 // warp's loads stay contiguous), emits the running products prefix[j] =
@@ -26,6 +27,16 @@
 // the memory rate.  All values stay in registers; the cost is K-fold fewer
 // threads than pairs, so the level wants M well above the card's thread
 // count (the caller takes this path only for wide levels).
+//
+// down_fast, the G1 MSM's costliest level kernel, runs its products on
+// even/odd accumulators (field.cuh mont_mul_eo: no register moves, which
+// took about as many instructions as the products in mont_mul) and
+// squares lambda with mont_sqr (234 wide products against 300).  It loads
+// each coordinate where it is needed, x1 and x2 for d, then the prefix,
+// then y1 and y2 for lambda, and reads the other point back in the rare
+// branch of an infinite operand, so only t, dinv and lambda live across
+// the products: under __launch_bounds__(T, 4), 4 blocks an SM as before,
+// no spill.
 #include "field.cuh"
 
 namespace {
@@ -132,7 +143,9 @@ __global__ void __launch_bounds__(T) prefix_fast_kernel(
   ctt::store<FQ_LIMBS>(total, acc, Tn, t);
 }
 
-__global__ void __launch_bounds__(T) down_fast_kernel(
+constexpr int DOWN_FAST_BLOCKS = 4;  // blocks an SM: at most 128 registers a thread
+
+__global__ void __launch_bounds__(T, DOWN_FAST_BLOCKS) down_fast_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const int* __restrict__ m1, const uint32_t* __restrict__ x2,
     const uint32_t* __restrict__ y2, const int* __restrict__ m2,
@@ -145,27 +158,46 @@ __global__ void __launch_bounds__(T) down_fast_kernel(
   ctt::load<FQ_LIMBS>(inv, tinv, Tn, t);
 #pragma unroll 1
   for (int j = K - 1; j >= 0; --j) {
-    long long i = t + j * Tn;
-    uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], DI[FQ_LIMBS];
-    ctt::load<FQ_LIMBS>(X1, x1, M, i);
-    ctt::load<FQ_LIMBS>(Y1, y1, M, i);
-    ctt::load<FQ_LIMBS>(X2, x2, M, i);
-    ctt::load<FQ_LIMBS>(Y2, y2, M, i);
-    bool i1 = m1[i] != 0, i2 = m2[i] != 0;
+    const long long i = t + j * Tn;
+    const bool i1 = m1[i] != 0, i2 = m2[i] != 0;
+    uint32_t a[FQ_LIMBS], b[FQ_LIMBS], c[FQ_LIMBS];
     if (j > 0) {
-      uint32_t P[FQ_LIMBS], D[FQ_LIMBS];
-      ctt::load<FQ_LIMBS>(P, prefix, M, i - Tn);
-      ctt::mont_mul<FQ_LIMBS>(DI, inv, P, m);
+      ctt::load<FQ_LIMBS>(a, x1, M, i);
+      ctt::load<FQ_LIMBS>(b, x2, M, i);
       bool is_inf2;
-      ctt::denom_fast(D, is_inf2, X1, X2, i1, i2, m);
-      ctt::mont_mul<FQ_LIMBS>(inv, inv, D, m);
+      ctt::denom_fast(c, is_inf2, a, b, i1, i2, m);
+      ctt::load<FQ_LIMBS>(a, prefix, M, i - Tn);
+      ctt::mont_mul_eo<FQ_LIMBS>(b, inv, a, m);    // dinv
+      ctt::mont_mul_eo<FQ_LIMBS>(inv, inv, c, m);
     } else {
-      ctt::copy<FQ_LIMBS>(DI, inv);
+      ctt::copy<FQ_LIMBS>(b, inv);
     }
-    uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
-    ctt::fast_apply(X3, Y3, X1, Y1, X2, Y2, DI, i1, i2, m);
-    ctt::store<FQ_LIMBS>(x3, X3, M, i);
-    ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+    ctt::load<FQ_LIMBS>(a, y2, M, i);
+    ctt::load<FQ_LIMBS>(c, y1, M, i);
+    ctt::sub<FQ_LIMBS>(a, a, c, m);
+    ctt::mont_mul_eo<FQ_LIMBS>(a, a, b, m);        // lambda = (y2 - y1) dinv
+    ctt::mont_sqr<FQ_LIMBS>(b, a, m);
+    ctt::load<FQ_LIMBS>(c, x1, M, i);
+    ctt::sub<FQ_LIMBS>(b, b, c, m);
+    ctt::load<FQ_LIMBS>(c, x2, M, i);
+    ctt::sub<FQ_LIMBS>(b, b, c, m);                // x3 = lambda^2 - x1 - x2
+    ctt::load<FQ_LIMBS>(c, x1, M, i);
+    ctt::sub<FQ_LIMBS>(c, c, b, m);                // x1 - x3
+    if (i1) {
+      ctt::load<FQ_LIMBS>(b, x2, M, i);
+    } else if (i2) {
+      ctt::load<FQ_LIMBS>(b, x1, M, i);
+    }
+    ctt::store<FQ_LIMBS>(x3, b, M, i);
+    ctt::mont_mul_eo<FQ_LIMBS>(a, a, c, m);
+    ctt::load<FQ_LIMBS>(c, y1, M, i);
+    ctt::sub<FQ_LIMBS>(a, a, c, m);                // y3 = lambda (x1 - x3) - y1
+    if (i1) {
+      ctt::load<FQ_LIMBS>(a, y2, M, i);
+    } else if (i2) {
+      ctt::copy<FQ_LIMBS>(a, c);
+    }
+    ctt::store<FQ_LIMBS>(y3, a, M, i);
   }
 }
 

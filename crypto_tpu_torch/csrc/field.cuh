@@ -249,6 +249,212 @@ __device__ __forceinline__ void redc(uint32_t r[N], const uint32_t T[2 * N],
   sub_p_once<N>(r, t, top, m);
 }
 
+// ---------------------------------------------------------------------------
+// Montgomery arithmetic on even/odd accumulators
+// ---------------------------------------------------------------------------
+//
+// ptxas fuses a product's mad.lo.cc and madc.hi.cc into one 64-bit
+// multiply-add (IMAD.WIDE.U32.X) whose accumulator is an aligned pair of
+// registers.  In mont_mul, mul_wide and redc the pair a product adds to
+// moves by a word from one pass or row to the next, and ptxas moves words
+// into place: their SASS holds more moves than products, and the moves
+// compete with the products for the multiply pipe.  Below, a value is kept
+// as t = ev + 2^32*od, two N-word arrays: the products of a's even limbs
+// go to ev's 64-bit lanes (ev[2k], ev[2k + 1]), those of its odd limbs to
+// od's, so every product lands on a fixed aligned pair.  A Montgomery
+// row's one-word shift becomes a swap of the two arrays' roles, ev's
+// second word added into od's first, and a two-word shift of the old ev
+// folded into the next odd chain (as sppark's mont_t does for moduli with
+// spare top bits).  No moves; the same values as the functions above.
+// Before a row's shift the value is below (a + p)*2^32, so od stays below
+// a + p < R and fits its N words; ev's carry out of its N words goes into
+// od's top word.
+
+// Row i of mont_mul_eo on t = ev + 2^32*od: t = (t + a*bi + mi*p)/2^32
+// with mi = t_0*n0inv, the arrays' roles swapped by the caller after it
+// (ev then holds 0 in its first word).  The first row starts from t = 0.
+template <int N, bool First>
+__device__ __forceinline__ void eo_mul_row(uint32_t ev[N], uint32_t od[N], const uint32_t a[N],
+                                           uint32_t bi, const Mod<N>& m) {
+  static_assert(N % 2 == 0, "the lanes pair limbs");
+  if constexpr (First) {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      uint64_t w = (uint64_t)a[j] * bi;
+      ev[j] = (uint32_t)w;
+      ev[j + 1] = (uint32_t)(w >> 32);
+      w = (uint64_t)a[j + 1] * bi;
+      od[j] = (uint32_t)w;
+      od[j + 1] = (uint32_t)(w >> 32);
+    }
+  } else {
+    // the shift of the last row: ev (the old od) takes the old ev's second
+    // word, the old ev moves down two words into od under the odd limbs'
+    // products
+    ev[0] = ptx::add_cc(ev[0], od[1]);
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {
+      od[j] = ptx::madc_lo_cc(a[j + 1], bi, od[j + 2]);
+      od[j + 1] = ptx::madc_hi_cc(a[j + 1], bi, od[j + 3]);
+    }
+    od[N - 2] = ptx::madc_lo_cc(a[N - 1], bi, 0);
+    od[N - 1] = ptx::madc_hi(a[N - 1], bi, 0);
+    mad_pass<N, 0>(ev, a, bi);
+    od[N - 1] = ptx::addc(od[N - 1], 0);
+  }
+  const uint32_t mi = ev[0] * m.n0inv;
+  mad_pass<N, 0>(od, m.p + 1, mi);  // no carry out: od stays below 2^(32N)
+  mad_pass<N, 0>(ev, m.p, mi);
+  od[N - 1] = ptx::addc(od[N - 1], 0);
+}
+
+// r = ev + (od >> 32), less p once if that is >= p: the value the last
+// row leaves, od + 2^32*ev with od[0] = 0 (the roles swapped), over 2^32,
+// which is below 2p.
+template <int N>
+__device__ __forceinline__ void eo_final(uint32_t r[N], uint32_t ev[N], const uint32_t od[N],
+                                         const Mod<N>& m) {
+  ev[0] = ptx::add_cc(ev[0], od[1]);
+#pragma unroll
+  for (int j = 1; j < N - 1; ++j) ev[j] = ptx::addc_cc(ev[j], od[j + 1]);
+  ev[N - 1] = ptx::addc(ev[N - 1], 0);
+  sub_p_once<N>(r, ev, 0, m);
+}
+
+// Montgomery product r = a*b*2^(-32N) mod p, CIOS on even/odd
+// accumulators: mont_mul's rows (2N^2 + N wide products) without its
+// moves.  Returns (a*b + m*p)/R, less p once if that is >= p, for a < R -
+// p and any b: canonical when a*b < p*R (so for inputs below 2p, and bit
+// for bit mont_mul's result for canonical ones).  r may alias a or b.
+template <int N>
+__device__ __forceinline__ void mont_mul_eo(uint32_t r[N], const uint32_t a[N],
+                                            const uint32_t b[N], const Mod<N>& m) {
+  uint32_t ev[N], od[N];
+  eo_mul_row<N, true>(ev, od, a, b[0], m);
+  eo_mul_row<N, false>(od, ev, a, b[1], m);
+#pragma unroll
+  for (int i = 2; i < N; i += 2) {
+    eo_mul_row<N, false>(ev, od, a, b[i], m);
+    eo_mul_row<N, false>(od, ev, a, b[i + 1], m);
+  }
+  eo_final<N>(r, ev, od, m);
+}
+
+// A reduction row of redc_eo: eo_mul_row without the product.
+template <int N>
+__device__ __forceinline__ void eo_reduce_row(uint32_t ev[N], uint32_t od[N],
+                                              const Mod<N>& m) {
+  ev[0] = ptx::add_cc(ev[0], od[1]);
+  const uint32_t mi = ev[0] * m.n0inv;
+#pragma unroll
+  for (int j = 0; j < N - 2; j += 2) {
+    od[j] = ptx::madc_lo_cc(m.p[j + 1], mi, od[j + 2]);
+    od[j + 1] = ptx::madc_hi_cc(m.p[j + 1], mi, od[j + 3]);
+  }
+  od[N - 2] = ptx::madc_lo_cc(m.p[N - 1], mi, 0);
+  od[N - 1] = ptx::madc_hi(m.p[N - 1], mi, 0);
+  mad_pass<N, 0>(ev, m.p, mi);
+  od[N - 1] = ptx::addc(od[N - 1], 0);
+}
+
+// Montgomery reduction r = T*R^-1 mod p of redc on even/odd accumulators:
+// the same N^2 + N wide products and the same result (canonical for 0 <=
+// T < p*R in 2N words), without the moves.
+template <int N>
+__device__ __forceinline__ void redc_eo(uint32_t r[N], const uint32_t T[2 * N],
+                                        const Mod<N>& m) {
+  uint32_t ev[N], od[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) ev[j] = T[j];
+  {
+    const uint32_t mi = ev[0] * m.n0inv;
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      const uint64_t w = (uint64_t)m.p[j + 1] * mi;
+      od[j] = (uint32_t)w;
+      od[j + 1] = (uint32_t)(w >> 32);
+    }
+    mad_pass<N, 0>(ev, m.p, mi);
+    od[N - 1] = ptx::addc(od[N - 1], 0);
+  }
+  eo_reduce_row<N>(od, ev, m);
+#pragma unroll
+  for (int i = 2; i < N; i += 2) {
+    eo_reduce_row<N>(ev, od, m);
+    eo_reduce_row<N>(od, ev, m);
+  }
+  // (T_lo + m*p)/R = ev + (od >> 32) <= p, plus T's high half: below 2p
+  ev[0] = ptx::add_cc(ev[0], od[1]);
+#pragma unroll
+  for (int j = 1; j < N - 1; ++j) ev[j] = ptx::addc_cc(ev[j], od[j + 1]);
+  ev[N - 1] = ptx::addc(ev[N - 1], 0);
+  add_words<N>(ev, ev, T + N);
+  sub_p_once<N>(r, ev, 0, m);
+}
+
+// Rows I.. of sqr_wide's cross products a_I*a_j (j > I) on w + 2^32*od
+// (2N words each): I + j even on w's lanes from w[2I + 2], I + j odd on
+// od's lanes from od[2I], one chain each.  Rows 0..I sum to at most
+// (a mod 2^(32(I+1)))*a < 2^(32(I + N + 1)), so w's words from I + N + 1
+// and od's from I + N are 0 after row I: the chain that ends on its
+// array's last such pair carries nothing out, and the other adds its carry
+// into the word after it, which was 0.
+template <int N, int I>
+__device__ __forceinline__ void sqr_cross(uint32_t w[2 * N], uint32_t od[2 * N],
+                                          const uint32_t a[N]) {
+  if constexpr (I < N - 1) {
+    constexpr int nA = (N - I) / 2, nB = (N - 1 - I) / 2;  // products a chain
+    mad_pass<2 * nA, 0>(od + 2 * I, a + I + 1, a[I]);
+    if constexpr ((N - I) % 2 == 1) od[I + N - 1] = ptx::addc(od[I + N - 1], 0);
+    if constexpr (nB > 0) {
+      mad_pass<2 * nB, 0>(w + 2 * I + 2, a + I + 2, a[I]);
+      if constexpr ((N - 1 - I) % 2 == 1) w[I + N] = ptx::addc(w[I + N], 0);
+    }
+    sqr_cross<N, I + 1>(w, od, a);
+  }
+}
+
+// w = a^2 in 2N words: the N(N - 1)/2 cross products a_i*a_j (i < j) once
+// (sqr_cross), od added into w in one chain, the sum doubled by a one-bit
+// shift, then the N squares a_i^2 added at w[2i] in one carry chain.
+// N(N + 1)/2 wide products (78 at N = 12) against mul_wide's N^2, every
+// one on an aligned pair; the same 2N words as mul_wide(a, a).
+template <int N>
+__device__ __forceinline__ void sqr_wide(uint32_t w[2 * N], const uint32_t a[N]) {
+  uint32_t od[2 * N];
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) w[j] = od[j] = 0;
+  sqr_cross<N, 0>(w, od, a);
+  // the cross sum is below 2^(32(2N - 1)): od's words from 2N - 2 are 0,
+  // and w + 2^32*od lies in words [1, 2N - 2]
+  w[1] = ptx::add_cc(w[1], od[0]);
+#pragma unroll
+  for (int j = 2; j < 2 * N - 2; ++j) w[j] = ptx::addc_cc(w[j], od[j - 1]);
+  w[2 * N - 2] = ptx::addc(w[2 * N - 2], od[2 * N - 3]);
+  w[2 * N - 1] = w[2 * N - 2] >> 31;
+#pragma unroll
+  for (int j = 2 * N - 2; j > 0; --j) w[j] = __funnelshift_l(w[j - 1], w[j], 1);
+  w[0] = ptx::mad_lo_cc(a[0], a[0], w[0]);
+  w[1] = ptx::madc_hi_cc(a[0], a[0], w[1]);
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    w[2 * i] = ptx::madc_lo_cc(a[i], a[i], w[2 * i]);
+    w[2 * i + 1] = ptx::madc_hi_cc(a[i], a[i], w[2 * i + 1]);
+  }
+}
+
+// Montgomery square r = a*a*2^(-32N) mod p = redc_eo(sqr_wide(a)): N^2/2 +
+// N/2 + N^2 + N wide products (234 at N = 12) against mont_mul's 2N^2 +
+// N.  Canonical for a^2 < p*R, so for canonical a bit for bit what
+// mont_mul(a, a) gives.  r may alias a.
+template <int N>
+__device__ __forceinline__ void mont_sqr(uint32_t r[N], const uint32_t a[N],
+                                         const Mod<N>& m) {
+  uint32_t w[2 * N];
+  sqr_wide<N>(w, a);
+  redc_eo<N>(r, w, m);
+}
+
 // Fixed exponents for pow_fixed, by value in the kernel parameters: up to
 // EXP_WORDS 32-bit words and the index of the top set bit.  Every thread
 // reads the same bits, so pow_fixed's branch never diverges.
@@ -468,13 +674,15 @@ __device__ __forceinline__ void unified_apply(uint32_t x3[FQ_LIMBS], uint32_t y3
 // the (24, M) row order of the Python side (crypto_tpu_torch.fields.ttower).
 // add, sub, neg, eq and is_zero are the base templates on each half (or on
 // all 24 limbs at once for eq and is_zero); a product takes three
-// unreduced products and two reductions, a square two Montgomery
-// products.
+// unreduced products and two reductions; a square three wide squares and
+// two reductions in fq2_sqr_karatsuba (the square kernel's), or two CIOS
+// products in fq2_sqr (the Fq2 post's).
 
 constexpr int FQ2_LIMBS = 2 * FQ_LIMBS;
 
-// p^2 in 24 words, the offset of fq2_mul's lazy reduction, built on the
-// host and passed by value only to the kernels that call fq2_mul.
+// p^2 in 24 words, the offset of fq2_mul's and fq2_sqr_karatsuba's lazy
+// reduction, built on the host and passed by value only to the kernels
+// that call them.
 struct FqSquare {
   uint32_t w[FQ2_LIMBS];
 };
@@ -537,6 +745,33 @@ __device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[
   mul_wide<L>(t, sa, sb);
   sub_words<W>(t, t, v0);                 // a0*b1 + a1*b0
   redc<L>(r + L, t, m);
+}
+
+// r = a^2 by Karatsuba on squares (fq2_mul with b = a): v0 = a0^2, v1 =
+// a1^2 and t = (a0 + a1)^2 by sqr_wide, the sum a0 + a1 left unreduced
+// (below 2p), then c0 = redc_eo(v0 + p^2 - v1) and c1 = redc_eo(t - v0 -
+// v1) = redc_eo(2*a0*a1), both inputs in [0, 2p^2), below p*R, so each
+// ends canonical: for canonical inputs bit for bit what fq2_sqr gives.
+// 546 wide products (3 x 78 + 2 x 156) against fq2_sqr's 600, without
+// its moves and its three modular adds and subs.  r may alias a.
+__device__ __forceinline__ void fq2_sqr_karatsuba(uint32_t r[FQ2_LIMBS],
+                                                  const uint32_t a[FQ2_LIMBS], const Fq& m,
+                                                  const FqSquare& p2) {
+  constexpr int L = FQ_LIMBS, W = 2 * FQ_LIMBS;
+  uint32_t s[L], v0[W], v1[W];
+  add_words<L>(s, a, a + L);
+  sqr_wide<L>(v0, a);
+  sqr_wide<L>(v1, a + L);
+  {
+    uint32_t t[W];
+    add_words<W>(t, v0, p2.w);
+    sub_words<W>(t, t, v1);               // v0 + p^2 - v1
+    redc_eo<L>(r, t, m);
+  }
+  add_words<W>(v0, v0, v1);               // v0 + v1 < 2p^2
+  sqr_wide<L>(v1, s);
+  sub_words<W>(v1, v1, v0);               // 2*a0*a1
+  redc_eo<L>(r + L, v1, m);
 }
 
 // r = a^2 by complex squaring over two Montgomery products (crypto_tpu's

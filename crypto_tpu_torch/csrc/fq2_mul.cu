@@ -19,14 +19,19 @@
 // products give and what the plain version (fq2_mul_plain, three CIOS
 // products) gives; both reduction inputs lie in [0, 2p^2), below p*R.
 // Every path feeds canonical inputs (dead slots are zero, pads a limb-0
-// 1).  The square keeps the reference's formula, c0 = (a0 + a1)(a0 - a1),
-// c1 = 2*a0*a1, on two CIOS products.
+// 1).  The square is the same Karatsuba with b = a (field.cuh
+// fq2_sqr_karatsuba): three 78-product squares (sqr_wide) and two
+// reductions on even/odd accumulators (redc_eo), which leave ptxas no
+// register moves; the same bits as the reference's complex squaring, c0 =
+// (a0 + a1)(a0 - a1), c1 = 2*a0*a1.  crypto_tpu_torch/time_sqr_designs.py
+// times it against the complex squaring with lazy reduction and the CIOS
+// form before it.
 //
 // Bound on the H100: a product moves 96 bytes in per operand and 96 out
 // (288) against 3 x 144 + 2 x 156 = 744 32x32->64-bit products (1,488
-// 32-bit multiply-adds); a square moves 192 against 2 x 300.  Both sit
-// just on the operations side of the balance point, like mont_mul; only
-// the operands and the result touch memory.
+// 32-bit multiply-adds); a square moves 192 against 3 x 78 + 2 x 156 =
+// 546.  Both sit just on the operations side of the balance point, like
+// mont_mul; only the operands and the result touch memory.
 #include "field.cuh"
 
 namespace {
@@ -49,12 +54,12 @@ __global__ void __launch_bounds__(T) fq2_mul_kernel(const uint32_t* __restrict__
 
 __global__ void __launch_bounds__(T) fq2_sqr_kernel(const uint32_t* __restrict__ a,
                                                     uint32_t* __restrict__ out, long long M,
-                                                    ctt::Fq m) {
+                                                    ctt::Fq m, ctt::FqSquare p2) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
   uint32_t x[FQ2_LIMBS];
   ctt::load<FQ2_LIMBS>(x, a, M, i);
-  ctt::fq2_sqr(x, x, m);
+  ctt::fq2_sqr_karatsuba(x, x, m, p2);
   ctt::store<FQ2_LIMBS>(out, x, M, i);
 }
 
@@ -73,6 +78,7 @@ extern "C" int crypto_fq2_sqr(const void* a, void* out, long long M, const void*
                               unsigned int n0inv, void* stream) {
   fq2_sqr_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (uint32_t*)out, M,
-      ctt::make_mod<ctt::FQ_LIMBS>((const uint32_t*)p, n0inv));
+      ctt::make_mod<ctt::FQ_LIMBS>((const uint32_t*)p, n0inv),
+      ctt::make_fq_square((const uint32_t*)p));
   return (int)cudaGetLastError();
 }

@@ -71,5 +71,11 @@ __device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t 
   return r;
 }
 
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
 }  // namespace ptx
 }  // namespace ctt

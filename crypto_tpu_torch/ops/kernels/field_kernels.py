@@ -48,7 +48,9 @@ product, so it equals the plain version, which stays the reference's
 three Montgomery products, bit for bit; every path feeds canonical
 inputs.  `fq2_sqr` is the reference's complex squaring (`Fq2Ctx.square`,
 `JQuadField.square`): c0 = (a0+a1)(a0-a1), c1 = 2·a0·a1, two base
-products, in the same source.
+products, in the same source; the kernel computes the same bits as
+`fq2_mul`'s Karatsuba with b = a, on three wide squares and two
+reductions (546 wide products against 192 bytes).
 
 `gather_rows_t` replaces `crypto_tpu/ops/pallas/field_kernels.py`
 `gather_rows_t_fn`, the row gather that lays out the MSM's bucket slots,

@@ -1,8 +1,12 @@
 """The port's fixed-exponent power (`field_kernels.mont_pow`, its plain
 version on the CPU) against the reference's `JField.inv` / `pow_fixed`
-on the CPU and the host field; and a host-integer model of the Fq2
+on the CPU and the host field; a host-integer model of the Fq2
 product's lazy reduction (`csrc/field.cuh` `fq2_mul`) against the host
-Fq2 product and the port's plain `fq2_mul_plain`.
+Fq2 product and the port's plain `fq2_mul_plain`; and word-by-word
+models of `field.cuh`'s even/odd Montgomery product (`mont_mul_eo`), its
+reduction (`redc_eo`), the wide square (`sqr_wide`), and the Fq2 square
+built on them (`fq2_sqr_karatsuba`) against the host integers,
+`fq2_sqr_plain` and the host Fq2 square.
 
 The CUDA kernels run only on the card (`chip_smoke.py` holds them
 against these plain versions); here the plain versions and the model
@@ -24,6 +28,8 @@ from crypto_tpu_torch.fields.tfield import tfield_for
 from crypto_tpu_torch.fields.ttower import tquad_for
 from crypto_tpu_torch.ops.kernels.field_kernels import (POW_WORDS,
                                                         fq2_mul_plain,
+                                                        fq2_sqr_plain,
+                                                        mont_mul_plain,
                                                         mont_pow,
                                                         mont_pow_plain)
 
@@ -180,3 +186,262 @@ def test_fq2_mul_lazy_model_random_and_plain():
     tbb = F.pack([tb.Fq2(*y) for y in b], mont=False)
     plain = F.unpack(fq2_mul_plain(F.base, ta, tbb), mont=False)
     assert [tuple(v) for v in plain] == model
+
+
+# ---------------------------------------------------------------------------
+# the even/odd Montgomery forms and the wide square, word by word
+# ---------------------------------------------------------------------------
+
+MASK = (1 << 32) - 1
+PW = [(P >> (32 * j)) & MASK for j in range(L)]
+
+
+def _words(x: int, n: int) -> list:
+    return [(x >> (32 * j)) & MASK for j in range(n)]
+
+
+def _num(w) -> int:
+    return sum(v << (32 * j) for j, v in enumerate(w))
+
+
+class _Chain:
+    """A PTX carry chain: each step adds two words and the flag."""
+
+    def __init__(self):
+        self.cf = 0
+
+    def add(self, x, y, cin=True):
+        s = x + y + (self.cf if cin else 0)
+        self.cf = s >> 32
+        return s & MASK
+
+
+def _mad_pass(t, off, a, aoff, b, n2, ch):
+    """mad_pass<n2, 0>(t + off, a + aoff, b): t[off + j], t[off + j + 1]
+    += a[aoff + j]*b for j = 0, 2, ... < n2 in one chain, the first
+    product without carry in; the carry out is left in ch."""
+    for j in range(0, n2, 2):
+        w = a[aoff + j] * b
+        t[off + j] = ch.add(t[off + j], w & MASK, cin=j > 0)
+        t[off + j + 1] = ch.add(t[off + j + 1], w >> 32)
+
+
+def _eo_shift_chain(od, a_odd_top, mul, bi, ch):
+    """The odd chain after a row's shift: od = (od >> 64) + a_odd*bi with
+    the flag's carry in; its last high word ends the chain (no carry
+    out)."""
+    for j in range(0, L - 2, 2):
+        w = mul[j] * bi
+        od[j] = ch.add(od[j + 2], w & MASK)
+        od[j + 1] = ch.add(od[j + 3], w >> 32)
+    w = a_odd_top * bi
+    od[L - 2] = ch.add(0, w & MASK)
+    top = (w >> 32) + ch.cf
+    assert top >> 32 == 0
+    od[L - 1] = top
+
+
+def _eo_reduce_tail(ev, od):
+    """mi = ev[0]*n0inv; od += p_odd*mi (no carry out); ev += p_even*mi,
+    its carry into od's top word."""
+    mi = ev[0] * N0INV & MASK
+    ch = _Chain()
+    _mad_pass(od, 0, PW, 1, mi, L, ch)
+    assert ch.cf == 0
+    _mad_pass(ev, 0, PW, 0, mi, L, ch)
+    od[L - 1] += ch.cf
+    assert od[L - 1] >> 32 == 0 and ev[0] == 0
+    return mi
+
+
+def _eo_final(ev, od) -> tuple:
+    """(ev + (od >> 32) less p once, the value before)."""
+    t = _num(ev) + _num(od[1:])
+    assert t < R
+    return (t - P if t >= P else t), t
+
+
+def _mont_mul_eo(A: int, B: int) -> int:
+    """field.cuh mont_mul_eo on t = ev + 2^32*od, for A < R - p."""
+    assert 0 <= A < R - P and 0 <= B < R
+    a, b = _words(A, L), _words(B, L)
+    ev = [0] * L
+    od = [0] * L
+    for j in range(0, L, 2):                  # the first row: t = a*b_0
+        ev[j], ev[j + 1] = _words(a[j] * b[0], 2)
+        od[j], od[j + 1] = _words(a[j + 1] * b[0], 2)
+    _eo_reduce_tail(ev, od)
+    for i in range(1, L):
+        ev, od = od, ev                       # the shift swaps the roles
+        ch = _Chain()
+        ev[0] = ch.add(ev[0], od[1], cin=False)
+        _eo_shift_chain(od, a[L - 1], a[1:], b[i], ch)
+        ch = _Chain()
+        _mad_pass(ev, 0, a, 0, b[i], L, ch)
+        od[L - 1] += ch.cf
+        assert od[L - 1] >> 32 == 0
+        _eo_reduce_tail(ev, od)
+    r, t = _eo_final(od, ev)                  # roles after the last swap
+    assert t < A + P
+    return r
+
+
+def _redc_eo(T: int) -> int:
+    """field.cuh redc_eo: the reduction rows on even/odd accumulators, then
+    T's high half, for 0 <= T < p*R."""
+    assert 0 <= T < P * R
+    ev, od = _words(T, L), [0] * L
+    mi = ev[0] * N0INV & MASK
+    for j in range(0, L, 2):
+        od[j], od[j + 1] = _words(PW[j + 1] * mi, 2)
+    ch = _Chain()
+    _mad_pass(ev, 0, PW, 0, mi, L, ch)
+    od[L - 1] += ch.cf
+    assert ev[0] == 0
+    for _ in range(1, L):
+        ev, od = od, ev
+        ch = _Chain()
+        ev[0] = ch.add(ev[0], od[1], cin=False)
+        mi = ev[0] * N0INV & MASK
+        _eo_shift_chain(od, PW[L - 1], PW[1:], mi, ch)
+        ch = _Chain()
+        _mad_pass(ev, 0, PW, 0, mi, L, ch)
+        od[L - 1] += ch.cf
+        assert od[L - 1] >> 32 == 0 and ev[0] == 0
+    t = _num(od) + _num(ev[1:])
+    assert t <= P
+    t += T >> (32 * L)
+    assert t < 2 * P
+    return t - P if t >= P else t
+
+
+def _sqr_wide(A: int) -> int:
+    """field.cuh sqr_wide: the cross products row by row on w + 2^32*od,
+    od added into w in one chain, doubled, then the squares."""
+    a = _words(A, L)
+    w, od = [0] * (2 * L), [0] * (2 * L)
+    for i in range(L - 1):
+        n_a, n_b = (L - i) // 2, (L - 1 - i) // 2
+        ch = _Chain()
+        _mad_pass(od, 2 * i, a, i + 1, a[i], 2 * n_a, ch)
+        if (L - i) % 2:
+            assert od[i + L - 1] == 0
+            od[i + L - 1] = ch.cf
+        else:
+            assert ch.cf == 0
+        if n_b:
+            ch = _Chain()
+            _mad_pass(w, 2 * i + 2, a, i + 2, a[i], 2 * n_b, ch)
+            if (L - 1 - i) % 2:
+                assert w[i + L] == 0
+                w[i + L] = ch.cf
+            else:
+                assert ch.cf == 0
+    assert od[2 * L - 2] == od[2 * L - 1] == 0 and w[0] == 0
+    assert w[2 * L - 2] == w[2 * L - 1] == 0
+    ch = _Chain()
+    for j in range(1, 2 * L - 1):
+        w[j] = ch.add(w[j], od[j - 1], cin=j > 1)
+    assert ch.cf == 0
+    cross = _num(w)
+    assert cross == sum(a[i] * a[j] << (32 * (i + j))
+                        for i in range(L) for j in range(i + 1, L))
+    assert cross >> (32 * (2 * L - 1)) == 0
+    out = 2 * cross + sum(x * x << (64 * i) for i, x in enumerate(a))
+    assert out < 1 << (64 * L)
+    return out
+
+
+WORD_EDGES = [0, 1, P - 1, R - 1, (R - 1) // 3, 1 << 383, R - 1 - (1 << 200),
+              int("F0" * 48, 16)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sqr_wide_model_equals_square(seed):
+    """sqr_wide's word algorithm equals a*a at edge word patterns (0, 1,
+    p - 1, all ones, alternating, sparse) and seeded 384-bit values."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(48), "little") for _ in range(200)]
+    for a in (WORD_EDGES if seed == 0 else []) + vals:
+        assert _sqr_wide(a) == a * a
+
+
+def _host_mont_mul(a, b):
+    return a * b * pow(R, -1, P) % P
+
+
+@pytest.mark.parametrize("bound", ["p", "2p"])
+def test_mont_mul_eo_model(bound):
+    """mont_mul_eo's rows on even/odd accumulators (every dropped carry
+    asserted 0): the canonical Montgomery product for inputs below p, and
+    below 2p, the edge of its contract; equal to mont_mul_plain."""
+    top = P if bound == "p" else 2 * P
+    rng = np.random.default_rng(11 if bound == "p" else 12)
+    vals = [int.from_bytes(rng.bytes(48), "little") % top for _ in range(400)]
+    edges = [0, 1, top - 1, P - 1, top // 2]
+    pairs = list(itertools.product(edges, edges)) + list(zip(vals[::2],
+                                                             vals[1::2]))
+    for a, b in pairs:
+        assert _mont_mul_eo(a, b) == _host_mont_mul(a, b)
+    if bound == "p":
+        T = tfield_for(tb.Fq, "cpu")
+        a = T.pack([x for x, _ in pairs], mont=False)
+        b = T.pack([y for _, y in pairs], mont=False)
+        got = [int(v) for v in T.unpack(mont_mul_plain(a, b, T.mod),
+                                        mont=False)]
+        assert got == [_mont_mul_eo(x, y) for x, y in pairs]
+
+
+def test_redc_eo_and_mont_sqr_model():
+    """redc_eo at the ends of its range [0, p*R) and on squares; mont_sqr
+    = redc_eo(sqr_wide(a)) is mont_mul's result for canonical a."""
+    rng = np.random.default_rng(13)
+    Ts = [0, 1, P * R - 1, P * P, 4 * P * P, (P - 1) ** 2, R * (P - 1)]
+    Ts += [int.from_bytes(rng.bytes(96), "little") % (P * R)
+           for _ in range(300)]
+    for T in Ts:
+        assert _redc_eo(T) == T * pow(R, -1, P) % P
+    for a in [0, 1, P - 1, P // 2] + [int.from_bytes(rng.bytes(48), "little")
+                                     % P for _ in range(200)]:
+        assert _redc_eo(_sqr_wide(a)) == _host_mont_mul(a, a)
+
+
+def _fq2_sqr_karatsuba(a0, a1) -> tuple:
+    """field.cuh fq2_sqr_karatsuba: c0 = redc_eo(v0 + p^2 - v1), c1 =
+    redc_eo(t - v0 - v1) with v0 = a0^2, v1 = a1^2, t = (a0 + a1)^2 by
+    sqr_wide."""
+    s = a0 + a1
+    assert s < R
+    v0, v1, t = _sqr_wide(a0), _sqr_wide(a1), _sqr_wide(s)
+    T0, T1 = v0 + P * P - v1, t - v0 - v1
+    assert 0 <= T0 < 2 * P * P and 0 <= T1 < 2 * P * P
+    return _redc_eo(T0), _redc_eo(T1)
+
+
+def _host_mont_square(a):
+    """The canonical Montgomery limbs of the host Fq2 square of the element
+    whose Montgomery limbs are a."""
+    rinv = pow(R, -1, P)
+    x = tb.Fq2(a[0] * rinv, a[1] * rinv)
+    x = x * x
+    return int(x.c0) * R % P, int(x.c1) * R % P
+
+
+SQR_EDGES = [(P - 1, P - 1), (P - 1, 0), (0, P - 1), (0, 0), (1, 0), (0, 1),
+             (P // 2, P // 2), (1, 1), (P - 1, 1), (1, P - 1)]
+
+
+def test_fq2_sqr_model_at_edges_and_plain():
+    """The Fq2 square kernel's Karatsuba at the edges ((p-1)(1+u), (p-1) +
+    0u, 0 + (p-1)u, a0 = a1, 0, 1, u) and seeded canonical limbs equals
+    the host Fq2 square and the port's plain fq2_sqr_plain."""
+    rng = np.random.default_rng(21)
+    vals = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(80)]
+    elems = SQR_EDGES + [tuple(vals[i:i + 2]) for i in range(0, 80, 2)]
+    elems += [(v, v) for v in vals[:5]] + [(v, 0) for v in vals[5:10]]
+    got = [_fq2_sqr_karatsuba(*e) for e in elems]
+    assert got == [_host_mont_square(e) for e in elems]
+    F = tquad_for(tb.Fq2, "cpu")
+    x = F.pack([tb.Fq2(*e) for e in elems], mont=False)
+    plain = F.unpack(fq2_sqr_plain(F.base, x), mont=False)
+    assert [tuple(v) for v in plain] == got
