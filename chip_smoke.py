@@ -38,15 +38,17 @@ Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
 kernel.  Then it
 holds every kernel against its plain PyTorch version bit for bit at the
-shapes a path gave it (the fast chunked level's down pass also on inputs
-whose every warp holds an infinite operand, the Fq2 square also on a0 =
-a1 and a1 = 0), times the down pass at each of the 2^20 MSM's level
-widths and the Fq2 square from the G2 tail's widest call down to 16
-elements, and profiles one more 2^20 G1 MSM and one more G2 MSM for the
-device's busy share.  It fails if a kernel of a path was not launched on
-it.  One line per phase; before the last line the card's name
-and power limit and a JSON object of the kernels' launches and times; the
-last line is the result object.  Exits non-zero on any failure, and when
+shapes a path gave it (both chunked levels also on inputs whose every
+warp holds an infinite operand, the full add also on warps that each hold
+one kind of pair: P1, P2 or both infinite, P + P, P + (-P); the Fq2
+square also on a0 = a1 and a1 = 0), times the fast down pass at each of
+the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
+call down to 16 elements, and profiles one more 2^20 G1 MSM on each
+formula and one more G2 MSM for the device's busy share and each
+kernel's device time against its summed bound.  It fails if a kernel of
+a path was not launched on it.  One line per phase; before the last line
+the card's name and power limit and a JSON object of the kernels'
+launches and times; the last line is the result object.  Exits non-zero on any failure, and when
 there is no CUDA device.
 """
 
@@ -77,15 +79,24 @@ FQ_LIMBS = 12
 FQ_BYTES = 4 * FQ_LIMBS            # one Fq element, 12 x 32-bit limbs
 FQ2_BYTES = 2 * FQ_BYTES           # one Fq2 element
 # 32x32 -> 64-bit products, the fewest known for each function: a
-# Montgomery mul (CIOS), a wide 12-word square (the cross products once
-# and the squares), a reduction, a Montgomery square (a wide square and a
-# reduction), an Fq2 product (three unreduced 12 x 12 products and two
-# reductions) and an Fq2 square (Karatsuba on three wide squares and two
-# reductions; the port's kernel runs 600, two Montgomery muls)
-MUL = 2 * FQ_LIMBS * FQ_LIMBS + FQ_LIMBS
+# Montgomery mul (CIOS) and a Montgomery square (a wide square, the cross
+# products once and the squares, and a reduction) on L limbs, an Fq2
+# product (three unreduced 12 x 12 products and two reductions) and an Fq2
+# square (Karatsuba on three wide squares and two reductions).  Every
+# square of a function is charged as a square, whatever a kernel runs.
+
+
+def mul_products(L: int) -> int:
+    return 2 * L * L + L
+
+
+def sqr_products(L: int) -> int:
+    return L * (L + 1) // 2 + L * L + L
+
+
+MUL, SQR = mul_products(FQ_LIMBS), sqr_products(FQ_LIMBS)
 SQR_WIDE = FQ_LIMBS * (FQ_LIMBS + 1) // 2
 REDC = FQ_LIMBS * FQ_LIMBS + FQ_LIMBS
-SQR = SQR_WIDE + REDC
 FQ2_MUL = 3 * FQ_LIMBS * FQ_LIMBS + 2 * REDC
 FQ2_SQR = 3 * SQR_WIDE + 2 * REDC
 # CUDA kernel function -> the entry point that launches it
@@ -143,26 +154,30 @@ def bound_ms(nbytes: float, wide_products: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def chain_muls(e: int) -> int:
-    """Montgomery products of a short addition chain for x^e: a sliding
-    window over e's bits (the odd powers below 2^w, then a square per bit
-    and a product per window), the fewest over widths 1 to 8.  Width 1 is
-    the binary chain that mont_pow and normalize run (608 products for p -
-    2); the best width takes 460 for p - 2 and 312 for r - 2, so the
-    bound counts the chain the function needs, not the one it runs."""
+def chain_ops(e: int) -> tuple:
+    """(squares, products) of a short addition chain for x^e: a sliding
+    window over e's bits (x^2 and the odd powers below 2^w, then a square
+    per bit and a product per window), the fewest steps over widths 1 to
+    8.  Width 1 is the binary chain that mont_pow and normalize run (608
+    steps for p - 2); the best width takes 460 for p - 2 and 312 for r -
+    2, so the bound counts the chain the function needs, not the one it
+    runs."""
     bits, best = bin(e)[2:], None
     for w in range(1, 9):
-        n, i, first = 2 ** (w - 1) if w > 1 else 0, 0, True
+        sq, mul = (1, 2 ** (w - 1) - 1) if w > 1 else (0, 0)
+        i, first = 0, True
         while i < len(bits):
             if bits[i] == "0":
-                n, i = n + 1, i + 1
+                sq, i = sq + 1, i + 1
                 continue
             j = min(i + w, len(bits))
             while bits[j - 1] == "0":
                 j -= 1
-            n += 0 if first else j - i + 1
+            if not first:
+                sq, mul = sq + j - i, mul + 1
             i, first = j, False
-        best = n if best is None else min(best, n)
+        if best is None or (sq + mul, mul) < (sum(best), best[1]):
+            best = (sq, mul)
     return best
 
 
@@ -173,10 +188,11 @@ def work(name: str, args: tuple) -> tuple:
     gathered columns) counted from these inputs."""
     if name in ("mont_mul", "mont_pow"):
         L, M = args[0].shape          # 12 limbs (Fq) or 8 (Fr)
-        mul = MUL if L == FQ_LIMBS else 2 * L * L + L
         if name == "mont_mul":
-            return 3 * 4 * L * M, mul * M
-        return 2 * 4 * L * M, chain_muls(args[1]) * mul * M
+            return 3 * 4 * L * M, mul_products(L) * M
+        sq, mul = chain_ops(args[1])
+        return 2 * 4 * L * M, (sq * sqr_products(L)
+                               + mul * mul_products(L)) * M
     if name == "gather_rows_t":
         payload, idx = args             # (N, C) rows, (M,) int64
         live = idx[(idx >= 0) & (idx < payload.shape[0])]
@@ -193,10 +209,11 @@ def work(name: str, args: tuple) -> tuple:
         "fq2_sqr": lambda: (2 * FQ2_BYTES * M, FQ2_SQR * M),
         "affine_level_pre": lambda: (M * (5 * FQ_BYTES + 16), 0),
         "affine_level_post": lambda: (M * (7 * FQ_BYTES + 12),
-                                      (3 * M + int(args[6].sum())) * MUL),
+                                      2 * M * MUL
+                                      + (M + int(args[6].sum())) * SQR),
         "affine_level_pre_fast": lambda: (M * (3 * FQ_BYTES + 12), 0),
         "affine_level_post_fast": lambda: (M * (7 * FQ_BYTES + 8),
-                                           3 * M * MUL),
+                                           M * (2 * MUL + SQR)),
         "affine_level_pre_fq2": lambda: (M * (5 * FQ2_BYTES + 16), 0),
         "affine_level_post_fq2": lambda: (
             M * (7 * FQ2_BYTES + 12),
@@ -205,17 +222,22 @@ def work(name: str, args: tuple) -> tuple:
                                          strips * MUL),
         "chunked_level_down": lambda: (
             M * (7 * FQ_BYTES + 12) + totals,
-            (2 * strips + 3 * M + int(args[9].sum())) * MUL),
+            (2 * strips + 2 * M) * MUL + (M + int(args[9].sum())) * SQR),
         "chunked_level_prefix_fast": lambda: (
             M * (3 * FQ_BYTES + 12) + totals, strips * MUL),
         "chunked_level_down_fast": lambda: (M * (7 * FQ_BYTES + 8) + totals,
                                             (2 * strips + 2 * M) * MUL
                                             + M * SQR),
-        "jacobian_add": lambda: (M * (9 * FQ_BYTES + 4), 16 * M * MUL),
-        "jacobian_add_mixed": lambda: (M * (7 * FQ_BYTES + 4), 6 * M * MUL),
-        "jacobian_double": lambda: (M * 6 * FQ_BYTES, 7 * M * MUL),
-        "jacobian_normalize": lambda: (M * 6 * FQ_BYTES,
-                                       (chain_muls(args[0].p - 2) + 4) * M * MUL),
+        "jacobian_add": lambda: (M * (9 * FQ_BYTES + 4),
+                                 M * (11 * MUL + 5 * SQR)),
+        "jacobian_add_mixed": lambda: (M * (7 * FQ_BYTES + 4),
+                                       M * (4 * MUL + 2 * SQR)),
+        "jacobian_double": lambda: (M * 6 * FQ_BYTES,
+                                    M * (2 * MUL + 5 * SQR)),
+        # the Fermat chain, then z^-2 (a square), x z^-2, z^-3 and y z^-3
+        "jacobian_normalize": lambda: (M * 6 * FQ_BYTES, M * (
+            (chain_ops(args[0].p - 2)[0] + 1) * SQR
+            + (chain_ops(args[0].p - 2)[1] + 3) * MUL)),
     }[name]()
 
 
@@ -891,9 +913,9 @@ def main() -> int:
     chain(a)
     run = fk.mont_mul.launches - before
     per_product_us = statistics.median(root["mont_pow_1_event_ms"]) / run * 1e3
-    phase("fermat_root", launches_chain=run, chain_muls_bound=chain_muls(e),
-          per_product_us=per_product_us,
-          latency_floor_ms=chain_muls(e) * per_product_us / 1e3, **root,
+    phase("fermat_root", launches_chain=run,
+          chain_muls_bound=sum(chain_ops(e)), per_product_us=per_product_us,
+          latency_floor_ms=sum(chain_ops(e)) * per_product_us / 1e3, **root,
           correct=True)
 
     def check_pre_post(M: int, path: str | None, fast: bool):
@@ -1002,11 +1024,10 @@ def main() -> int:
         w_chunk = min(w for w in widths if w >= thr)
         check_chunked(w_chunk, path, fast)
         check_chunked(w_chunk + 5, None, fast)
-        if fast:
-            check_chunked(w_chunk, None, fast, inf_warps=True)
+        check_chunked(w_chunk, None, fast, inf_warps=True)
         phase("check_chunked_level_fast" if fast else "check_chunked_level",
               pairs=[w_chunk, w_chunk + 5], path=path,
-              infinite_operand_in_every_warp=fast, bit_exact=True)
+              infinite_operand_in_every_warp=True, bit_exact=True)
 
     # the fast down pass at each level width of the 2^20 MSM: where its
     # per-MSM time and its gap to the bound live
@@ -1061,6 +1082,30 @@ def main() -> int:
                     "bench_points_2^20", e_add,
                     cuda_ms(lambda: pk.jacobian_add(F, *args)), add_ms,
                     (F,) + args, [12, n]))
+    # and on warps of one kind each, in turn: P1 infinite, P2 infinite,
+    # both, P + P, P + (-P), then the mixed lanes of point_inputs
+    (X1, Y1, Z1), (X2, Y2, Z2), _ = pt_in
+    kind = torch.arange(n, device=dev) // 32 % 6
+    zero, one = F.zeros((n,)), F.ones((n,))
+    Zf = torch.where(F.is_zero(Z1)[None], one, Z1)          # finite Z1
+    same = ((kind == 3) | (kind == 4))[None]
+    Z1w = torch.where(((kind == 0) | (kind == 2))[None], zero, Zf)
+    Z1w = torch.where((kind == 5)[None], Z1, Z1w)
+    Z2w = torch.where(((kind == 1) | (kind == 2))[None], zero,
+                      torch.where(same, Zf, one))
+    Z2w = torch.where((kind == 5)[None], Z2, Z2w)
+    X2w = torch.where(same, X1, X2)
+    Y2w = torch.where((kind == 3)[None], Y1,
+                      torch.where((kind == 4)[None], F.neg(Y1), Y2))
+    w_args = (X1, Y1, Z1w, X2w, Y2w, Z2w)
+    pw = pk.jacobian_add_plain(F, *w_args)
+    agree("jacobian_add", pk.jacobian_add(F, *w_args), pw,
+          "on warps of one kind")
+    if not (bool(pw[3][kind == 3].all()) and not bool(pw[3][kind < 3].any())
+            and bool(F.is_zero(pw[2])[kind == 4].all())):
+        raise AssertionError("full-add warp inputs: P + P without the flag "
+                             "or P + (-P) not at infinity")
+    add_warps_ms = cuda_ms(lambda: pk.jacobian_add(F, *w_args))
     pm, mix_ms = timed_call(lambda: pk.jacobian_add_mixed_plain(F, *aff))
     e_mix = agree("jacobian_add_mixed", pk.jacobian_add_mixed(F, *aff), pm,
                   f"at M={n}")
@@ -1076,7 +1121,8 @@ def main() -> int:
                     cuda_ms(lambda: pk.jacobian_double(F, *J)), dbl_ms,
                     (F,) + J, [12, n]))
     phase("check_jacobian", full_add_rows=[1 << 14, n], mixed_add_rows=n,
-          double_rows=n, bit_exact=True)
+          double_rows=n, full_add_warps_of_one_kind=True,
+          full_add_warps_ms=add_warps_ms, bit_exact=True)
     pn, norm_ms = timed_call(lambda: pk.jacobian_normalize_plain(F, *J))
     e_norm = agree("jacobian_normalize", pk.jacobian_normalize(F, *J), pn,
                    f"at M={n}")
@@ -1085,7 +1131,9 @@ def main() -> int:
                     cuda_ms(lambda: pk.jacobian_normalize(F, *J), reps=2),
                     norm_ms, (F,) + J, [12, n]))
     phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
-          bound_muls_per_point=chain_muls(bls.P - 2) + 4, bit_exact=True)
+          bound_squares_products_per_point=[chain_ops(bls.P - 2)[0] + 1,
+                                            chain_ops(bls.P - 2)[1] + 3],
+          bit_exact=True)
 
     # ---- the Fq2 mul at the first product-tree width of the G2 MSM's
     # narrowest level, and a ragged count; random curve coordinates, the
@@ -1307,9 +1355,12 @@ def main() -> int:
                       for k, (cnt, us) in top])
         return device_ms_by_entry(prof)
 
-    for tag, curve, pts in (("", bls.G1, points), ("_g2", bls.G2, points2)):
+    for tag, curve, pts, safe in (("", bls.G1, points, False),
+                                  ("_safe", bls.G1, points, True),
+                                  ("_g2", bls.G2, points2, False)):
         def msm():
-            return msm_v2.msm_device_scheduled(curve, pts, sb, c=16)
+            return msm_v2.msm_device_scheduled(curve, pts, sb, c=16,
+                                               safe=safe)
 
         _, bounds = record_work(counted, msm)
         device = device_profile("profile" + tag, msm)

@@ -19,8 +19,14 @@
 // warp's loads stay contiguous), emits the running products prefix[j] =
 // d_0 * ... * d_j at those pairs and one total at t.  The caller inverts
 // only the (12, T) totals; down walks the K pairs back (dinv_j = t *
-// prefix_{j-1}, t *= d_j with d_j recomputed by the same denom_dbl_inf as
-// prefix, so the products match) and applies the unified formula.
+// prefix_{j-1}, t *= d_j with d_j recomputed as prefix formed it, so the
+// products match) and applies the unified formula.  The total down pass
+// rebuilds d_j from the doubling flag that prefix wrote, with no equality
+// test and no negation: d = 2*y1 where dbl, else x2 - x1, and a plain 1
+// where an operand is infinite or d == 0.  That is denom_dbl_inf's d in
+// every case: a doubling pair has both operands finite, and a pair that
+// denom_dbl_inf finds dead with both finite (P + (-P): the same x, not
+// doubling) has x2 - x1 = 0.
 //
 // Bound on the H100: about 7 Montgomery muls and 13 coordinate reads and
 // writes per pair, near the balance point of the integer multiply rate and
@@ -28,15 +34,16 @@
 // threads than pairs, so the level wants M well above the card's thread
 // count (the caller takes this path only for wide levels).
 //
-// down_fast, the G1 MSM's costliest level kernel, runs its products on
-// even/odd accumulators (field.cuh mont_mul_eo: no register moves, which
-// took about as many instructions as the products in mont_mul) and
-// squares lambda with mont_sqr (234 wide products against 300).  It loads
-// each coordinate where it is needed, x1 and x2 for d, then the prefix,
-// then y1 and y2 for lambda, and reads the other point back in the rare
-// branch of an infinite operand, so only t, dinv and lambda live across
-// the products: under __launch_bounds__(T, 4), 4 blocks an SM as before,
-// no spill.
+// Both down passes, the G1 MSM's costliest level kernel and the rerun's,
+// run their products on even/odd accumulators (field.cuh mont_mul_eo: no
+// register moves, which took about as many instructions as the products
+// in mont_mul) and square lambda, and x1 on a doubling pair, with
+// mont_sqr (234 wide products against 300).  They load each coordinate
+// where it is needed, x1 and x2 (or y1) for d, then the prefix, then y1
+// and y2 (or x1) for lambda's numerator, and read the other point back in
+// the rare branch of an infinite operand, so only t, dinv and lambda live
+// across the products: under __launch_bounds__(T, 4), 4 blocks an SM, no
+// spill.
 #include "field.cuh"
 
 namespace {
@@ -77,7 +84,46 @@ __global__ void __launch_bounds__(T) prefix_kernel(
   ctt::store<FQ_LIMBS>(total, acc, Tn, t);
 }
 
-__global__ void __launch_bounds__(T) down_kernel(
+// The end of both down passes at pair i, given lambda's numerator in a
+// and dinv in b: lambda = a * dinv, x3 = lambda^2 - x1 - x2, y3 = lambda
+// (x1 - x3) - y1, stored, an infinite operand passing the other point
+// through.  x1, x2, y1 and y2 are read where they are needed, so only
+// lambda and one more value live across a product.  a, b and c are
+// scratch.
+__device__ __forceinline__ void apply_store(
+    uint32_t a[FQ_LIMBS], uint32_t b[FQ_LIMBS], uint32_t c[FQ_LIMBS],
+    const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+    const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
+    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3, bool i1, bool i2, long long M,
+    long long i, const ctt::Fq& m) {
+  ctt::mont_mul_eo<FQ_LIMBS>(a, a, b, m);        // lambda
+  ctt::mont_sqr<FQ_LIMBS>(b, a, m);
+  ctt::load<FQ_LIMBS>(c, x1, M, i);
+  ctt::sub<FQ_LIMBS>(b, b, c, m);
+  ctt::load<FQ_LIMBS>(c, x2, M, i);
+  ctt::sub<FQ_LIMBS>(b, b, c, m);                // x3 = lambda^2 - x1 - x2
+  ctt::load<FQ_LIMBS>(c, x1, M, i);
+  ctt::sub<FQ_LIMBS>(c, c, b, m);                // x1 - x3
+  if (i1) {
+    ctt::load<FQ_LIMBS>(b, x2, M, i);
+  } else if (i2) {
+    ctt::load<FQ_LIMBS>(b, x1, M, i);
+  }
+  ctt::store<FQ_LIMBS>(x3, b, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(a, a, c, m);
+  ctt::load<FQ_LIMBS>(c, y1, M, i);
+  ctt::sub<FQ_LIMBS>(a, a, c, m);                // y3 = lambda (x1 - x3) - y1
+  if (i1) {
+    ctt::load<FQ_LIMBS>(a, y2, M, i);
+  } else if (i2) {
+    ctt::copy<FQ_LIMBS>(a, c);
+  }
+  ctt::store<FQ_LIMBS>(y3, a, M, i);
+}
+
+constexpr int DOWN_BLOCKS = 4;  // blocks an SM: at most 128 registers a thread
+
+__global__ void __launch_bounds__(T, DOWN_BLOCKS) down_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const int* __restrict__ m1, const uint32_t* __restrict__ x2,
     const uint32_t* __restrict__ y2, const int* __restrict__ m2,
@@ -91,27 +137,40 @@ __global__ void __launch_bounds__(T) down_kernel(
   ctt::load<FQ_LIMBS>(inv, tinv, Tn, t);
 #pragma unroll 1
   for (int j = K - 1; j >= 0; --j) {
-    long long i = t + j * Tn;
-    uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], DI[FQ_LIMBS];
-    ctt::load<FQ_LIMBS>(X1, x1, M, i);
-    ctt::load<FQ_LIMBS>(Y1, y1, M, i);
-    ctt::load<FQ_LIMBS>(X2, x2, M, i);
-    ctt::load<FQ_LIMBS>(Y2, y2, M, i);
-    bool i1 = m1[i] != 0, i2 = m2[i] != 0;
+    const long long i = t + j * Tn;
+    const bool i1 = m1[i] != 0, i2 = m2[i] != 0, is_dbl = dbl[i] != 0;
+    uint32_t a[FQ_LIMBS], b[FQ_LIMBS], c[FQ_LIMBS];
     if (j > 0) {
-      uint32_t P[FQ_LIMBS], D[FQ_LIMBS];
-      ctt::load<FQ_LIMBS>(P, prefix, M, i - Tn);
-      ctt::mont_mul<FQ_LIMBS>(DI, inv, P, m);
-      bool is_dbl2, is_inf2;
-      ctt::denom_dbl_inf(D, is_dbl2, is_inf2, X1, Y1, X2, Y2, i1, i2, m);
-      ctt::mont_mul<FQ_LIMBS>(inv, inv, D, m);
+      // prefix's d from its doubling flag (see the head of the file)
+      if (is_dbl) {
+        ctt::load<FQ_LIMBS>(a, y1, M, i);
+        ctt::add<FQ_LIMBS>(c, a, a, m);
+      } else {
+        ctt::load<FQ_LIMBS>(a, x1, M, i);
+        ctt::load<FQ_LIMBS>(b, x2, M, i);
+        ctt::sub<FQ_LIMBS>(c, b, a, m);
+      }
+      if (i1 || i2 || ctt::is_zero<FQ_LIMBS>(c)) {
+#pragma unroll
+        for (int l = 0; l < FQ_LIMBS; ++l) c[l] = l == 0 ? 1u : 0u;
+      }
+      ctt::load<FQ_LIMBS>(a, prefix, M, i - Tn);
+      ctt::mont_mul_eo<FQ_LIMBS>(b, inv, a, m);    // dinv
+      ctt::mont_mul_eo<FQ_LIMBS>(inv, inv, c, m);
     } else {
-      ctt::copy<FQ_LIMBS>(DI, inv);
+      ctt::copy<FQ_LIMBS>(b, inv);
     }
-    uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
-    ctt::unified_apply(X3, Y3, X1, Y1, X2, Y2, DI, dbl[i] != 0, i1, i2, m);
-    ctt::store<FQ_LIMBS>(x3, X3, M, i);
-    ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+    if (is_dbl) {                                  // rare: not on distinct bases
+      ctt::load<FQ_LIMBS>(c, x1, M, i);
+      ctt::mont_sqr<FQ_LIMBS>(c, c, m);
+      ctt::add<FQ_LIMBS>(a, c, c, m);
+      ctt::add<FQ_LIMBS>(a, a, c, m);              // 3 x1^2
+    } else {
+      ctt::load<FQ_LIMBS>(a, y2, M, i);
+      ctt::load<FQ_LIMBS>(c, y1, M, i);
+      ctt::sub<FQ_LIMBS>(a, a, c, m);              // y2 - y1
+    }
+    apply_store(a, b, c, x1, y1, x2, y2, x3, y3, i1, i2, M, i, m);
   }
 }
 
@@ -143,9 +202,7 @@ __global__ void __launch_bounds__(T) prefix_fast_kernel(
   ctt::store<FQ_LIMBS>(total, acc, Tn, t);
 }
 
-constexpr int DOWN_FAST_BLOCKS = 4;  // blocks an SM: at most 128 registers a thread
-
-__global__ void __launch_bounds__(T, DOWN_FAST_BLOCKS) down_fast_kernel(
+__global__ void __launch_bounds__(T, DOWN_BLOCKS) down_fast_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const int* __restrict__ m1, const uint32_t* __restrict__ x2,
     const uint32_t* __restrict__ y2, const int* __restrict__ m2,
@@ -174,30 +231,8 @@ __global__ void __launch_bounds__(T, DOWN_FAST_BLOCKS) down_fast_kernel(
     }
     ctt::load<FQ_LIMBS>(a, y2, M, i);
     ctt::load<FQ_LIMBS>(c, y1, M, i);
-    ctt::sub<FQ_LIMBS>(a, a, c, m);
-    ctt::mont_mul_eo<FQ_LIMBS>(a, a, b, m);        // lambda = (y2 - y1) dinv
-    ctt::mont_sqr<FQ_LIMBS>(b, a, m);
-    ctt::load<FQ_LIMBS>(c, x1, M, i);
-    ctt::sub<FQ_LIMBS>(b, b, c, m);
-    ctt::load<FQ_LIMBS>(c, x2, M, i);
-    ctt::sub<FQ_LIMBS>(b, b, c, m);                // x3 = lambda^2 - x1 - x2
-    ctt::load<FQ_LIMBS>(c, x1, M, i);
-    ctt::sub<FQ_LIMBS>(c, c, b, m);                // x1 - x3
-    if (i1) {
-      ctt::load<FQ_LIMBS>(b, x2, M, i);
-    } else if (i2) {
-      ctt::load<FQ_LIMBS>(b, x1, M, i);
-    }
-    ctt::store<FQ_LIMBS>(x3, b, M, i);
-    ctt::mont_mul_eo<FQ_LIMBS>(a, a, c, m);
-    ctt::load<FQ_LIMBS>(c, y1, M, i);
-    ctt::sub<FQ_LIMBS>(a, a, c, m);                // y3 = lambda (x1 - x3) - y1
-    if (i1) {
-      ctt::load<FQ_LIMBS>(a, y2, M, i);
-    } else if (i2) {
-      ctt::copy<FQ_LIMBS>(a, c);
-    }
-    ctt::store<FQ_LIMBS>(y3, a, M, i);
+    ctt::sub<FQ_LIMBS>(a, a, c, m);                // y2 - y1
+    apply_store(a, b, c, x1, y1, x2, y2, x3, y3, i1, i2, M, i, m);
   }
 }
 

@@ -9,10 +9,13 @@
 // j*M + i, so a warp's loads of one limb are contiguous.
 //
 // The Montgomery product is a CIOS whose rows run on PTX carry chains
-// (ptx.cuh: mad.lo.cc / madc.hi.cc / addc.cc), the Fq2 product Karatsuba
-// with lazy reduction (three unreduced products, two reductions), and
-// pow_fixed the square-and-multiply chain of a fixed exponent in one
-// thread.
+// (ptx.cuh: mad.lo.cc / madc.hi.cc / addc.cc): mont_mul for any inputs
+// below R, mont_mul_eo (on even/odd accumulators, no register moves) for
+// canonical ones; the one Montgomery reduction, redc, and the square
+// mont_sqr run on even/odd accumulators too.  The Fq2 product is
+// Karatsuba with lazy reduction (three unreduced products, two
+// reductions), and pow_fixed the square-and-multiply chain of a fixed
+// exponent in one thread.
 //
 // Every function below computes exactly what the plain PyTorch versions
 // in crypto_tpu_torch compute (canonical results for canonical inputs;
@@ -228,37 +231,16 @@ __device__ __forceinline__ void sub_words(uint32_t r[W], const uint32_t a[W],
   r[W - 1] = ptx::subc(a[W - 1], b[W - 1]);
 }
 
-// Montgomery reduction r = T*R^-1 mod p, canonical, for 0 <= T < p*R in
-// 2N words: N reduce_rows over T's low half give (T_lo + m*p)/R <= p,
-// then T's high half is added: (T + m*p)/R < 2p, so one subtraction of p
-// ends it.  N^2 + N wide products.
-template <int N>
-__device__ __forceinline__ void redc(uint32_t r[N], const uint32_t T[2 * N],
-                                     const Mod<N>& m) {
-  uint32_t t[N + 2];
-#pragma unroll
-  for (int j = 0; j < N; ++j) t[j] = T[j];
-  t[N] = 0;
-  t[N + 1] = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) reduce_row<N>(t, m);
-  t[0] = ptx::add_cc(t[0], T[N]);
-#pragma unroll
-  for (int j = 1; j < N; ++j) t[j] = ptx::addc_cc(t[j], T[N + j]);
-  const uint32_t top = ptx::addc(t[N], 0);
-  sub_p_once<N>(r, t, top, m);
-}
-
 // ---------------------------------------------------------------------------
 // Montgomery arithmetic on even/odd accumulators
 // ---------------------------------------------------------------------------
 //
 // ptxas fuses a product's mad.lo.cc and madc.hi.cc into one 64-bit
 // multiply-add (IMAD.WIDE.U32.X) whose accumulator is an aligned pair of
-// registers.  In mont_mul, mul_wide and redc the pair a product adds to
-// moves by a word from one pass or row to the next, and ptxas moves words
-// into place: their SASS holds more moves than products, and the moves
-// compete with the products for the multiply pipe.  Below, a value is kept
+// registers.  In mont_mul and mul_wide the pair a product adds to moves
+// by a word from one pass or row to the next, and ptxas moves words into
+// place: their SASS holds more moves than products, and the moves compete
+// with the products for the multiply pipe.  Below, a value is kept
 // as t = ev + 2^32*od, two N-word arrays: the products of a's even limbs
 // go to ev's 64-bit lanes (ev[2k], ev[2k + 1]), those of its odd limbs to
 // od's, so every product lands on a fixed aligned pair.  A Montgomery
@@ -340,7 +322,7 @@ __device__ __forceinline__ void mont_mul_eo(uint32_t r[N], const uint32_t a[N],
   eo_final<N>(r, ev, od, m);
 }
 
-// A reduction row of redc_eo: eo_mul_row without the product.
+// A reduction row of redc: eo_mul_row without the product.
 template <int N>
 __device__ __forceinline__ void eo_reduce_row(uint32_t ev[N], uint32_t od[N],
                                               const Mod<N>& m) {
@@ -357,12 +339,13 @@ __device__ __forceinline__ void eo_reduce_row(uint32_t ev[N], uint32_t od[N],
   od[N - 1] = ptx::addc(od[N - 1], 0);
 }
 
-// Montgomery reduction r = T*R^-1 mod p of redc on even/odd accumulators:
-// the same N^2 + N wide products and the same result (canonical for 0 <=
-// T < p*R in 2N words), without the moves.
+// Montgomery reduction r = T*R^-1 mod p, canonical, for 0 <= T < p*R in
+// 2N words, on even/odd accumulators: N reduction rows over T's low half
+// give (T_lo + m*p)/R <= p, then T's high half is added: (T + m*p)/R <
+// 2p, so one subtraction of p ends it.  N^2 + N wide products.
 template <int N>
-__device__ __forceinline__ void redc_eo(uint32_t r[N], const uint32_t T[2 * N],
-                                        const Mod<N>& m) {
+__device__ __forceinline__ void redc(uint32_t r[N], const uint32_t T[2 * N],
+                                     const Mod<N>& m) {
   uint32_t ev[N], od[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) ev[j] = T[j];
@@ -443,7 +426,7 @@ __device__ __forceinline__ void sqr_wide(uint32_t w[2 * N], const uint32_t a[N])
   }
 }
 
-// Montgomery square r = a*a*2^(-32N) mod p = redc_eo(sqr_wide(a)): N^2/2 +
+// Montgomery square r = a*a*2^(-32N) mod p = redc(sqr_wide(a)): N^2/2 +
 // N/2 + N^2 + N wide products (234 at N = 12) against mont_mul's 2N^2 +
 // N.  Canonical for a^2 < p*R, so for canonical a bit for bit what
 // mont_mul(a, a) gives.  r may alias a.
@@ -452,7 +435,7 @@ __device__ __forceinline__ void mont_sqr(uint32_t r[N], const uint32_t a[N],
                                          const Mod<N>& m) {
   uint32_t w[2 * N];
   sqr_wide<N>(w, a);
-  redc_eo<N>(r, w, m);
+  redc<N>(r, w, m);
 }
 
 // Fixed exponents for pow_fixed, by value in the kernel parameters: up to
@@ -560,8 +543,9 @@ using Fq = Mod<FQ_LIMBS>;
 // Denominator of the total unified affine add/double of P1 + P2, and the
 // case masks: d = 2*y1 when doubling, else x2 - x1; a plain limb-0 1 in
 // dead lanes (an infinite operand, P + (-P), or d == 0) so the inversion
-// stays valid.  The prefix and down kernels of the chunked level both call
-// this, so they multiply the identical d values.
+// stays valid.  The chunked level's prefix and the affine level's pre call
+// this; the total down pass rebuilds the same d from the prefix's dbl mask
+// (see chunked_level.cu).
 __device__ __forceinline__ void denom_dbl_inf(uint32_t d[FQ_LIMBS], bool& is_dbl,
                                               bool& is_inf3, const uint32_t x1[FQ_LIMBS],
                                               const uint32_t y1[FQ_LIMBS],
@@ -749,8 +733,8 @@ __device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[
 
 // r = a^2 by Karatsuba on squares (fq2_mul with b = a): v0 = a0^2, v1 =
 // a1^2 and t = (a0 + a1)^2 by sqr_wide, the sum a0 + a1 left unreduced
-// (below 2p), then c0 = redc_eo(v0 + p^2 - v1) and c1 = redc_eo(t - v0 -
-// v1) = redc_eo(2*a0*a1), both inputs in [0, 2p^2), below p*R, so each
+// (below 2p), then c0 = redc(v0 + p^2 - v1) and c1 = redc(t - v0 -
+// v1) = redc(2*a0*a1), both inputs in [0, 2p^2), below p*R, so each
 // ends canonical: for canonical inputs bit for bit what fq2_sqr gives.
 // 546 wide products (3 x 78 + 2 x 156) against fq2_sqr's 600, without
 // its moves and its three modular adds and subs.  r may alias a.
@@ -766,12 +750,12 @@ __device__ __forceinline__ void fq2_sqr_karatsuba(uint32_t r[FQ2_LIMBS],
     uint32_t t[W];
     add_words<W>(t, v0, p2.w);
     sub_words<W>(t, t, v1);               // v0 + p^2 - v1
-    redc_eo<L>(r, t, m);
+    redc<L>(r, t, m);
   }
   add_words<W>(v0, v0, v1);               // v0 + v1 < 2p^2
   sqr_wide<L>(v1, s);
   sub_words<W>(v1, v1, v0);               // 2*a0*a1
-  redc_eo<L>(r + L, v1, m);
+  redc<L>(r + L, v1, m);
 }
 
 // r = a^2 by complex squaring over two Montgomery products (crypto_tpu's

@@ -13,17 +13,17 @@
 // The product is Karatsuba with lazy reduction (field.cuh fq2_mul, as
 // blst's mul_mont_384x): three unreduced 12 x 12-word products, v0 =
 // a0*b0, v1 = a1*b1 and t = (a0 + a1)(b0 + b1), then two Montgomery
-// reductions, c0 = redc(v0 + p^2 - v1) and c1 = redc(t - v0 - v1), on PTX
-// carry chains.  Contract: for canonical inputs (below p) the result is
-// the canonical product, bit for bit what the reference's three Montgomery
-// products give and what the plain version (fq2_mul_plain, three CIOS
-// products) gives; both reduction inputs lie in [0, 2p^2), below p*R.
-// Every path feeds canonical inputs (dead slots are zero, pads a limb-0
-// 1).  The square is the same Karatsuba with b = a (field.cuh
-// fq2_sqr_karatsuba): three 78-product squares (sqr_wide) and two
-// reductions on even/odd accumulators (redc_eo), which leave ptxas no
-// register moves; the same bits as the reference's complex squaring, c0 =
-// (a0 + a1)(a0 - a1), c1 = 2*a0*a1.  crypto_tpu_torch/time_sqr_designs.py
+// reductions, c0 = redc(v0 + p^2 - v1) and c1 = redc(t - v0 - v1), the
+// products on PTX carry chains, the reductions on even/odd accumulators.
+// Contract: for canonical inputs (below p) the result is the canonical
+// product, bit for bit what the reference's three Montgomery products
+// give and what the plain version (fq2_mul_plain, three CIOS products)
+// gives; both reduction inputs lie in [0, 2p^2), below p*R.  Every path
+// feeds canonical inputs (dead slots are zero, pads a limb-0 1).  The
+// square is the same Karatsuba with b = a (field.cuh fq2_sqr_karatsuba):
+// three 78-product squares (sqr_wide) and the same two reductions, which
+// leave ptxas no register moves; the same bits as the reference's complex
+// squaring, c0 = (a0 + a1)(a0 - a1), c1 = 2*a0*a1.  crypto_tpu_torch/time_sqr_designs.py
 // times it against the complex squaring with lazy reduction and the CIOS
 // form before it.
 //

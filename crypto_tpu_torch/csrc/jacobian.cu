@@ -11,15 +11,24 @@
 // and the caller redoes the batch on a total path.  The mixed add takes
 // both operands affine and finite.
 //
-// Bound on the H100: full add does 16 Montgomery muls against 10
-// coordinates moved (6 in, 3 out and the flag), so it is bound by the
-// integer multiply rate; mixed add 6 muls against 7 coordinates and double
-// 7 muls against 6 sit near the balance point.  All intermediates stay in
-// registers; the reference's (L, B) blocks of 1,536 lanes in VMEM become
-// one thread per point, and its lax.map over fixed blocks (a compile-count
-// workaround) becomes one launch over the whole batch.  The full add's
-// live set is near the 255-register limit: it drops Z1 and Z2 once Z3 is
-// computed and reloads what an infinite operand passes through.
+// Bound on the H100: full add does 11 Montgomery muls and 5 squares
+// against 10 coordinates moved (6 in, 3 out and the flag), so it is bound
+// by the integer multiply rate; mixed add 4 muls and 2 squares against 7
+// coordinates and double 2 muls and 5 squares against 6 sit near the
+// balance point.  All intermediates
+// stay in registers; the reference's (L, B) blocks of 1,536 lanes in VMEM
+// become one thread per point, and its lax.map over fixed blocks (a
+// compile-count workaround) becomes one launch over the whole batch.
+//
+// The full add runs its products on even/odd accumulators (field.cuh
+// mont_mul_eo: no register moves; its inputs are canonical by contract)
+// and its five squares with mont_sqr (234 wide products against 300).  A
+// pair with an infinite operand copies the other point and leaves.  The
+// rest load each coordinate where it is needed, read Z1 and Z2 back rather
+// than keep them and square Z1 + Z2 while only Z1Z1 and Z2Z2 are live.
+// Z3 is stored as soon as H is known: where H = 0 it is 0, which is also
+// what P + (-P) gives.  ptxas takes 194 registers for it all the same;
+// capped at 168 or 128 it spills, so the full add runs 8 warps an SM.
 #include "field.cuh"
 
 namespace {
@@ -38,79 +47,84 @@ __device__ __forceinline__ void zero(uint32_t r[FQ_LIMBS]) {
   for (int j = 0; j < FQ_LIMBS; ++j) r[j] = 0u;
 }
 
-__global__ void __launch_bounds__(T) full_add_kernel(
+// blocks an SM of the full add.  An SM's four schedulers hold 16,384
+// registers each: at 194 registers a thread 2 warps fit on each, 8 an SM;
+// 3 warps on each (blocks of 128 x 3, 64 x 5, 32 x 11) cap a thread at
+// 168, and the full add spills there
+constexpr int FULL_ADD_BLOCKS = 2;
+
+__global__ void __launch_bounds__(T, FULL_ADD_BLOCKS) full_add_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
     const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
     uint32_t* __restrict__ x3, uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
     int* __restrict__ flag, long long M, Fq m) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  uint32_t Z1[FQ_LIMBS], Z2[FQ_LIMBS], Z1Z1[FQ_LIMBS], Z2Z2[FQ_LIMBS];
-  uint32_t U1[FQ_LIMBS], S1[FQ_LIMBS], H[FQ_LIMBS], r[FQ_LIMBS], t[FQ_LIMBS];
-  ctt::load<FQ_LIMBS>(Z1, z1, M, i);
-  ctt::load<FQ_LIMBS>(Z2, z2, M, i);
-  ctt::mont_mul<FQ_LIMBS>(Z1Z1, Z1, Z1, m);
-  ctt::mont_mul<FQ_LIMBS>(Z2Z2, Z2, Z2, m);
-  ctt::load<FQ_LIMBS>(t, x1, M, i);
-  ctt::mont_mul<FQ_LIMBS>(U1, t, Z2Z2, m);                 // U1 = X1*Z2Z2
-  ctt::load<FQ_LIMBS>(t, x2, M, i);
-  ctt::mont_mul<FQ_LIMBS>(H, t, Z1Z1, m);                  // U2 = X2*Z1Z1
-  ctt::sub<FQ_LIMBS>(H, H, U1, m);                         // H = U2 - U1
-  ctt::load<FQ_LIMBS>(t, y1, M, i);
-  ctt::mont_mul<FQ_LIMBS>(t, t, Z2, m);
-  ctt::mont_mul<FQ_LIMBS>(S1, t, Z2Z2, m);                 // S1 = Y1*Z2*Z2Z2
-  ctt::load<FQ_LIMBS>(t, y2, M, i);
-  ctt::mont_mul<FQ_LIMBS>(t, t, Z1, m);
-  ctt::mont_mul<FQ_LIMBS>(r, t, Z1Z1, m);                  // S2 = Y2*Z1*Z1Z1
+  uint32_t a[FQ_LIMBS], b[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(a, z1, M, i);
+  ctt::load<FQ_LIMBS>(b, z2, M, i);
+  const bool p_inf = ctt::is_zero<FQ_LIMBS>(a);
+  if (p_inf || ctt::is_zero<FQ_LIMBS>(b)) {  // pass the other point through
+    const uint32_t* src[3] = {p_inf ? x2 : x1, p_inf ? y2 : y1, p_inf ? z2 : z1};
+    uint32_t* dst[3] = {x3, y3, z3};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ctt::load<FQ_LIMBS>(a, src[c], M, i);
+      ctt::store<FQ_LIMBS>(dst[c], a, M, i);
+    }
+    flag[i] = 0;
+    return;
+  }
+  uint32_t Z1Z1[FQ_LIMBS], Z2Z2[FQ_LIMBS], U1[FQ_LIMBS], H[FQ_LIMBS];
+  ctt::mont_sqr<FQ_LIMBS>(Z1Z1, a, m);
+  ctt::mont_sqr<FQ_LIMBS>(Z2Z2, b, m);
+  ctt::load<FQ_LIMBS>(a, z1, M, i);
+  ctt::load<FQ_LIMBS>(b, z2, M, i);
+  ctt::add<FQ_LIMBS>(a, a, b, m);
+  ctt::mont_sqr<FQ_LIMBS>(a, a, m);
+  ctt::sub<FQ_LIMBS>(a, a, Z1Z1, m);
+  ctt::sub<FQ_LIMBS>(H, a, Z2Z2, m);                       // 2 Z1 Z2, for Z3
+  ctt::load<FQ_LIMBS>(a, x1, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(U1, a, Z2Z2, m);              // U1 = X1*Z2Z2
+  ctt::load<FQ_LIMBS>(b, x2, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(b, b, Z1Z1, m);
+  ctt::sub<FQ_LIMBS>(a, b, U1, m);                         // H = X2*Z1Z1 - U1
+  ctt::mont_mul_eo<FQ_LIMBS>(H, H, a, m);
+  ctt::store<FQ_LIMBS>(z3, H, M, i);                       // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+  ctt::copy<FQ_LIMBS>(H, a);
+  uint32_t S1[FQ_LIMBS], r[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(a, y1, M, i);
+  ctt::load<FQ_LIMBS>(b, z2, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(a, a, b, m);
+  ctt::mont_mul_eo<FQ_LIMBS>(S1, a, Z2Z2, m);              // S1 = Y1*Z2*Z2Z2
+  ctt::load<FQ_LIMBS>(r, y2, M, i);
+  ctt::load<FQ_LIMBS>(b, z1, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(r, r, b, m);
+  ctt::mont_mul_eo<FQ_LIMBS>(r, r, Z1Z1, m);
   ctt::sub<FQ_LIMBS>(r, r, S1, m);
-  ctt::add<FQ_LIMBS>(r, r, r, m);                          // r = 2*(S2 - S1)
-  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) * H, before Z1 and Z2 are dropped (an
-  // infinite operand's pass-through reloads them)
-  uint32_t Z3[FQ_LIMBS];
-  ctt::add<FQ_LIMBS>(t, Z1, Z2, m);
-  ctt::mont_mul<FQ_LIMBS>(t, t, t, m);
-  ctt::sub<FQ_LIMBS>(t, t, Z1Z1, m);
-  ctt::sub<FQ_LIMBS>(t, t, Z2Z2, m);
-  ctt::mont_mul<FQ_LIMBS>(Z3, t, H, m);
-  const bool p_inf = ctt::is_zero<FQ_LIMBS>(Z1);
-  const bool q_inf = ctt::is_zero<FQ_LIMBS>(Z2);
+  ctt::add<FQ_LIMBS>(r, r, r, m);                          // r = 2*(Y2*Z1*Z1Z1 - S1)
   const bool h0 = ctt::is_zero<FQ_LIMBS>(H);
   const bool r0 = ctt::is_zero<FQ_LIMBS>(r);
-  uint32_t I[FQ_LIMBS], J[FQ_LIMBS], V[FQ_LIMBS];
-  ctt::add<FQ_LIMBS>(t, H, H, m);
-  ctt::mont_mul<FQ_LIMBS>(I, t, t, m);                     // I = (2H)^2
-  ctt::mont_mul<FQ_LIMBS>(J, H, I, m);                     // J = H*I
-  ctt::mont_mul<FQ_LIMBS>(V, U1, I, m);                    // V = U1*I
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
-  ctt::mont_mul<FQ_LIMBS>(t, r, r, m);
-  ctt::sub<FQ_LIMBS>(t, t, J, m);
-  ctt::add<FQ_LIMBS>(X3, V, V, m);
-  ctt::sub<FQ_LIMBS>(X3, t, X3, m);                        // X3 = r^2 - J - 2V
-  ctt::sub<FQ_LIMBS>(t, V, X3, m);
-  ctt::mont_mul<FQ_LIMBS>(Y3, r, t, m);
-  ctt::mont_mul<FQ_LIMBS>(t, S1, J, m);
-  ctt::add<FQ_LIMBS>(t, t, t, m);
-  ctt::sub<FQ_LIMBS>(Y3, Y3, t, m);                        // Y3 = r(V - X3) - 2 S1 J
-  const bool both = !p_inf && !q_inf;
-  if (h0 && !r0 && both) {
-    plain_one(X3);
-    plain_one(Y3);
-    zero(Z3);
-  }
-  if (p_inf) {
-    ctt::load<FQ_LIMBS>(X3, x2, M, i);
-    ctt::load<FQ_LIMBS>(Y3, y2, M, i);
-    ctt::load<FQ_LIMBS>(Z3, z2, M, i);
-  } else if (q_inf) {
-    ctt::load<FQ_LIMBS>(X3, x1, M, i);
-    ctt::load<FQ_LIMBS>(Y3, y1, M, i);
-    ctt::load<FQ_LIMBS>(Z3, z1, M, i);
-  }
-  ctt::store<FQ_LIMBS>(x3, X3, M, i);
-  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
-  ctt::store<FQ_LIMBS>(z3, Z3, M, i);
-  flag[i] = (h0 && r0 && both) ? 1 : 0;
+  ctt::add<FQ_LIMBS>(a, H, H, m);
+  ctt::mont_sqr<FQ_LIMBS>(a, a, m);                        // I = (2H)^2
+  ctt::mont_mul_eo<FQ_LIMBS>(H, H, a, m);                  // J = H*I
+  ctt::mont_mul_eo<FQ_LIMBS>(b, U1, a, m);                 // V = U1*I
+  ctt::mont_sqr<FQ_LIMBS>(a, r, m);
+  ctt::sub<FQ_LIMBS>(a, a, H, m);
+  ctt::sub<FQ_LIMBS>(a, a, b, m);
+  ctt::sub<FQ_LIMBS>(a, a, b, m);                          // X3 = r^2 - J - 2V
+  ctt::sub<FQ_LIMBS>(b, b, a, m);
+  const bool opposite = h0 && !r0;                         // P + (-P): (1, 1, 0)
+  if (opposite) plain_one(a);
+  ctt::store<FQ_LIMBS>(x3, a, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(b, r, b, m);
+  ctt::mont_mul_eo<FQ_LIMBS>(a, S1, H, m);
+  ctt::add<FQ_LIMBS>(a, a, a, m);
+  ctt::sub<FQ_LIMBS>(b, b, a, m);                          // Y3 = r(V - X3) - 2 S1 J
+  if (opposite) plain_one(b);
+  ctt::store<FQ_LIMBS>(y3, b, M, i);
+  flag[i] = (h0 && r0) ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(T) mixed_add_kernel(

@@ -4,7 +4,7 @@
 // compile it).  For canonical inputs every design gives the same bits.
 //
 // mont_sqr_design_kernel<D>, r = a*a*R^-1 on (12, M) limb-major:
-//   0  ctt::mont_sqr, redc_eo(sqr_wide(a)): the G1 down pass's square
+//   0  ctt::mont_sqr, redc(sqr_wide(a)): the G1 down pass's square
 //   1  the same on sqr_wide_folded: the cross products' odd array added
 //      into w after every row, so its words die early
 //   2  ctt::mont_mul_eo(a, a)
@@ -13,7 +13,7 @@
 //   0  complex squaring with lazy reduction (blst's sqr_mont_382x):
 //      c0 = mont_mul_eo(a0 + a1, a0 + p - a1), c1 = mont_mul_eo(2*a0, a1),
 //      the sums left unreduced below 2p (600 wide products)
-//   1  ctt::fq2_sqr_karatsuba: three sqr_wide squares and two redc_eo
+//   1  ctt::fq2_sqr_karatsuba: three sqr_wide squares and two redc
 //      (546 wide products): the port's fq2_sqr kernel
 //   2  1 on sqr_wide_folded
 //   3  ctt::fq2_sqr: two CIOS products and three modular adds and subs,
@@ -72,7 +72,7 @@ __device__ __forceinline__ void mont_sqr_folded(uint32_t r[N], const uint32_t a[
                                                 const Mod<N>& m) {
   uint32_t w[2 * N];
   sqr_wide_folded<N>(w, a);
-  redc_eo<N>(r, w, m);
+  redc<N>(r, w, m);
 }
 
 }  // namespace ctt
@@ -111,12 +111,12 @@ __device__ __forceinline__ void fq2_sqr_karatsuba_folded(uint32_t r[FQ2_LIMBS],
     uint32_t t[W];
     add_words<W>(t, v0, p2.w);
     sub_words<W>(t, t, v1);
-    redc_eo<L>(r, t, m);
+    redc<L>(r, t, m);
   }
   add_words<W>(v0, v0, v1);
   sqr_wide_folded<L>(v1, s);
   sub_words<W>(v1, v1, v0);
-  redc_eo<L>(r + L, v1, m);
+  redc<L>(r + L, v1, m);
 }
 
 template <int D>

@@ -14,8 +14,8 @@ per-window rerun):
   `chunked_level_kernels_for` (`call_prefix` / `call_down`),
   `csrc/chunked_level.cu`: Montgomery's trick over the K = 8 pairs
   t + j*(M/K) that thread t owns; only the (12, M/K) totals go through
-  `batch_inv_t`, and down walks back, recomputing each d with the same
-  denominator logic as prefix.
+  `batch_inv_t`, and down walks back, rebuilding each d that prefix
+  formed from prefix's doubling mask (`_denom_of_dbl`).
 
 The doubling-free formula (the MSM's default; `_denom_fast` is the
 reference's contract: d = x2 - x1, a limb-0 1 where an operand is
@@ -75,11 +75,18 @@ def _denom_dbl_inf(F, x1, y1, x2, y2, i1, i2):
     both = ~i1 & ~i2
     is_dbl = same_x & ~y_opp & both
     is_inf3 = (same_x & y_opp & both) | (i1 & i2)
-    dead = ~both | is_inf3
+    return _denom_of_dbl(F, x1, y1, x2, is_dbl, i1, i2), is_dbl, is_inf3
+
+
+def _denom_of_dbl(F, x1, y1, x2, is_dbl, i1, i2):
+    """d of the unified add/double given its doubling mask: 2*y1 where
+    doubling, else x2 - x1; limb-0 1 where an operand is infinite or d ==
+    0.  With `_denom_dbl_inf`'s mask that is its d: a lane it finds dead
+    with both operands finite (P + (-P), the same x) has x2 - x1 = 0."""
     d = F.select(is_dbl, F.double(y1), F.sub(x2, x1))
     one = torch.zeros_like(d)
     one[0] = 1
-    return F.select(dead | F.is_zero(d), one, d), is_dbl, is_inf3
+    return F.select(i1 | i2 | F.is_zero(d), one, d)
 
 
 def _unified_apply(F, x1, y1, x2, y2, dinv, is_dbl, i1, i2):
@@ -162,7 +169,7 @@ def chunked_level_down_plain(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
         i1, i2 = m1[sl] != 0, m2[sl] != 0
         if j > 0:
             dinv = mont_mul_plain(t, prefix[:, (j - 1) * T:j * T], F.mod)
-            d, _, _ = _denom_dbl_inf(F, X1, Y1, X2, Y2, i1, i2)
+            d = _denom_of_dbl(F, X1, Y1, X2, dbl[sl] != 0, i1, i2)
             t = mont_mul_plain(t, d, F.mod)
         else:
             dinv = t

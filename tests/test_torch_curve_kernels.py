@@ -101,11 +101,30 @@ def test_affine_level_vs_reference(n_random):
     _check(pairs, x3, y3, inf3)
 
 
-@pytest.mark.parametrize("n_pairs", [64, 61])
-def test_chunked_level_vs_reference(n_pairs, monkeypatch):
-    """A multiple of the chunk group, and a ragged count that
-    `pair_add_t` pads with dead lanes."""
-    pairs = _cases(n_pairs - 8)
+def _special_in_every_strip(n_pairs: int):
+    """n_pairs pairs in CHUNK_K strips of T = n_pairs / CHUNK_K: strip j
+    holds a fresh set of `_cases(0)`'s eight pairs (P + P, P + (-P), P1,
+    P2 or both infinite among them) at threads (s + j) mod T, s the case,
+    so every strip, the down pass's recomputed ones (j > 0) among them,
+    holds every case, each at another thread; random pairs elsewhere."""
+    T = n_pairs // ck.CHUNK_K
+    pairs = _cases(n_pairs)[8:]
+    for j in range(ck.CHUNK_K):
+        for s, pair in enumerate(_cases(0)):
+            pairs[(s + j) % T + j * T] = pair
+    return pairs
+
+
+@pytest.mark.parametrize("n_pairs, special_every_strip", [
+    pytest.param(64, False, id="64"), pytest.param(61, False, id="61"),
+    pytest.param(64, True, id="64-special-in-every-strip"),
+    pytest.param(128, True, id="128-special-in-every-strip")])
+def test_chunked_level_vs_reference(n_pairs, special_every_strip,
+                                    monkeypatch):
+    """A multiple of the chunk group, a ragged count that `pair_add_t`
+    pads with dead lanes, and the special pairs in every strip."""
+    pairs = _special_in_every_strip(n_pairs) if special_every_strip \
+        else _cases(n_pairs - 8)
     x1, y1, m1, x2, y2, m2 = _inputs(pairs)
     if n_pairs % ck.CHUNK_K == 0:
         prefix, total, dbl, inf3 = ck.chunked_level_prefix(F, x1, y1, m1,

@@ -4,7 +4,7 @@ on the CPU and the host field; a host-integer model of the Fq2
 product's lazy reduction (`csrc/field.cuh` `fq2_mul`) against the host
 Fq2 product and the port's plain `fq2_mul_plain`; and word-by-word
 models of `field.cuh`'s even/odd Montgomery product (`mont_mul_eo`), its
-reduction (`redc_eo`), the wide square (`sqr_wide`), and the Fq2 square
+reduction (`redc`), the wide square (`sqr_wide`), and the Fq2 square
 built on them (`fq2_sqr_karatsuba`) against the host integers,
 `fq2_sqr_plain` and the host Fq2 square.
 
@@ -123,7 +123,7 @@ N0INV = (-pow(P, -1, 1 << 32)) % (1 << 32)
 
 
 def _redc(T: int) -> tuple:
-    """The kernel's reduction of T < p*R: 12 rows of m_i = t_0 * n0inv mod
+    """The value of field.cuh redc on T < p*R: 12 rows of m_i = t_0 * n0inv mod
     2^32 and t = (t + m_i*p) / 2^32 over T's low 12 words, then T's high
     words added and p subtracted once.  Returns (result, value before the
     subtraction)."""
@@ -287,8 +287,8 @@ def _mont_mul_eo(A: int, B: int) -> int:
 
 
 def _redc_eo(T: int) -> int:
-    """field.cuh redc_eo: the reduction rows on even/odd accumulators, then
-    T's high half, for 0 <= T < p*R."""
+    """field.cuh redc word by word: the reduction rows on even/odd
+    accumulators, then T's high half, for 0 <= T < p*R."""
     assert 0 <= T < P * R
     ev, od = _words(T, L), [0] * L
     mi = ev[0] * N0INV & MASK
@@ -393,8 +393,9 @@ def test_mont_mul_eo_model(bound):
 
 
 def test_redc_eo_and_mont_sqr_model():
-    """redc_eo at the ends of its range [0, p*R) and on squares; mont_sqr
-    = redc_eo(sqr_wide(a)) is mont_mul's result for canonical a."""
+    """redc (on even/odd accumulators) at the ends of its range [0, p*R)
+    and on squares; mont_sqr = redc(sqr_wide(a)) is mont_mul's result for
+    canonical a."""
     rng = np.random.default_rng(13)
     Ts = [0, 1, P * R - 1, P * P, 4 * P * P, (P - 1) ** 2, R * (P - 1)]
     Ts += [int.from_bytes(rng.bytes(96), "little") % (P * R)
@@ -407,8 +408,8 @@ def test_redc_eo_and_mont_sqr_model():
 
 
 def _fq2_sqr_karatsuba(a0, a1) -> tuple:
-    """field.cuh fq2_sqr_karatsuba: c0 = redc_eo(v0 + p^2 - v1), c1 =
-    redc_eo(t - v0 - v1) with v0 = a0^2, v1 = a1^2, t = (a0 + a1)^2 by
+    """field.cuh fq2_sqr_karatsuba: c0 = redc(v0 + p^2 - v1), c1 =
+    redc(t - v0 - v1) with v0 = a0^2, v1 = a1^2, t = (a0 + a1)^2 by
     sqr_wide."""
     s = a0 + a1
     assert s < R
