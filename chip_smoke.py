@@ -40,8 +40,10 @@ kernel.  Then it
 holds every kernel against its plain PyTorch version bit for bit at the
 shapes a path gave it (both chunked levels also on inputs whose every
 warp holds an infinite operand, the full add also on warps that each hold
-one kind of pair: P1, P2 or both infinite, P + P, P + (-P); the Fq2
-square also on a0 = a1 and a1 = 0), times the fast down pass at each of
+one kind of pair: P1, P2 or both infinite, P + P, P + (-P); the double
+also with Y1 = 0 lanes; the normalize also at ragged widths about its
+chunk and block, on infinities only and with infinities at both ends of
+every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0), times the fast down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
 call down to 16 elements, and profiles one more 2^20 G1 MSM on each
 formula and one more G2 MSM for the device's busy share and each
@@ -158,10 +160,10 @@ def chain_ops(e: int) -> tuple:
     """(squares, products) of a short addition chain for x^e: a sliding
     window over e's bits (x^2 and the odd powers below 2^w, then a square
     per bit and a product per window), the fewest steps over widths 1 to
-    8.  Width 1 is the binary chain that mont_pow and normalize run (608
-    steps for p - 2); the best width takes 460 for p - 2 and 312 for r -
-    2, so the bound counts the chain the function needs, not the one it
-    runs."""
+    8.  Width 1 is the binary chain that mont_pow runs (608 steps for p -
+    2); the best width takes 460 for p - 2 (width 5, the normalize's
+    chain) and 312 for r - 2, so the bound counts the chain the function
+    needs, not the one it runs."""
     bits, best = bin(e)[2:], None
     for w in range(1, 9):
         sq, mul = (1, 2 ** (w - 1) - 1) if w > 1 else (0, 0)
@@ -234,11 +236,37 @@ def work(name: str, args: tuple) -> tuple:
                                        M * (4 * MUL + 2 * SQR)),
         "jacobian_double": lambda: (M * 6 * FQ_BYTES,
                                     M * (2 * MUL + 5 * SQR)),
-        # the Fermat chain, then z^-2 (a square), x z^-2, z^-3 and y z^-3
-        "jacobian_normalize": lambda: (M * 6 * FQ_BYTES, M * (
-            (chain_ops(args[0].p - 2)[0] + 1) * SQR
-            + (chain_ops(args[0].p - 2)[1] + 3) * MUL)),
+        # Montgomery's trick: a point's prefix product, the two products
+        # of the walk back, z^-2 (a square), z^-3, x z^-2 and y z^-3; one
+        # Fermat chain for the whole batch
+        "jacobian_normalize": lambda: (
+            M * 6 * FQ_BYTES, M * (6 * MUL + SQR)
+            + chain_ops(args[0].p - 2)[0] * SQR
+            + chain_ops(args[0].p - 2)[1] * MUL),
     }[name]()
+
+
+def normalize_cases(z, k: int, T: int) -> dict:
+    """{case: Z} over the columns of z, a (12, n) batch of Z coordinates,
+    for the normalize kernel with chunks of k points and blocks of T
+    threads (a thread's chunk strides by T over the block's k*T points):
+    ragged widths about k and k*T, a batch of infinities, and, at n - 5,
+    Z = 0 at the first and the last point of every thread's chunk and
+    over the whole of one block."""
+    n = z.shape[1]
+    span = k * T
+    widths = sorted({1, 2, k - 1, k + 1, T - 1, T + 1, span - 1, span + 3,
+                     n - 5} - {0})
+    zs = {f"M={M}": z[:, :M].contiguous() for M in widths}
+    zs["all infinite"] = torch.zeros_like(z)
+    M = n - 5
+    lane = torch.arange(M, device=z.device)
+    first = lane // span * span + lane % T          # the chunk's first point
+    step = lane % span // T
+    last = torch.clamp((M - 1 - first) // T + 1, max=k) - 1
+    ends = (step == 0) | (step == last) | (lane // span == 3)
+    zs["chunk ends infinite"] = torch.where(ends[None], 0, z[:, :M])
+    return zs
 
 
 def max_err(a, b) -> int:
@@ -1120,19 +1148,35 @@ def main() -> int:
                     "add_fns_2^20", e_dbl,
                     cuda_ms(lambda: pk.jacobian_double(F, *J)), dbl_ms,
                     (F,) + J, [12, n]))
+    # and with Y1 = 0 lanes (no point of G1 has one: raw coordinates)
+    lane = torch.arange(n, device=dev)
+    J_y0 = (J[0], torch.where((lane % 29 == 7)[None], 0, J[1]), J[2])
+    agree("jacobian_double", pk.jacobian_double(F, *J_y0),
+          pk.jacobian_double_plain(F, *J_y0), "with Y1 = 0 lanes")
     phase("check_jacobian", full_add_rows=[1 << 14, n], mixed_add_rows=n,
-          double_rows=n, full_add_warps_of_one_kind=True,
+          double_rows=n, double_y1_zero_lanes=int((lane % 29 == 7).sum()),
+          full_add_warps_of_one_kind=True,
           full_add_warps_ms=add_warps_ms, bit_exact=True)
     pn, norm_ms = timed_call(lambda: pk.jacobian_normalize_plain(F, *J))
     e_norm = agree("jacobian_normalize", pk.jacobian_normalize(F, *J), pn,
                    f"at M={n}")
     rows.append(row("jacobian_normalize", csrc + "normalize.cu",
                     ref + "390", "bench_points_2^20", e_norm,
-                    cuda_ms(lambda: pk.jacobian_normalize(F, *J), reps=2),
+                    cuda_ms(lambda: pk.jacobian_normalize(F, *J), reps=5),
                     norm_ms, (F,) + J, [12, n]))
+    # ragged widths about the kernel's chunk k and block T, a batch of
+    # infinities, and infinities at the first and the last point of every
+    # thread's chunk with one block's chunks all infinite
+    zs = normalize_cases(J[2], pk.NORMALIZE_CHUNK, pk.NORMALIZE_THREADS)
+    for where, z in zs.items():
+        ins = tuple(t[:, :z.shape[1]].contiguous() for t in J[:2]) + (z,)
+        agree("jacobian_normalize", pk.jacobian_normalize(F, *ins),
+              pk.jacobian_normalize_plain(F, *ins), where)
     phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
-          bound_squares_products_per_point=[chain_ops(bls.P - 2)[0] + 1,
-                                            chain_ops(bls.P - 2)[1] + 3],
+          chunk=pk.NORMALIZE_CHUNK, threads=pk.NORMALIZE_THREADS,
+          shape="B (one chain a block)",
+          checked=list(zs), bound_squares_products_per_point=[1, 6],
+          bound_chain_squares_products=list(chain_ops(bls.P - 2)),
           bit_exact=True)
 
     # ---- the Fq2 mul at the first product-tree width of the G2 MSM's

@@ -15,7 +15,8 @@
 // mont_sqr run on even/odd accumulators too.  The Fq2 product is
 // Karatsuba with lazy reduction (three unreduced products, two
 // reductions), and pow_fixed the square-and-multiply chain of a fixed
-// exponent in one thread.
+// exponent in one thread (pow_window a sliding-window chain on mont_sqr
+// and mont_mul_eo, for canonical inputs).
 //
 // Every function below computes exactly what the plain PyTorch versions
 // in crypto_tpu_torch compute (canonical results for canonical inputs;
@@ -472,6 +473,76 @@ __device__ __forceinline__ void pow_fixed(uint32_t r[N], const uint32_t a[N],
     mont_mul<N>(acc, acc, acc, m);
     if ((e.w[b >> 5] >> (b & 31)) & 1u) mont_mul<N>(acc, acc, a, m);
   }
+  copy<N>(r, acc);
+}
+
+// A fixed exponent e >= 1 as a left-to-right sliding-window chain of
+// width W, built on the host and passed by value: x^e = x^(2*first + 1),
+// then for each window k, squares[k] squares and a product by
+// x^(2*odd[k] + 1), then `tail` squares.  A window starts at a set bit and
+// spans at most W bits, ending at a set bit, so windows start at least W
+// bits apart.  W = 1 is the binary chain of pow_fixed.
+template <int W>
+struct WindowChain {
+  static constexpr int MAX = 32 * EXP_WORDS / W + 1;
+  uint16_t squares[MAX];
+  uint8_t odd[MAX];
+  int windows, first, tail;
+};
+
+template <int W>
+__host__ inline WindowChain<W> make_window_chain(const Exponent& e) {
+  WindowChain<W> c{};
+  auto bit = [&](int b) { return (e.w[b >> 5] >> (b & 31)) & 1u; };
+  int sq = 0;
+  bool first = true;
+  for (int i = e.top; i >= 0;) {
+    if (!bit(i)) {
+      ++sq;
+      --i;
+      continue;
+    }
+    int j = i - W + 1 > 0 ? i - W + 1 : 0;                // window bits i..j
+    while (!bit(j)) ++j;
+    int d = 0;
+    for (int b = i; b >= j; --b) d = 2 * d + (int)bit(b);
+    if (first) {
+      c.first = d >> 1;
+      first = false;
+    } else {
+      c.squares[c.windows] = (uint16_t)(sq + i - j + 1);
+      c.odd[c.windows++] = (uint8_t)(d >> 1);
+    }
+    sq = 0;
+    i = j - 1;
+  }
+  c.tail = sq;
+  return c;
+}
+
+// r = a^e by the window chain c, its squares on mont_sqr and its products
+// on mont_mul_eo, the odd powers a, a^3, ..., a^(2^W - 1) first (in local
+// memory for W > 1: the chain indexes them at run time): for canonical a,
+// the canonical power, bit for bit what pow_fixed gives.  r may alias a.
+template <int N, int W>
+__device__ __forceinline__ void pow_window(uint32_t r[N], const uint32_t a[N],
+                                           const WindowChain<W>& c, const Mod<N>& m) {
+  uint32_t odd[1 << (W - 1)][N], acc[N];
+  copy<N>(odd[0], a);
+  if constexpr (W > 1) {
+    mont_sqr<N>(acc, a, m);
+#pragma unroll 1
+    for (int k = 1; k < (1 << (W - 1)); ++k) mont_mul_eo<N>(odd[k], odd[k - 1], acc, m);
+  }
+  copy<N>(acc, odd[c.first]);
+#pragma unroll 1
+  for (int k = 0; k < c.windows; ++k) {
+#pragma unroll 1
+    for (int s = 0; s < c.squares[k]; ++s) mont_sqr<N>(acc, acc, m);
+    mont_mul_eo<N>(acc, acc, odd[c.odd[k]], m);
+  }
+#pragma unroll 1
+  for (int s = 0; s < c.tail; ++s) mont_sqr<N>(acc, acc, m);
   copy<N>(r, acc);
 }
 

@@ -14,8 +14,8 @@
 // Bound on the H100: full add does 11 Montgomery muls and 5 squares
 // against 10 coordinates moved (6 in, 3 out and the flag), so it is bound
 // by the integer multiply rate; mixed add 4 muls and 2 squares against 7
-// coordinates and double 2 muls and 5 squares against 6 sit near the
-// balance point.  All intermediates
+// coordinates and double 2 muls and 5 squares against 6 are bound by it
+// too, within a factor of about 2.5 of the byte rate.  All intermediates
 // stay in registers; the reference's (L, B) blocks of 1,536 lanes in VMEM
 // become one thread per point, and its lax.map over fixed blocks (a
 // compile-count workaround) becomes one launch over the whole batch.
@@ -29,6 +29,12 @@
 // Z3 is stored as soon as H is known: where H = 0 it is 0, which is also
 // what P + (-P) gives.  ptxas takes 194 registers for it all the same;
 // capped at 168 or 128 it spills, so the full add runs 8 warps an SM.
+//
+// The double runs the same way: its five squares (A, B, C, (X1 + B)^2,
+// E^2) on mont_sqr, its two products (Y1 Z1 and E (D - X3)) on
+// mont_mul_eo, Z3 computed and stored first, while Y1 is loaded, and X1
+// loaded where B is added to it, under the launch bound DOUBLE_BLOCKS
+// that ptxas serves without spill.
 #include "field.cuh"
 
 namespace {
@@ -172,48 +178,49 @@ __global__ void __launch_bounds__(T) mixed_add_kernel(
   flag[i] = (h0 && r0) ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(T) double_kernel(
+// blocks an SM of the double: ptxas takes 168 registers for it at 1 to 3
+// (3 warps on each scheduler); 4 cap it at 128 and it spills
+constexpr int DOUBLE_BLOCKS = 3;
+
+__global__ void __launch_bounds__(T, DOUBLE_BLOCKS) double_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const uint32_t* __restrict__ z1, uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
     uint32_t* __restrict__ z3, long long M, Fq m) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], A[FQ_LIMBS], B[FQ_LIMBS], C[FQ_LIMBS];
-  uint32_t D[FQ_LIMBS], E[FQ_LIMBS], t[FQ_LIMBS];
-  ctt::load<FQ_LIMBS>(X1, x1, M, i);
-  ctt::load<FQ_LIMBS>(Y1, y1, M, i);
-  ctt::mont_mul<FQ_LIMBS>(A, X1, X1, m);                   // A = X1^2
-  ctt::mont_mul<FQ_LIMBS>(B, Y1, Y1, m);                   // B = Y1^2
-  ctt::mont_mul<FQ_LIMBS>(C, B, B, m);                     // C = B^2
-  ctt::add<FQ_LIMBS>(t, X1, B, m);
-  ctt::mont_mul<FQ_LIMBS>(t, t, t, m);
-  ctt::sub<FQ_LIMBS>(t, t, A, m);
-  ctt::sub<FQ_LIMBS>(t, t, C, m);
-  ctt::add<FQ_LIMBS>(D, t, t, m);                          // D = 2((X1+B)^2 - A - C)
-  ctt::add<FQ_LIMBS>(E, A, A, m);
-  ctt::add<FQ_LIMBS>(E, E, A, m);                          // E = 3A
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
-  ctt::mont_mul<FQ_LIMBS>(t, E, E, m);
-  ctt::add<FQ_LIMBS>(X3, D, D, m);
-  ctt::sub<FQ_LIMBS>(X3, t, X3, m);                        // X3 = E^2 - 2D
-  ctt::sub<FQ_LIMBS>(t, D, X3, m);
-  ctt::mont_mul<FQ_LIMBS>(Y3, E, t, m);
+  uint32_t a[FQ_LIMBS], b[FQ_LIMBS], C[FQ_LIMBS];
+  ctt::load<FQ_LIMBS>(a, y1, M, i);
+  ctt::load<FQ_LIMBS>(b, z1, M, i);
+  const bool bad = ctt::is_zero<FQ_LIMBS>(a) || ctt::is_zero<FQ_LIMBS>(b);
+  ctt::mont_mul_eo<FQ_LIMBS>(b, a, b, m);
+  ctt::add<FQ_LIMBS>(b, b, b, m);                          // Z3 = 2 Y1 Z1
+  if (bad) zero(b);
+  ctt::store<FQ_LIMBS>(z3, b, M, i);
+  ctt::mont_sqr<FQ_LIMBS>(a, a, m);                        // B = Y1^2
+  ctt::mont_sqr<FQ_LIMBS>(C, a, m);                        // C = B^2
+  ctt::load<FQ_LIMBS>(b, x1, M, i);
+  ctt::add<FQ_LIMBS>(a, b, a, m);
+  ctt::mont_sqr<FQ_LIMBS>(a, a, m);
+  ctt::mont_sqr<FQ_LIMBS>(b, b, m);                        // A = X1^2
+  ctt::sub<FQ_LIMBS>(a, a, b, m);
+  ctt::sub<FQ_LIMBS>(a, a, C, m);
+  uint32_t D[FQ_LIMBS], E[FQ_LIMBS];
+  ctt::add<FQ_LIMBS>(D, a, a, m);                          // D = 2((X1+B)^2 - A - C)
+  ctt::add<FQ_LIMBS>(E, b, b, m);
+  ctt::add<FQ_LIMBS>(E, E, b, m);                          // E = 3A
+  ctt::mont_sqr<FQ_LIMBS>(a, E, m);
+  ctt::add<FQ_LIMBS>(b, D, D, m);
+  ctt::sub<FQ_LIMBS>(a, a, b, m);                          // X3 = E^2 - 2D
+  ctt::sub<FQ_LIMBS>(b, D, a, m);
+  if (bad) plain_one(a);
+  ctt::store<FQ_LIMBS>(x3, a, M, i);
+  ctt::mont_mul_eo<FQ_LIMBS>(b, E, b, m);
   ctt::add<FQ_LIMBS>(C, C, C, m);
   ctt::add<FQ_LIMBS>(C, C, C, m);
   ctt::add<FQ_LIMBS>(C, C, C, m);
-  ctt::sub<FQ_LIMBS>(Y3, Y3, C, m);                        // Y3 = E(D - X3) - 8C
-  ctt::load<FQ_LIMBS>(t, z1, M, i);
-  const bool bad = ctt::is_zero<FQ_LIMBS>(Y1) || ctt::is_zero<FQ_LIMBS>(t);
-  ctt::mont_mul<FQ_LIMBS>(Z3, Y1, t, m);
-  ctt::add<FQ_LIMBS>(Z3, Z3, Z3, m);                       // Z3 = 2 Y1 Z1
-  if (bad) {
-    plain_one(X3);
-    plain_one(Y3);
-    zero(Z3);
-  }
-  ctt::store<FQ_LIMBS>(x3, X3, M, i);
-  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
-  ctt::store<FQ_LIMBS>(z3, Z3, M, i);
+  ctt::sub<FQ_LIMBS>(b, b, C, m);                          // Y3 = E(D - X3) - 8C
+  if (bad) plain_one(b);
+  ctt::store<FQ_LIMBS>(y3, b, M, i);
 }
 
 inline Fq mod_of(const void* p, unsigned int n0inv) {

@@ -11,8 +11,11 @@ Two TPU kernel factories of `crypto_tpu/ops/pallas/curve_kernels.py`:
   infinite result is (1, 1, 0) with plain-1 limbs, as in the reference.
 * `jacobian_normalize` replaces `_mul_call_for`, the Montgomery-mul kernel
   that `make_normalize_fn` scans over the bits of p - 2,
-  `csrc/normalize.cu`: the whole Fermat chain and x·z^-2, y·z^-3 in one
-  launch, Z set to the Montgomery 1 (0 for an infinite point).
+  `csrc/normalize.cu`: a batch inversion by Montgomery's trick (prefix
+  products of each thread's chunk of Z, a product tree over a block's
+  chunk totals, one Fermat chain a root, the walk back) fused with
+  x·z^-2, y·z^-3 in one launch, Z set to the Montgomery 1 (0 for an
+  infinite point).
 
 `make_add_fns(tc)` and `make_normalize_fn(tc)` are the counterparts of
 the reference's factories: any batch shape, one launch for the whole
@@ -108,10 +111,10 @@ def jacobian_double_plain(F, x1, y1, z1):
 
 def _inverse_plain(F, z):
     """Canonical Montgomery inverses of a (12, M) batch, 0 for 0.  The
-    batch trick (a product tree, one Fermat chain at its root, the walk
-    back) in place of the kernel's chain per point: an inverse is unique,
-    so the two agree bit for bit, and the plain version stays cheap
-    enough for the CPU tests."""
+    batch trick over the whole batch (a product tree, one Fermat chain at
+    its root, the walk back), where the kernel cuts its tree at threads'
+    chunks and blocks: an inverse is unique, so the two agree bit for
+    bit."""
     def mul(a, b):
         return mont_mul_plain(a, b, F.mod)
 
@@ -151,6 +154,11 @@ def jacobian_normalize_plain(F, x, y, z):
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+
+# csrc/normalize.cu's T and CHUNK: threads a block, points a thread (one
+# Fermat chain a block)
+NORMALIZE_THREADS, NORMALIZE_CHUNK = 128, 16
+
 
 def _check(name, F, coords):
     if F.L != FQ_LIMBS:

@@ -1,27 +1,37 @@
-"""Time the G1 full Jacobian add and the total-formula down pass under
-several launch bounds, in turns.
+"""Time the G1 full Jacobian add, the double, the normalize and the
+total-formula down pass under several builds, in turns.
 
     python3 -m crypto_tpu_torch.time_launch_bounds [--reps 3]
+        [--kernels full_add double normalize down]
 
 On one CUDA card: writes copies of `csrc/jacobian.cu` under build/ with
-its block size `T` and the full add's `FULL_ADD_BLOCKS` (threads a block,
-and the blocks an SM that `__launch_bounds__` asks room for: together
-they cap the registers a thread) set to each pair below, also with its
-squares taken as products (`mont_mul_eo(a, a)`), and copies of
-`csrc/chunked_level.cu` with each value of `DOWN_BLOCKS`; builds each
-with nvcc for sm_90a as a library of its own (not the port's), and reads
-each kernel's registers, spills and SASS instruction count.  Then it
-holds every build bit for bit against the others and the port's plain
-version on the same canonical inputs, and times the builds in turns: the
-full add at (12, 2^20) with infinite operands, P + P and P + (-P) among
-random lanes; the down pass at each level width of the 2^20 G1 MSM with
-infinite operands in every warp and a doubling lane in one warp of 32.
-Each repetition runs the builds in order, then in reverse, each reading
-the CUDA-event mean of 20 launches (5 for the down pass) after a
-warm-up.  Prints the card's name and power limit and, as the last line,
-a JSON object with each build's readings, their median, registers,
-spills and SASS count, and for the down pass its sum over the MSM's nine
-level calls.
+its block size `T` and the full add's `FULL_ADD_BLOCKS` or the double's
+`DOUBLE_BLOCKS` (threads a block, and the blocks an SM that
+`__launch_bounds__` asks room for: together they cap the registers a
+thread) set to each pair below, the full add also with its squares taken
+as products (`mont_mul_eo(a, a)`); copies of `csrc/normalize.cu` with
+each width of its Fermat chain's window (`CHAIN_WINDOW`, 1: the binary
+chain) at each batch-inversion shape (`NORMALIZE_SHAPES`: `CHUNK` points
+a thread, and `TREE_LOG` 0, one chain a thread, shape A, or 7, one chain
+a block of 128, shape B); and copies of `csrc/chunked_level.cu` with
+each value of `DOWN_BLOCKS`.  Builds each with nvcc for sm_90a as a
+library of its own (not the port's), and reads each kernel's registers,
+spills and SASS instruction count.  Then it holds every build bit for
+bit against the others and the port's plain version on the same
+canonical inputs, and times the builds in turns: the full add at (12,
+2^20) with infinite operands, P + P and P + (-P) among random lanes; the
+double at (12, 2^20) with Z1 = 0 and Y1 = 0 lanes; the normalize at (12,
+2^20) with infinite lanes, and the shipped shape's builds also at one
+point (a launch and one chain's latency), every build also checked at 1
+and 1,000 points; the down pass at each level width of the 2^20 G1 MSM
+with infinite operands in every warp and a doubling lane in one warp of
+32.  Each repetition runs the builds in order, then in reverse, each
+reading the CUDA-event mean of 20 launches (5 for the down pass and the
+normalize) after a warm-up.
+Prints the card's name and power limit and, as the last line, a JSON
+object with each build's readings, their median, registers, spills and
+SASS count, and for the down pass its sum over the MSM's nine level
+calls.
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ from .curves import bls12_381 as bls
 from .fields.tfield import tfield_for
 from .ops.kernels import build
 from .ops.kernels.curve_kernels import CHUNK_K, chunked_level_down_plain
-from .ops.kernels.point_kernels import jacobian_add_plain
+from .ops.kernels.point_kernels import jacobian_add_plain, \
+    jacobian_double_plain, jacobian_normalize_plain
 from .time_sqr_designs import LEVEL_PAIRS, _event_ms, _limbs
 
 # the full add with its squares as products, mont_mul_eo(a, a): fewer
@@ -49,12 +60,16 @@ SQR_BY_MUL = (r"ctt::mont_sqr<FQ_LIMBS>\((\w+), (\w+), m\)",
               r"ctt::mont_mul_eo<FQ_LIMBS>(\1, \2, \2, m)")
 
 
-def _bounds(threads: int, blocks: int) -> list:
+def _bounds(threads: int, blocks: int, name: str = "FULL_ADD") -> list:
     return [(r"constexpr int T = 128;", f"constexpr int T = {threads};"),
-            (r"constexpr int FULL_ADD_BLOCKS = 2;",
-             f"constexpr int FULL_ADD_BLOCKS = {blocks};")]
+            (rf"constexpr int {name}_BLOCKS = \d+;",
+             f"constexpr int {name}_BLOCKS = {blocks};")]
 
 
+# the normalize's shapes at 128 threads a block: (CHUNK, TREE_LOG), a
+# chain a thread (A) or a block (B); B_k16 ships
+NORMALIZE_SHAPES = {"A_k32": (32, 0), "A_k64": (64, 0), "B_k8": (8, 7),
+                    "B_k16": (16, 7), "B_k32": (32, 7)}
 # kernel -> (source, kernel function, C entry point, {build: the
 # substitutions (regex, replacement) that make the build's copy})
 BUILDS = {
@@ -63,6 +78,18 @@ BUILDS = {
             (128, 2), (64, 5), (32, 10), (32, 11), (128, 3), (128, 4))},
         **{f"{t}x{k}_sqr_by_mul": [SQR_BY_MUL, *_bounds(t, k)]
            for t, k in ((32, 11), (128, 3))}}),
+    "double": ("jacobian.cu", "double_kernel", "crypto_jac_double", {
+        f"{t}x{k}": _bounds(t, k, "DOUBLE") for t, k in (
+            (128, 1), (128, 2), (128, 3), (128, 4), (256, 2))}),
+    "normalize": ("normalize.cu", "normalize_kernel", "crypto_normalize", {
+        f"w{w}_{k}": [(r"constexpr int CHAIN_WINDOW = \d+;",
+                       f"constexpr int CHAIN_WINDOW = {w};"),
+                      (r"constexpr int CHUNK = \d+;",
+                       f"constexpr int CHUNK = {chunk};"),
+                      (r"constexpr int TREE_LOG = \d+;",
+                       f"constexpr int TREE_LOG = {tree_log};")]
+        for w in (1, 4, 5)
+        for k, (chunk, tree_log) in NORMALIZE_SHAPES.items()}),
     "down": ("chunked_level.cu", "down_kernel", "crypto_chunked_down", {
         str(k): [(r"constexpr int DOWN_BLOCKS = 4;",
                   f"constexpr int DOWN_BLOCKS = {k};")] for k in (4, 5)}),
@@ -81,12 +108,13 @@ def _variant(src: str, subs: list) -> str:
     return text
 
 
-def _build() -> dict:
-    """{kernel: {build: (library, resources)}}, compiled together under
-    build/."""
+def _build(kernels) -> dict:
+    """{kernel: {build: (library, resources)}} for the kernels of BUILDS
+    named, compiled together under build/."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for kernel, (src, _, _, builds) in BUILDS.items():
+    for kernel in kernels:
+        src, _, _, builds = BUILDS[kernel]
         for k, subs in builds.items():
             name = f"bounds_{kernel}_{k}"
             copy = build.BUILD_DIR / f"{name}.cu"
@@ -96,7 +124,7 @@ def _build() -> dict:
                  str(build.CSRC), str(copy), "-o",
                  str(build.BUILD_DIR / f"lib{name}.so")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {kernel: {} for kernel in BUILDS}
+    libs = {kernel: {} for kernel in kernels}
     for (kernel, k), proc in procs.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
@@ -153,6 +181,71 @@ def _full_add(libs, F, gen, reps) -> dict:
         for k in libs}}
 
 
+def _double(libs, F, gen, reps) -> dict:
+    M = 1 << 20
+    X1, Y1, Z1 = (_limbs(F.L, 1, M, gen) for _ in range(3))
+    lane = torch.arange(M, device="cuda")
+    Z1[:, lane % 11 == 3] = 0
+    Y1[:, lane % 29 == 7] = 0
+    ins = (X1, Y1, Z1)
+    want = jacobian_double_plain(F, *ins)
+    outs = {k: [torch.empty_like(X1) for _ in range(3)] for k in libs}
+
+    def run(k):
+        build.check(libs[k][0].crypto_jac_double(
+            *[t.data_ptr() for t in (*ins, *outs[k])], M,
+            ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+            torch.cuda.current_stream().cuda_stream), f"double at {k}")
+
+    for k in libs:
+        run(k)
+        if not all(map(torch.equal, outs[k], want)):
+            raise AssertionError(f"double build {k} differs from the plain "
+                                 f"version")
+    ms = _in_turns(run, libs, reps, 20)
+    return {"shape": [F.L, M], "blocks": {
+        k: dict(ms=ms[k], median_ms=statistics.median(ms[k]), **libs[k][1])
+        for k in libs}}
+
+
+def _normalize(libs, F, gen, reps) -> dict:
+    """Every build (a chain window at a shape) in turns; and at one point
+    (one block, one chain: launch and chain latency) the shipped shape's
+    builds."""
+    outs = {}
+
+    def run(b, ins):
+        M = ins[0].shape[1]
+        out = outs.setdefault((b, M), [torch.empty_like(ins[0])
+                                       for _ in range(3)])
+        build.check(libs[b][0].crypto_normalize(
+            *[t.data_ptr() for t in (*ins, *out)], M,
+            ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+            ctypes.addressof(F.mod.pm2_c), ctypes.addressof(F.mod.one_c),
+            torch.cuda.current_stream().cuda_stream), f"normalize {b}")
+        return out
+
+    shipped = [b for b in libs if b.endswith("_B_k16")]
+    for M in (1, 1000, 1 << 20):
+        x, y, z = (_limbs(F.L, 1, M, gen) for _ in range(3))
+        lane = torch.arange(M, device="cuda")
+        z[:, lane % 11 == 3] = 0
+        ins = (x, y, z)
+        want = jacobian_normalize_plain(F, *ins)
+        for b in libs:
+            if not all(map(torch.equal, run(b, ins), want)):
+                raise AssertionError(f"normalize {b} differs from the "
+                                     f"plain version at M={M}")
+        if M == 1:
+            one = _in_turns(lambda b: run(b, ins), shipped, reps, 5)
+    ms = _in_turns(lambda b: run(b, ins), libs, reps, 5)
+    return {"shape": [F.L, M], "builds": {
+        b: dict(libs[b][1], ms=ms[b], median_ms=statistics.median(ms[b]),
+                **({"one_point_ms": statistics.median(one[b])}
+                   if b in one else {}))
+        for b in libs}}
+
+
 def _down(libs, F, gen, reps) -> dict:
     out = {"blocks": {k: dict(libs[k][1]) for k in libs}, "widths": []}
     for M in sorted(set(LEVEL_PAIRS), reverse=True):
@@ -197,6 +290,8 @@ def _down(libs, F, gen, reps) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--kernels", nargs="+", default=list(TIMERS),
+                    choices=list(TIMERS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_launch_bounds: torch.cuda is not available",
@@ -206,15 +301,19 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(f"card {card!r} torch {torch.__version__}", flush=True)
-    libs = _build()
+    libs = _build(args.kernels)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     F = tfield_for(bls.Fq, "cuda")
-    full_add = _full_add(libs["full_add"], F, gen, args.reps)
-    print("full_add", json.dumps(full_add), flush=True)
-    down = _down(libs["down"], F, gen, args.reps)
-    print("down", json.dumps(down), flush=True)
-    print(json.dumps({"card": card, "full_add": full_add, "down": down}))
+    out = {"card": card}
+    for k in args.kernels:
+        out[k] = TIMERS[k](libs[k], F, gen, args.reps)
+        print(k, json.dumps(out[k]), flush=True)
+    print(json.dumps(out))
     return 0
+
+
+TIMERS = {"full_add": _full_add, "double": _double,
+          "normalize": _normalize, "down": _down}
 
 
 if __name__ == "__main__":
