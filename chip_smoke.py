@@ -32,7 +32,17 @@ before it and read just after:
   the product kernel, in turns (timed, outside the counted paths);
 * the G2 edge MSMs (duplicate bases, a base and its negation, infinity,
   zero scalars; 300 points with one scalar), checked against the host
-  sum with no rerun.
+  sum with no rerun;
+* the QAP witness map's device half, `qap_h`, on a 2^20 domain (random
+  rows a, b and c = a b): each NTT timed, intt(ntt(a)) == a, 8 NTT
+  outputs against Horner and the QAP identity at a random tau;
+* the LegoGroth16 north-star workload (`benches/bench_northstar.py`):
+  the setup of a 2^16 - 4 constraint chain circuit with one committed
+  witness from explicit trapdoors (fixed-base tables and products on the
+  card, host normalisation, timed apart), one warm-up and three timed
+  proves (witness map and each query MSM timed), each proof checked in
+  the exponent against its discrete logs and the verification equation,
+  and every device MSM against its known logs; one more prove profiled.
 
 Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
@@ -43,11 +53,14 @@ warp holds an infinite operand, the full add also on warps that each hold
 one kind of pair: P1, P2 or both infinite, P + P, P + (-P); the double
 also with Y1 = 0 lanes; the normalize also at ragged widths about its
 chunk and block, on infinities only and with infinities at both ends of
-every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0), times the fast down pass at each of
+every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0; mont_mul
+also at the 2^20 NTT's Fr shapes), times the fast down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
-call down to 16 elements, and profiles one more 2^20 G1 MSM on each
+call down to 16 elements, profiles one more 2^20 G1 MSM on each
 formula and one more G2 MSM for the device's busy share and each
-kernel's device time against its summed bound.  It fails if a kernel of
+kernel's device time against its summed bound, and ranks the affine
+level's kernels (total and fast) on the edge MSMs and the prove by their
+device time a launch against a latency floor.  It fails if a kernel of
 a path was not launched on it.  One line per phase; before the last line
 the card's name and power limit and a JSON object of the kernels'
 launches and times; the last line is the result object.  Exits non-zero on any failure, and when
@@ -407,6 +420,403 @@ def timed_call(fn):
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
 
+
+def device_profile(name: str, fn, cpu: bool = True) -> dict:
+    """fn() under the profiler: prints its wall time, the device's busy
+    time and idle share and the six kernels with the most device time;
+    returns `device_ms_by_entry` of the profile.  `cpu=False` traces the
+    device alone (a run of many host ops, whose trace takes long to
+    read)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            k = by_name.setdefault(e.name[:48], [0, 0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+    busy_us, reach = 0, None          # union of the kernels' intervals
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    busy = busy_us / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    phase(name, wall_s=round(wall, 4),
+          device_busy_s=round(busy, 4) if busy else "not measured",
+          idle_share=round(1 - busy / wall, 4) if busy
+          else "not measured",
+          device_launches=len(spans),
+          top_ms=[(k, cnt, round(us / 1e3, 3))
+                  for k, (cnt, us) in top])
+    return device_ms_by_entry(prof)
+
+
+QAP_LOG = 20                        # the G2 cell's circuit: 2^20 variables
+LEGO_LOG = 16                       # BASELINE.json: the prove at 2^16
+PROVE_RUNS = 3                      # timed proves after one warm-up
+# what a LegoGroth16 prove launches: the NTTs' mont_mul; the G1 query
+# MSMs' fast chunked levels, gather, slot tables and Fermat roots; the
+# b_g2 MSM's Fq2 level, mul and square.  The setup's fixed-base tables
+# run the total TCurve ops: mont_mul on G1, the Fq2 mul and square on G2.
+PROVE_KERNELS = ("mont_mul", "mont_pow", "chunked_level_prefix_fast",
+                 "chunked_level_down_fast", "affine_level_pre_fq2",
+                 "affine_level_post_fq2", "fq2_mul", "fq2_sqr",
+                 "gather_rows_t", "slot_tables")
+SETUP_KERNELS = ("mont_mul", "fq2_mul", "fq2_sqr")
+POINT_KERNELS = ("jacobian_add", "jacobian_add_mixed", "jacobian_double",
+                 "jacobian_normalize")
+
+
+def chain_circuit(nc: int, x_val=None):
+    """`benches/bench_northstar.py` `chain_circuit` on the port's R1CS:
+    x_{i+1} = x_i^2 + x_i + i over nc constraints, x the first witness,
+    the last value the one public input."""
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.r1cs.cs import LinearCombination as LC
+    F = bls.Fr
+
+    def circuit(cs):
+        vals = None
+        if x_val is not None:
+            vals = [x_val]
+            for i in range(nc):
+                v = vals[-1]
+                vals.append(v * v + v + F(i))
+        out = cs.new_input(None if vals is None else vals[-1])
+        cur = cs.new_witness(x_val)
+        for i in range(nc):
+            if i == nc - 1:
+                nxt, nxt_lc = None, out.lc()
+            else:
+                nxt = cs.new_witness(None if vals is None else vals[i + 1])
+                nxt_lc = nxt.lc()
+            cs.enforce(cur.lc(), cur.lc() + LC.constant(F, 1),
+                       nxt_lc + LC.constant(F, -i % F.p))
+            if nxt is not None:
+                cur = nxt
+    return circuit
+
+
+def horner(coeffs, x: int, p: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def qap_h_phase(counted, dev) -> dict:
+    """`qap_h` on a 2^20 domain: random rows a, b and c = a b from the
+    seed, each NTT timed on its own, checked on the host (intt(ntt(a)) ==
+    a exactly, 8 ntt outputs against Horner at w^j, and A(tau) B(tau) -
+    C(tau) = h(tau) (tau^n - 1) at a random tau, A(tau) from the Lagrange
+    coefficients).  Returns the path's launches."""
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.legogroth16 import snark
+    from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    from crypto_tpu_torch.ops.ntt import domain_for
+    n, R = 1 << QAP_LOG, bls.R
+    hr = random.Random(SEED + 80)
+    t0 = time.perf_counter()
+    a = [hr.randrange(R) for _ in range(n)]
+    b = [hr.randrange(R) for _ in range(n)]
+    c = [x * y % R for x, y in zip(a, b)]
+    dom = domain_for(bls.Fr, n, dev)
+    T = dom.T
+    pa, pb, pc = T.pack(a), T.pack(b), T.pack(c)
+    dom.coset_ntt(pa)                           # builds the coset tables
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+
+    def run():
+        t = time.perf_counter()
+        out = snark.qap_h(dom, pa, pb, pc)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (h, t_qap), launches = drive(counted, run)
+    require("qap_h 2^20", launches, ("mont_mul",))
+    per_ntt = {}
+    for name in ("ntt", "intt", "coset_ntt", "coset_intt", "ntt", "intt"):
+        fn = getattr(dom, name)
+        before = fk.mont_mul.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(pa)
+        torch.cuda.synchronize()
+        per_ntt.setdefault(name + "_s", []).append(time.perf_counter() - t)
+        per_ntt[name + "_mont_mul_launches"] = fk.mont_mul.launches - before
+    fwd = dom.ntt(pa)
+    if not torch.equal(dom.intt(fwd), pa):
+        raise AssertionError("intt(ntt(a)) != a at 2^20")
+    js = sorted(random.Random(SEED + 81).sample(range(n), 8))
+    got = np.atleast_1d(T.unpack(fwd[:, js]))
+    if any(int(g) != horner(a, pow(dom.w, j, R), R) for g, j in zip(got, js)):
+        raise AssertionError("2^20 ntt disagrees with Horner at w^j")
+    t0 = time.perf_counter()
+    tau = hr.randrange(R)
+    lag = snark._lagrange_coeffs_at(dom, tau)
+    A, B, C = (sum(x * y for x, y in zip(v, lag)) % R for v in (a, b, c))
+    hv = [int(v) for v in np.atleast_1d(T.unpack(h))]
+    if (A * B - C) % R != horner(hv, tau, R) * (pow(tau, n, R) - 1) % R \
+            or hv[-1] != 0:
+        raise AssertionError("2^20 qap_h: A B - C != h Z_H at tau")
+    phase("qap_h_2^20", n=n, qap_h_s=t_qap, setup_s=t_setup,
+          mont_mul_launches=launches["mont_mul"], **per_ntt,
+          ntt_samples=js, check_s=time.perf_counter() - t0,
+          correct=True)
+    return launches
+
+
+def qap_at(cs, lag: list, p: int) -> tuple:
+    """The QAP's per-variable a_i(tau), b_i(tau), c_i(tau), from the
+    Lagrange coefficients at tau: the CRS's discrete logs."""
+    nvars = cs.num_instance + cs.num_witness
+    out = ([0] * nvars, [0] * nvars, [0] * nvars)
+    for rows, vec in zip((cs.a_rows, cs.b_rows, cs.c_rows), out):
+        for i, row in enumerate(rows):
+            for coeff, idx in row:
+                vec[idx] = (vec[idx] + lag[i] * coeff) % p
+    for j in range(cs.num_instance):
+        out[0][j] = (out[0][j] + lag[cs.num_constraints + j]) % p
+    return out
+
+
+def legogroth16_phases(counted, dev) -> dict:
+    """The north-star workload (`benches/bench_northstar.py`):
+    `chain_circuit` at 2^16 - 4 constraints, one committed witness.  The
+    setup from explicit trapdoors, then one warm-up prove and
+    `PROVE_RUNS` timed ones, each checked in the exponent: every proof
+    element equals its discrete log (from the trapdoors, the replayed
+    rng's tau, r, s and v, and the assignment) times the generator, the
+    logs satisfy the verification equation A B = alpha beta + gamma
+    (inputs + D) + delta C, and every device MSM equals the sum of its
+    scalars times its points' known logs.  Returns ({path: launches},
+    the profiled prove's `device_ms_by_entry`)."""
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.legogroth16 import snark
+    from crypto_tpu_torch.ops import fixed_base
+    from crypto_tpu_torch.ops.ntt import domain_for
+    from crypto_tpu_torch.r1cs.cs import ConstraintSystem
+    F, R = bls.Fr, bls.R
+    G1, G2 = bls.G1.generator(), bls.G2.generator()
+    nc = (1 << LEGO_LOG) - 4
+    N = 1 << LEGO_LOG
+    hr = random.Random(SEED + 90)
+    alpha, beta, gamma, delta, eta = (hr.randrange(1, R) for _ in range(5))
+    setup_seed = SEED + 91
+
+    # ---- setup: the tables, then generate_parameters_with_trapdoors with
+    # its fixed-base products, the device part of each, and its host
+    # normalisation timed apart
+    spent = dict.fromkeys(("tables_s", "mul_many_s", "fixed_base_many_s",
+                           "normalize_s"), 0.0)
+    real_fb, real_norm = snark._fixed_base_many, snark._normalized
+    real_mm = fixed_base.FixedBaseTable.mul_many
+
+    def timer(key, fn, sync=False):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return out
+        return timed
+
+    def setup():
+        t = time.perf_counter()
+        for g in (G1, G2):
+            fixed_base.table_for(g.curve, g, device=dev)
+        torch.cuda.synchronize()
+        spent["tables_s"] = time.perf_counter() - t
+        return snark.generate_parameters_with_trapdoors(
+            chain_circuit(nc), 1, random.Random(setup_seed),
+            *(F(x) for x in (alpha, beta, gamma, delta, eta)), device=dev)
+
+    snark._fixed_base_many = timer("fixed_base_many_s", real_fb)
+    snark._normalized = timer("normalize_s", real_norm)
+    fixed_base.FixedBaseTable.mul_many = timer("mul_many_s", real_mm, True)
+    try:
+        t0 = time.perf_counter()
+        pk, setup_launches = drive(counted, setup)
+        t_setup = time.perf_counter() - t0
+    finally:
+        snark._fixed_base_many, snark._normalized = real_fb, real_norm
+        fixed_base.FixedBaseTable.mul_many = real_mm
+    require("LegoGroth16 setup", setup_launches, SETUP_KERNELS)
+
+    # the CRS's discrete logs, from the trapdoors and the replayed tau
+    t0 = time.perf_counter()
+    rr = random.Random(setup_seed)
+    while True:
+        tau = int(F.rand(rr))
+        if (pow(tau, N, R) - 1) % R:
+            break
+    cs0 = ConstraintSystem(F, mode="setup")
+    chain_circuit(nc)(cs0)
+    lag = snark._lagrange_coeffs_at(domain_for(F, N, dev), tau)
+    qa, qb, qc = qap_at(cs0, lag, R)
+    n_inst = cs0.num_instance
+    n_commit = n_inst + 1
+    zt = (pow(tau, N, R) - 1) % R
+    gi, di = pow(gamma, -1, R), pow(delta, -1, R)
+    lin = [(beta * x + alpha * y + z) % R for x, y, z in zip(qa, qb, qc)]
+    dlogs = {"a_query": qa, "b_g1_query": qb, "b_g2_query": qb,
+             "h_query": [zt * di * pow(tau, i, R) % R for i in range(N - 1)],
+             "l_query": [x * di % R for x in lin[n_commit:]]}
+    gamma_abc = [x * gi % R for x in lin[:n_commit]]
+    sample = random.Random(SEED + 92)
+    checked = 0
+    for name, logs in dlogs.items():
+        pts = getattr(pk, name)
+        if len(pts) != len(logs):
+            raise AssertionError(f"setup: {name} has {len(pts)} points, "
+                                 f"{len(logs)} expected")
+        G = G2 if name == "b_g2_query" else G1
+        for i in sample.sample(range(len(pts)), 8) + [0, len(pts) - 1]:
+            checked += 1
+            if pts[i] != G.mul_raw(logs[i]):
+                raise AssertionError(f"setup: {name}[{i}] is not its log "
+                                     f"times the generator")
+    vk = pk.vk
+    if (vk.gamma_abc_g1 != [G1.mul_raw(x) for x in gamma_abc]
+            or vk.alpha_g1 != G1.mul_raw(alpha)
+            or vk.delta_g2 != G2.mul_raw(delta)
+            or pk.delta_g1 != G1.mul_raw(delta)
+            or vk.eta_gamma_inv_g1 != G1.mul_raw(eta * gi % R)):
+        raise AssertionError("setup: a key element is not its log times "
+                             "the generator")
+    phase("legogroth16_setup", constraints=nc, domain=N, seconds=t_setup,
+          tables_s=spent["tables_s"], mul_many_device_s=spent["mul_many_s"],
+          fixed_base_many_s=spent["fixed_base_many_s"],
+          normalize_host_s=spent["normalize_s"],
+          other_s=t_setup - spent["tables_s"] - spent["fixed_base_many_s"]
+          - spent["normalize_s"],
+          queries={k: len(getattr(pk, k)) for k in dlogs},
+          launches={k: setup_launches[k] for k in SETUP_KERNELS},
+          points_checked=checked, check_s=time.perf_counter() - t0,
+          correct=True)
+
+    # ---- the proves: the witness map and each query MSM timed (as
+    # bench_northstar.py splits them), every MSM and the witness map's h
+    # recorded for the checks
+    x = F(hr.randrange(R))
+    cs1 = ConstraintSystem(F, mode="prove")
+    chain_circuit(nc, x)(cs1)
+    z = [int(v) for v in cs1.full_assignment()]
+    az, bz = (sum(u * v for u, v in zip(z, q)) % R for q in (qa, qb))
+    lin_z = [u * v % R for u, v in zip(z, lin)]
+    inputs_z, committed_z = sum(lin_z[:n_inst]), sum(lin_z[n_inst:n_commit])
+    uncommitted_z = sum(lin_z[n_commit:]) % R
+    record = {}
+    real_wm, real_mq = snark.witness_map, snark._msm_query
+
+    def wm(*args, **kw):
+        t = time.perf_counter()
+        out = real_wm(*args, **kw)
+        record["witness_map_s"] = time.perf_counter() - t
+        record["h"] = out
+        return out
+
+    def mq(pk_, name, scalars, offset=0, **kw):
+        t = time.perf_counter()
+        out = real_mq(pk_, name, scalars, offset, **kw)
+        record[f"msm_{name}_s"] = time.perf_counter() - t
+        record.setdefault("msms", []).append(
+            (name, [int(s) for s in scalars], offset, out))
+        return out
+
+    def create(seed: int):
+        record.clear()
+        t = time.perf_counter()
+        out = snark.create_proof(chain_circuit(nc, x), pk,
+                                 random.Random(seed), device=dev)
+        return out, time.perf_counter() - t
+
+    def prove(seed: int):
+        (proof, v, committed), total = create(seed)
+        check_proof(seed, proof, int(v), committed)
+        split = {k: v_ for k, v_ in record.items() if k.endswith("_s")}
+        split["other_s"] = total - sum(split.values())
+        return total, split
+
+    def check_proof(seed, proof, v, committed):
+        rr = random.Random(seed)
+        r, s = int(F.rand(rr)), int(F.rand(rr))
+        if v != int(F.rand(rr)) or [int(w) for w in committed] != [int(x)]:
+            raise AssertionError("prove: v or the committed witness does "
+                                 "not replay")
+        h_tau = horner(record["h"][:N - 1], tau, R)
+        A = (alpha + r * delta + az) % R
+        B = (beta + s * delta + bz) % R
+        C = (A * s + B * r - r * s * delta
+             + di * (uncommitted_z + zt * h_tau - v * eta)) % R
+        D = gi * (committed_z + v * eta) % R
+        inputs = gi * inputs_z % R
+        if (A * B - alpha * beta - gamma * (inputs + D) - delta * C) % R:
+            raise AssertionError("prove: the logs fail the verification "
+                                 "equation")
+        if (proof.a, proof.b, proof.c, proof.d) != (
+                G1.mul_raw(A), G2.mul_raw(B), G1.mul_raw(C), G1.mul_raw(D)):
+            raise AssertionError("prove: a proof element is not its log "
+                                 "times the generator")
+        names = sorted(m[0] for m in record["msms"])
+        if names != sorted(dlogs):
+            raise AssertionError(f"prove: MSMs {names}")
+        for name, sc, off, out in record["msms"]:
+            G = G2 if name == "b_g2_query" else G1
+            logs = dlogs[name][off:off + len(sc)]
+            if out != G.mul_raw(sum(u * w for u, w in zip(sc, logs)) % R):
+                raise AssertionError(f"prove: msm over {name} disagrees "
+                                     f"with its known logs")
+
+    snark.witness_map, snark._msm_query = wm, mq
+    try:
+        t0 = time.perf_counter()
+        warm, _ = prove(SEED + 93)
+        runs, splits, launches = [], [], None
+        for run in range(PROVE_RUNS):
+            if launches is None:
+                (total, split), launches = drive(
+                    counted, lambda: prove(SEED + 94 + run))
+            else:
+                total, split = prove(SEED + 94 + run)
+            runs.append(total)
+            splits.append(split)
+            phase("legogroth16_prove_run", run=run, seconds=total, **split,
+                  correct=True)
+        t_all = time.perf_counter() - t0
+        msm_sizes = {m[0]: len(m[1]) for m in record["msms"]}
+        prove_dev = device_profile("profile_prove",
+                                   lambda: create(SEED + 94 + PROVE_RUNS),
+                                   cpu=False)
+    finally:
+        snark.witness_map, snark._msm_query = real_wm, real_mq
+    require("LegoGroth16 prove", launches, PROVE_KERNELS)
+    if any(launches[k] for k in POINT_KERNELS):
+        raise AssertionError(f"prove launched a point kernel: {launches}")
+    med = statistics.median(runs)
+    phase("legogroth16_prove", constraints=nc, runs=PROVE_RUNS,
+          seconds=runs, median_s=med, spread=max(runs) / min(runs),
+          warmup_s=warm, phases_median={
+              k: statistics.median(sp[k] for sp in splits)
+              for k in splits[0]}, msm_points=msm_sizes,
+          launches={k: v for k, v in launches.items() if v},
+          all_s=t_all, correct=True)
+    phase("per_prove", launches_device_ms=json.dumps(
+        {k: [cnt, round(ms, 4)] for k, (cnt, ms) in prove_dev.items()}))
+    return {"legogroth16_setup": setup_launches,
+            "legogroth16_prove": launches}, prove_dev
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -818,6 +1228,12 @@ def main() -> int:
     paths["g2_edge_msm"] = (edge2_launches, g2_edge_widths)
     phase("g2_edge_msm", points=len(e_pts), all_equal_scalars_n=m_eq,
           level_pairs=g2_edge_widths, rerun_windows=[], correct=True)
+
+    # ---- the QAP witness map at 2^20, and the LegoGroth16 setup and
+    # proves at 2^16 constraints
+    paths["qap_h_2^20"] = (qap_h_phase(counted, dev), [])
+    lego, prove_dev = legogroth16_phases(counted, dev)
+    paths.update((k, (v, [])) for k, v in lego.items())
     phase("launches", **{k: v[0] for k, v in paths.items()})
     never = [f.__name__ for f in counted
              if not any(v[0][f.__name__] for v in paths.values())]
@@ -846,8 +1262,13 @@ def main() -> int:
                                  f"{where}")
         return err
 
-    # mont_mul at the tail's width (16 windows x 2^15 buckets), Fq and Fr
-    for fld, M in ((bls.Fq, 16 << 15), (bls.Fr, 1 << 16)):
+    # mont_mul at the tail's width (16 windows x 2^15 buckets), Fq and Fr,
+    # and at the 2^20 NTT's Fr shapes: a stage's (8, 2^19) odd halves by
+    # their twiddles, the (8, 2^20) pointwise and coset products
+    for fld, M, path in ((bls.Fq, 16 << 15, "msm_2^20"),
+                         (bls.Fr, 1 << 16, None),
+                         (bls.Fr, 1 << (QAP_LOG - 1), "qap_h_2^20"),
+                         (bls.Fr, 1 << QAP_LOG, "qap_h_2^20")):
         Fx = tfield_for(fld, dev)
         L = Fx.L
         # random field elements, then the edges 0, 1, p-1 and all-ones limbs
@@ -865,13 +1286,14 @@ def main() -> int:
                                                                Fx.mod))
         err = agree("mont_mul", (fk.mont_mul(ra, rb, Fx.mod),), (plain,),
                     f"on {fld.name}")
-        if fld is bls.Fq:
+        if path is not None:
             rows.append(row(
                 "mont_mul", csrc + "mont_mul.cu",
-                "crypto_tpu/ops/pallas/field_kernels.py:386", "msm_2^20",
+                "crypto_tpu/ops/pallas/field_kernels.py:386", path,
                 err, cuda_ms(lambda: fk.mont_mul(ra, rb, Fx.mod)), plain_ms,
                 (ra, rb, Fx.mod), [L, M]))
-    phase("check_mont_mul", fq_pairs=16 << 15, fr_pairs=1 << 16,
+    phase("check_mont_mul", fq_pairs=16 << 15,
+          fr_pairs=[1 << 16, 1 << (QAP_LOG - 1), 1 << QAP_LOG],
           bit_exact=True)
 
     # mont_pow's Fermat root at 1 element (each batch_inv_t root), 16 (the
@@ -1366,39 +1788,6 @@ def main() -> int:
 
     # ---- device busy share of one more 2^20 MSM of each curve, and each
     # kernel's device time and summed bound over one MSM ----------------
-    def device_profile(name: str, fn) -> dict:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                spans.append((e.time_range.start, e.time_range.end))
-                k = by_name.setdefault(e.name[:48], [0, 0])
-                k[0] += 1
-                k[1] += e.time_range.elapsed_us()
-        busy_us, reach = 0, None          # union of the kernels' intervals
-        for start, end in sorted(spans):
-            if reach is None or start > reach:
-                busy_us += end - start
-                reach = end
-            elif end > reach:
-                busy_us += end - reach
-                reach = end
-        busy = busy_us / 1e6
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        phase(name, wall_s=round(wall, 4),
-              device_busy_s=round(busy, 4) if busy else "not measured",
-              idle_share=round(1 - busy / wall, 4) if busy
-              else "not measured",
-              device_launches=len(spans),
-              top_ms=[(k, cnt, round(us / 1e3, 3))
-                      for k, (cnt, us) in top])
-        return device_ms_by_entry(prof)
-
     for tag, curve, pts, safe in (("", bls.G1, points, False),
                                   ("_safe", bls.G1, points, True),
                                   ("_g2", bls.G2, points2, False)):
@@ -1411,6 +1800,30 @@ def main() -> int:
         phase("per_msm" + tag, launches_device_ms_bound_ms=json.dumps(
             {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 4)]
              for k, (cnt, b) in bounds.items() if cnt}))
+
+    # ---- rows 2 and 5 (the total and the fast affine level) on the paths
+    # that launch them: device time a launch from the profiler against a
+    # latency floor, a launch plus one thread's dependent products at
+    # mont_pow's time a product (fermat_root): none in a pre, 4 in the
+    # total post's doubling lanes, 3 in the fast post.  A launch is the
+    # cheaper pre's device time a launch on the same path (loads, a
+    # compare and a store, no product), so a pre sits at its floor.
+    edge_dev = device_profile("profile_edge_msm", edges)
+    rank = {}
+    for where, by_entry in (("edge_msm", edge_dev),
+                            ("legogroth16_prove", prove_dev)):
+        per = {k: ms / cnt * 1e3 for k, (cnt, ms) in by_entry.items()
+               if k.startswith("affine_level_p") and not k.endswith("fq2")}
+        pres = [us for k, us in per.items() if "_pre" in k]
+        if not pres:
+            continue
+        for k, us in per.items():
+            floor = min(pres) + (0 if "_pre" in k else
+                                 3 if k.endswith("fast") else 4) \
+                * per_product_us
+            rank[f"{where}:{k}"] = [by_entry[k][0], us, floor, floor / us]
+    phase("rank_affine_level", per_product_us=per_product_us,
+          launches_us_floor_us_floor_share=json.dumps(rank))
     phase("total", seconds=round(time.time() - t_start, 3))
 
     print(card)

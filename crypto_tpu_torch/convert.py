@@ -10,6 +10,12 @@ R_jax^-1 * R mod p, repack.  The limb widths and radices are constants
 here, so nothing of the JAX package is needed.  An Fq2 element is
 `(..., 2, L_jax)` in the JAX package and `(2L, ...)` in the port
 (`jax_to_port_fq2`, `port_to_jax_fq2`).
+
+Host objects cross by their attributes alone: a point's `.X`, `.Y`, `.Z`
+as integers (`carry_point` builds the same point on a curve of the other
+package), a LegoGroth16 proving key field by field
+(`proving_key_to_port`) and a proof as the integers that rebuild it
+(`proof_ints`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .curves import bls12_381 as bls
+from .legogroth16 import snark
 
 JAX_LIMB_BITS = 15
 
@@ -92,3 +100,67 @@ def port_to_jax_fq2(t: torch.Tensor, p: int, mont: bool = True) -> np.ndarray:
     L = port_limbs(p)
     return np.stack([port_to_jax(t[:L], p, mont), port_to_jax(t[L:], p, mont)],
                     axis=-2)
+
+
+# ---------------------------------------------------------------------------
+# host objects: points, proving keys and proofs, read by attribute only
+# ---------------------------------------------------------------------------
+
+def _coord_ints(e) -> tuple:
+    """A coordinate as ints: (v,) over a prime field, (c0, c1) over Fq2."""
+    return (int(e.c0), int(e.c1)) if hasattr(e, "c0") else (int(e),)
+
+
+def point_ints(pt) -> tuple:
+    """A host point's Jacobian coordinates as int tuples, read from its
+    `.X`, `.Y`, `.Z` (a point of either package)."""
+    return tuple(_coord_ints(c) for c in (pt.X, pt.Y, pt.Z))
+
+
+def point_from_ints(ints: tuple, curve):
+    """The point of `curve` (an `SWCurve` of either package) with these
+    coordinate ints (`point_ints`' form)."""
+    K = curve.K
+    X, Y, Z = (K(*c) for c in ints)
+    return type(curve.infinity())(X, Y, Z, curve)
+
+
+def carry_point(pt, curve):
+    """A host point of one package as the same point of `curve`, a curve
+    of the other (or the same) package: the reference's `Point` to the
+    port's and back."""
+    return point_from_ints(point_ints(pt), curve)
+
+
+def _port_curve(pt):
+    return bls.G2 if hasattr(pt.X, "c0") else bls.G1
+
+
+def proving_key_to_port(pk):
+    """A LegoGroth16 `ProvingKey` of the reference (BLS12-381) as the
+    port's, read attribute by attribute."""
+    from .legogroth16 import snark
+
+    def pt(p):
+        return carry_point(p, _port_curve(p))
+
+    vk = pk.vk
+    return snark.ProvingKey(
+        vk=snark.VerifyingKey(
+            alpha_g1=pt(vk.alpha_g1), beta_g2=pt(vk.beta_g2),
+            gamma_g2=pt(vk.gamma_g2), delta_g2=pt(vk.delta_g2),
+            gamma_abc_g1=[pt(q) for q in vk.gamma_abc_g1],
+            eta_gamma_inv_g1=pt(vk.eta_gamma_inv_g1),
+            commit_witness_count=int(vk.commit_witness_count)),
+        beta_g1=pt(pk.beta_g1), delta_g1=pt(pk.delta_g1),
+        eta_delta_inv_g1=pt(pk.eta_delta_inv_g1),
+        **{name: [pt(q) for q in getattr(pk, name)]
+           for name in ("a_query", "b_g1_query", "b_g2_query", "h_query",
+                        "l_query")})
+
+
+def proof_ints(proof) -> dict:
+    """A LegoGroth16 `Proof` as {"a", "b", "c", "d": `point_ints`}: what
+    rebuilds it in the other package (`point_from_ints` on that package's
+    G1, and G2 for "b")."""
+    return {k: point_ints(getattr(proof, k)) for k in ("a", "b", "c", "d")}

@@ -101,6 +101,18 @@ class TCurve:
         return TPoints(F.select(mask, a.X, b.X), F.select(mask, a.Y, b.Y),
                        F.select(mask, a.Z, b.Z))
 
+    def eq(self, p: TPoints, q: TPoints) -> torch.Tensor:
+        """Batched equality across different Z: X1 Z2^2 = X2 Z1^2 and Y1
+        Z2^3 = Y2 Z1^3, or both at infinity."""
+        F = self.F
+        z1z1 = F.square(p.Z)
+        z2z2 = F.square(q.Z)
+        x_eq = F.eq(F.mul(p.X, z2z2), F.mul(q.X, z1z1))
+        y_eq = F.eq(F.mul(F.mul(p.Y, z2z2), q.Z),
+                    F.mul(F.mul(q.Y, z1z1), p.Z))
+        p_inf, q_inf = self.is_infinity(p), self.is_infinity(q)
+        return torch.where(p_inf | q_inf, p_inf & q_inf, x_eq & y_eq)
+
     def neg(self, p: TPoints) -> TPoints:
         return TPoints(p.X, self.F.neg(p.Y), p.Z)
 

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 12
+    assert n >= 29
 
 
 def _msm():
@@ -123,10 +123,86 @@ def _mont_pow():
         fk.on_card = on_card
 
 
+def _domain_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.ops.ntt import domain_for
+    domain_for(tb.Fr, 16)
+
+
+def _poly_mul_ntt():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.ops.ntt import poly_mul_ntt
+    poly_mul_ntt(tb.Fr, [1, 2], [3])
+
+
+def _table_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.ops.fixed_base import table_for
+    table_for(tb.G1, tb.G1.generator())
+
+
+def _multiply_same_group_elem():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.utils.msm import \
+        multiply_field_elems_with_same_group_elem
+    multiply_field_elems_with_same_group_elem(tb.G1.generator(), [1, 2])
+
+
+def _lego_pk():
+    """A two-variable LegoGroth16 proving key on the host, built without
+    the device path (x * x = z)."""
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.legogroth16 import snark
+    G1, G2 = tb.G1.generator(), tb.G2.generator()
+    return snark.ProvingKey(
+        vk=snark.VerifyingKey(G1, G2, G2, G2, [G1, G1], G1, 0),
+        beta_g1=G1, delta_g1=G1, eta_delta_inv_g1=G1, a_query=[G1] * 3,
+        b_g1_query=[G1] * 3, b_g2_query=[G2] * 3, h_query=[G1],
+        l_query=[G1])
+
+
+def _square_circuit(cs):
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    z = cs.new_input(tb.Fr(9) if cs.mode == "prove" else None)
+    x = cs.new_witness(tb.Fr(3) if cs.mode == "prove" else None)
+    cs.enforce(x.lc(), x.lc(), z.lc())
+
+
+def _msm_query():
+    from crypto_tpu_torch.legogroth16 import snark
+    snark._msm_query(_lego_pk(), "a_query", [1, 2])
+
+
+def _create_proof():
+    import random
+    from crypto_tpu_torch.legogroth16 import snark
+    snark.create_proof(_square_circuit, _lego_pk(), random.Random(1))
+
+
+def _generate_random_parameters():
+    import random
+    from crypto_tpu_torch.legogroth16 import snark
+    snark.generate_random_parameters(_square_circuit, 0, random.Random(1))
+
+
+def _witness_map():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.legogroth16 import snark
+    from crypto_tpu_torch.r1cs.cs import ConstraintSystem
+    cs = ConstraintSystem(tb.Fr, mode="prove")
+    _square_circuit(cs)
+    snark.witness_map(cs)
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
-                                   _msm_g2, _mont_pow],
+                                   _msm_g2, _mont_pow, _domain_for,
+                                   _poly_mul_ntt, _table_for,
+                                   _multiply_same_group_elem, _msm_query,
+                                   _create_proof,
+                                   _generate_random_parameters,
+                                   _witness_map],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
