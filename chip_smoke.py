@@ -42,7 +42,18 @@ before it and read just after:
   card, host normalisation, timed apart), one warm-up and three timed
   proves (witness map and each query MSM timed), each proof checked in
   the exponent against its discrete logs and the verification equation,
-  and every device MSM against its known logs; one more prove profiled.
+  and every device MSM against its known logs; one more prove profiled;
+* the pairing at `benches/bench_pairing.py`'s size: a 64-pair
+  multi-pairing (plus one pair with G1 at infinity) through `TPairing`,
+  once cold and three times timed on fresh pairs from known logs, each
+  product against its log; the first set's per-pair Miller values
+  against the host Miller loop and its product against the host
+  multi-pairing; e(aP, bQ) == e(abP, Q) and e(aP, Q) e(-aP, Q) == 1; a
+  lazy `RandomizedPairingChecker` with 64 deferred pairs through the
+  device Miller product, valid and with one spoiled pair; the BBS+ batch
+  verify of 1,024 signatures over 4 messages (known logs, the pairing on
+  the device), its two MSMs against their logs, valid and with one e
+  spoiled; one more multi-pairing profiled.
 
 Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
@@ -54,7 +65,8 @@ one kind of pair: P1, P2 or both infinite, P + P, P + (-P); the double
 also with Y1 = 0 lanes; the normalize also at ragged widths about its
 chunk and block, on infinities only and with infinities at both ends of
 every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0; mont_mul
-also at the 2^20 NTT's Fr shapes), times the fast down pass at each of
+also at the 2^20 NTT's Fr shapes; the Fq2 mul and square, mont_mul and
+mont_pow also at the pairing's narrow widths), times the fast down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
 call down to 16 elements, profiles one more 2^20 G1 MSM on each
 formula and one more G2 MSM for the device's busy share and each
@@ -818,6 +830,250 @@ def legogroth16_phases(counted, dev) -> dict:
     return {"legogroth16_setup": setup_launches,
             "legogroth16_prove": launches}, prove_dev
 
+PAIRS = 64                          # benches/bench_pairing.py NPAIR
+PAIRING_RUNS = 3                    # timed multi-pairings, fresh pairs each
+NSIG = 1024                         # bench_pairing.py NSIG, over 4 messages
+SIG_MSGS = 4
+PAIRING_ENV = "CRYPTO_TPU_PAIRING_BACKEND"
+# what a multi-pairing launches: the Fq2 products and squares of the
+# towers, mont_mul (the lines' scaling by the G1 point, the doubling's
+# halvings, the inverse's norms) and mont_pow (the final exponentiation's
+# Fq inverse); the checker's Miller product has no inverse
+PAIRING_KERNELS = ("mont_mul", "mont_pow", "fq2_mul", "fq2_sqr")
+CHECKER_KERNELS = ("mont_mul", "fq2_mul", "fq2_sqr")
+
+
+def known_log_points(gen, logs, dev) -> list:
+    """gen * log for each log, as normalised host points (the port's
+    fixed-base products: a host window table below 512 logs, the device
+    table from 512 on)."""
+    from crypto_tpu_torch.utils.msm import \
+        multiply_field_elems_with_same_group_elem
+    return [p.normalize() for p in
+            multiply_field_elems_with_same_group_elem(gen, logs, device=dev)]
+
+
+def pairing_phases(counted, dev) -> tuple:
+    """The pairing slice at `benches/bench_pairing.py`'s size: a 64-pair
+    multi-pairing (plus one pair with G1 at infinity) once cold and
+    `PAIRING_RUNS` times timed on fresh pairs, each against its known
+    logs; the first pair set's per-pair Miller values against the host
+    Miller loop and its product against the host multi-pairing;
+    bilinearity and a product that is one; a lazy checker with 64
+    deferred pairs, valid and spoiled; the BBS+ batch verify of `NSIG`
+    signatures, valid and spoiled.  Returns ({path: launches}, the level
+    widths of the batch verify's MSMs, the pair set to profile)."""
+    import os
+    from types import SimpleNamespace
+
+    from crypto_tpu_torch.bbs_plus import batch
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves.tpairing import tpairing_for
+    from crypto_tpu_torch.ops import msm_v2
+    from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
+    R = bls.R
+    G1, G2 = bls.G1.generator(), bls.G2.generator()
+    tp = tpairing_for("bls12_381", dev)
+    hr = random.Random(SEED + 100)
+    paths = {}
+
+    # ---- pairing_64: pair sets from known logs, the product's log known
+    t0 = time.perf_counter()
+    nsets = 1 + PAIRING_RUNS
+    la = [hr.randrange(1, R) for _ in range(nsets * PAIRS)]
+    lb = [hr.randrange(1, R) for _ in range(nsets * PAIRS)]
+    A, B = known_log_points(G1, la, dev), known_log_points(G2, lb, dev)
+    sets = []
+    for k in range(nsets):
+        sl = slice(k * PAIRS, (k + 1) * PAIRS)
+        sets.append((list(zip(A[sl], B[sl])) + [(bls.G1.infinity(),
+                                                 B[k * PAIRS])],
+                     sum(x * y for x, y in zip(la[sl], lb[sl])) % R))
+    gt = bls.gt_generator()
+    t_setup = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cold = tp.multi_pairing(sets[0][0])
+    t_cold = time.perf_counter() - t
+    t0 = time.perf_counter()
+    lanes = tp.t12.unpack_host(tp.miller_loop_batch(
+        *tp.pack_pairs(sets[0][0])))
+    if any(m != bls.miller_loop([pq]) for m, pq in zip(lanes, sets[0][0])):
+        raise AssertionError("pairing_64: a lane's Miller value differs "
+                             "from the host Miller loop")
+    if cold != bls.multi_pairing(sets[0][0]) or cold != gt ** sets[0][1]:
+        raise AssertionError("pairing_64: the product differs from the "
+                             "host multi-pairing")
+    t_check = time.perf_counter() - t0
+
+    secs, launches = [], None
+    for run in range(PAIRING_RUNS):
+        pairs, log = sets[1 + run]
+
+        def timed():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = tp.multi_pairing(pairs)
+            return out, time.perf_counter() - t
+
+        if launches is None:
+            (out, dt), launches = drive(counted, timed)
+        else:
+            out, dt = timed()
+        if out != gt ** log:
+            raise AssertionError("pairing_64: a timed multi-pairing "
+                                 "differs from its known log")
+        secs.append(dt)
+    require("pairing_64", launches, PAIRING_KERNELS)
+    paths["pairing_64"] = launches
+
+    a, b = hr.randrange(1, R), hr.randrange(1, R)
+    aP, bQ = G1.mul_raw(a).normalize(), G2.mul_raw(b).normalize()
+    abP = G1.mul_raw(a * b % R).normalize()
+    e1, e2 = tp.t12.unpack_host(tp.final_exponentiation(
+        tp.miller_loop_batch(*tp.pack_pairs([(aP, bQ), (abP, G2)]))))
+    if e1 != e2 or not tp.multi_pairing([(aP, G2), (-aP, G2)]).is_one():
+        raise AssertionError("pairing_64: e(aP, bQ) != e(abP, Q) or "
+                             "e(aP, Q) e(-aP, Q) != 1")
+    med = statistics.median(secs)
+    phase("pairing_64", pairs=PAIRS, infinite_pairs=1, runs=PAIRING_RUNS,
+          seconds=secs, median_s=med, spread=max(secs) / min(secs),
+          cold_s=t_cold, device_multi_pairing_64_wall_s=med,
+          pairings_per_s=PAIRS / med, setup_s=t_setup,
+          host_check_s=t_check, launches={k: launches[k]
+                                          for k in PAIRING_KERNELS},
+          bilinear=True, product_is_one=True, correct=True)
+
+    # ---- pairing_checker: 64 deferred pairs from known logs through the
+    # device Miller product; one spoiled pair turns the verdict
+    rows = []
+    for _ in range(PAIRS // 2):
+        x, y, z = (hr.randrange(1, R) for _ in range(3))
+        rows.append((x, y, x * y * pow(z, -1, R) % R, z))
+    g1s = known_log_points(G1, [r[0] for r in rows] + [r[2] for r in rows],
+                           dev)
+    g2s = known_log_points(G2, [r[1] for r in rows] + [r[3] for r in rows],
+                           dev)
+    k = len(rows)
+    quads = [(g1s[i], g2s[i], g1s[k + i], g2s[k + i]) for i in range(k)]
+    weight = hr.randrange(1, R)
+    env = os.environ.pop(PAIRING_ENV, None)
+
+    def checker(spoil: bool):
+        c = RandomizedPairingChecker(bls.Fr(weight), lazy=True, device=dev)
+        qs = list(quads)
+        if spoil:
+            p1, q1, p2, q2 = qs[-1]
+            qs[-1] = (p1, q1, p2, q2.double().normalize())
+        c.add_sources(*qs[0])
+        c.add_multiple_sources(*zip(*qs[1:]))
+        return c
+
+    try:
+        good, bad = checker(False), checker(True)
+        t = time.perf_counter()
+        ok, chk_launches = drive(counted, good.verify)
+        t_chk = time.perf_counter() - t
+        rejected = not bad.verify()
+    finally:
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    if len(good.pending) != PAIRS or not ok or not rejected:
+        raise AssertionError(f"pairing_checker: {len(good.pending)} "
+                             f"pairs, valid {ok}, spoiled rejected "
+                             f"{rejected}")
+    require("pairing_checker", chk_launches, CHECKER_KERNELS)
+    paths["pairing_checker"] = chk_launches
+    phase("pairing_checker", deferred_pairs=len(good.pending),
+          verify_s=t_chk, valid=ok, spoiled_rejected=rejected,
+          launches={k: chk_launches[k] for k in PAIRING_KERNELS},
+          correct=True)
+
+    # ---- bbs_batch_verify_1024: signatures from known logs (params,
+    # key and each A_i = (g1 + h_0 s + sum h_j m_j)/(e + x) by its log)
+    t0 = time.perf_counter()
+    lg, l0, l2, x = (hr.randrange(1, R) for _ in range(4))
+    lh = [hr.randrange(1, R) for _ in range(SIG_MSGS)]
+    pts = known_log_points(G1, [lg, l0] + lh, dev)
+    params = SimpleNamespace(g1=pts[0], h_0=pts[1], h=pts[2:],
+                             g2=G2.mul_raw(l2).normalize(),
+                             supported_message_count=SIG_MSGS)
+    pk = SimpleNamespace(w=G2.mul_raw(l2 * x % R).normalize())
+    msgs = [[hr.randrange(R) for _ in range(SIG_MSGS)] for _ in range(NSIG)]
+    es = [hr.randrange(R) for _ in range(NSIG)]
+    ss = [hr.randrange(R) for _ in range(NSIG)]
+    a_logs = [(lg + l0 * s_ + sum(h * m for h, m in zip(lh, ms)))
+              * pow(e + x, -1, R) % R for e, s_, ms in zip(es, ss, msgs)]
+    sigs = [SimpleNamespace(A=A_, e=bls.Fr(e), s=bls.Fr(s_))
+            for A_, e, s_ in zip(known_log_points(G1, a_logs, dev), es, ss)]
+    msgs = [[bls.Fr(m) for m in ms] for ms in msgs]
+    t_sign = time.perf_counter() - t0
+    spoiled = list(sigs)
+    s5 = spoiled[5]
+    spoiled[5] = SimpleNamespace(A=s5.A, e=s5.e + bls.Fr(1), s=s5.s)
+
+    widths, safe_widths = [], []
+    real_msm = batch.msm_device_scheduled
+    log_of = {(p.X, p.Y): lg_ for p, lg_ in zip((s_.A for s_ in sigs),
+                                               a_logs)}
+
+    def msm(curve, points, scalars, device):
+        tm = {}
+        out = real_msm(curve, points, scalars, device=device, timings=tm)
+        widths.extend(tm["level_pairs"])
+        safe_widths.extend(rerun_widths(tm))
+        want = sum(s_ * log_of[(p.X, p.Y)] for s_, p in zip(scalars, points))
+        if out != G1.mul_raw(want % R):
+            raise AssertionError("bbs batch verify: an MSM differs from "
+                                 "its known logs")
+        return out
+
+    def verify(sig_set, seed):
+        return batch.batch_verify_signatures(sig_set, msgs, pk, params,
+                                             random.Random(seed), device=dev)
+
+    # the cold run counted, its two MSMs held to their known logs; then
+    # the timed warm run and the spoiled set on the MSM entry as it is
+    env = os.environ.get(PAIRING_ENV)
+    os.environ[PAIRING_ENV] = "device"
+    try:
+        batch.msm_device_scheduled = msm
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok_cold, bbs_launches = drive(counted,
+                                          lambda: verify(sigs, SEED + 103))
+            t_cold_v = time.perf_counter() - t
+        finally:
+            batch.msm_device_scheduled = real_msm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok_warm = verify(sigs, SEED + 104)
+        t_warm = time.perf_counter() - t
+        ok_spoiled = verify(spoiled, SEED + 105)
+    finally:
+        if env is None:
+            os.environ.pop(PAIRING_ENV)
+        else:
+            os.environ[PAIRING_ENV] = env
+    if not (ok_cold and ok_warm) or ok_spoiled:
+        raise AssertionError(f"bbs batch verify: valid {ok_cold}/{ok_warm},"
+                             f" spoiled {ok_spoiled}")
+    bbs_widths = widths
+    require("bbs_batch_verify_1024", bbs_launches,
+            set(PAIRING_KERNELS) | level_kernels(
+                bbs_widths, safe_widths, msm_v2.CHUNK_MIN_PAIRS))
+    paths["bbs_batch_verify_1024"] = bbs_launches
+    phase("bbs_batch_verify_1024", signatures=NSIG, messages=SIG_MSGS,
+          bbs_plus_batch_verify_1024_wall_s=t_warm, cold_s=t_cold_v,
+          sigs_per_s=NSIG / t_warm, signing_s=t_sign,
+          msm_level_pairs=bbs_widths, rerun_level_pairs=safe_widths,
+          launches={k: v for k, v in bbs_launches.items() if v},
+          valid=True, spoiled_rejected=True, correct=True)
+    return paths, bbs_widths, sets[1][0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1234,6 +1490,9 @@ def main() -> int:
     paths["qap_h_2^20"] = (qap_h_phase(counted, dev), [])
     lego, prove_dev = legogroth16_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in lego.items())
+    pair_paths, bbs_widths, profile_pairs = pairing_phases(counted, dev)
+    paths.update((k, (v, bbs_widths if k.startswith("bbs") else []))
+                 for k, v in pair_paths.items())
     phase("launches", **{k: v[0] for k, v in paths.items()})
     never = [f.__name__ for f in counted
              if not any(v[0][f.__name__] for v in paths.values())]
@@ -1673,11 +1932,80 @@ def main() -> int:
                 fk.fq2_sqr(F2.base, a)
             torch.cuda.synchronize()
         k = [e for e in prof.key_averages() if "fq2_sqr_kernel" in e.key]
-        us = sum(e.self_device_time_total for e in k) / sum(e.count for e in k)
+        seen = sum(e.count for e in k)
+        if seen:
+            ms, by = sum(e.self_device_time_total for e in k) / seen / 1e3, \
+                "profiler"
+        else:   # a short trace can come back empty: CUDA events instead
+            ms, by = cuda_ms(lambda: fk.fq2_sqr(F2.base, a), reps=20), \
+                "cuda_events"
         bound = bound_ms(*work("fq2_sqr", (F2.base, a)))[0]
-        sq_widths.append([M, us / 1e3, bound, us / 1e3 / bound])
-    phase("fq2_sqr_widths", elements_device_ms_bound_ms_ratio=json.dumps(
-        sq_widths))
+        sq_widths.append([M, ms, bound, ms / bound, by])
+    phase("fq2_sqr_widths",
+          elements_device_ms_bound_ms_ratio_timer=json.dumps(sq_widths))
+
+    # ---- the pairing path's narrow batches (a 65-lane multi-pairing):
+    # Fq2 products 15 a lane (the line product, the row), 12 a lane (the
+    # Fq12 square) and 18 at one lane (the final exponentiation's Fq12
+    # product); squares 4 a lane (the doubling step, the row), 2 a lane
+    # and 9 at one lane (the cyclotomic square); mont_mul 4 base products
+    # a lane (the lines' scaling, the row) and 2; mont_pow's Fq inverse at
+    # one element.  Random elements with the edges 0, 1 and p - 1 first.
+    lanes = PAIRS + 1
+    hr = random.Random(SEED + 110)
+
+    def fq2_rand(M: int) -> torch.Tensor:
+        t = F2.pack([bls.Fq2(hr.randrange(P), hr.randrange(P))
+                     for _ in range(M)])
+        k = min(M, 4)
+        t[:, :k] = fq2_edges[:, :k]
+        return t
+
+    for M in (15 * lanes, 12 * lanes, 18):
+        a, b = fq2_rand(M), fq2_rand(M).flip(1)
+        pm, pm_ms = timed_call(lambda: fk.fq2_mul_plain(F2.base, a, b))
+        err = agree("fq2_mul", (fk.fq2_mul(F2.base, a, b),), (pm,),
+                    f"at the pairing's M={M}")
+        if M == 15 * lanes:
+            rows.append(row(
+                "fq2_mul", csrc + "fq2_mul.cu", ref + "1066", "pairing_64",
+                err, cuda_ms(lambda: fk.fq2_mul(F2.base, a, b)), pm_ms,
+                (F2.base, a, b), [24, M]))
+    for M in (4 * lanes, 2 * lanes, 9):
+        a = fq2_rand(M)
+        ps, ps_ms = timed_call(lambda: fk.fq2_sqr_plain(F2.base, a))
+        err = agree("fq2_sqr", (fk.fq2_sqr(F2.base, a),), (ps,),
+                    f"at the pairing's M={M}")
+        if M == 4 * lanes:
+            rows.append(row(
+                "fq2_sqr", csrc + "fq2_mul.cu", ref + "908", "pairing_64",
+                err, cuda_ms(lambda: fk.fq2_sqr(F2.base, a)), ps_ms,
+                (F2.base, a), [24, M]))
+    Fq_ = F2.base
+    for M in (4 * lanes, 2):
+        a, b = fq2_rand(M)[:FQ_LIMBS], fq2_rand(M)[FQ_LIMBS:]
+        pm, pm_ms = timed_call(lambda: fk.mont_mul_plain(a, b, Fq_.mod))
+        err = agree("mont_mul", (fk.mont_mul(a, b, Fq_.mod),), (pm,),
+                    f"at the pairing's M={M}")
+        if M == 4 * lanes:
+            rows.append(row(
+                "mont_mul", csrc + "mont_mul.cu",
+                "crypto_tpu/ops/pallas/field_kernels.py:386", "pairing_64",
+                err, cuda_ms(lambda: fk.mont_mul(a, b, Fq_.mod)), pm_ms,
+                (a, b, Fq_.mod), [FQ_LIMBS, M]))
+    a = Fq_.pack([hr.randrange(1, P)])
+    pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(a, P - 2, Fq_.mod))
+    err = agree("mont_pow", (fk.mont_pow(a, P - 2, Fq_.mod),), (pw,),
+                "at the pairing's inverse")
+    rows.append(row(
+        "mont_pow", csrc + "mont_mul.cu",
+        "crypto_tpu/ops/pallas/field_kernels.py:386", "pairing_64", err,
+        cuda_ms(lambda: fk.mont_pow(a, P - 2, Fq_.mod)), pw_ms,
+        (a, P - 2, Fq_.mod), [FQ_LIMBS, 1]))
+    phase("check_pairing_kernels", lanes=lanes,
+          fq2_mul=[15 * lanes, 12 * lanes, 18],
+          fq2_sqr=[4 * lanes, 2 * lanes, 9], mont_mul=[4 * lanes, 2],
+          mont_pow=[1], bit_exact=True)
 
     # ---- the Fq2 level at the G2 MSM's narrowest level, a ragged count
     # and the G2 edge MSMs' widest level
@@ -1800,6 +2128,20 @@ def main() -> int:
         phase("per_msm" + tag, launches_device_ms_bound_ms=json.dumps(
             {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 4)]
              for k, (cnt, b) in bounds.items() if cnt}))
+
+    # ---- one more 64-pair multi-pairing: the device's busy share, and
+    # each kernel's launches, device time and summed bound a pairing
+    from crypto_tpu_torch.curves.tpairing import tpairing_for
+    tp = tpairing_for("bls12_381", dev)
+
+    def pairing():
+        return tp.multi_pairing(profile_pairs)
+
+    _, bounds = record_work(counted, pairing)
+    device = device_profile("profile_pairing_64", pairing, cpu=False)
+    phase("per_pairing_64", launches_device_ms_bound_ms=json.dumps(
+        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
+         for k, (cnt, b) in bounds.items() if cnt}))
 
     # ---- rows 2 and 5 (the total and the fast affine level) on the paths
     # that launch them: device time a launch from the profiler against a

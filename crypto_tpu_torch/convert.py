@@ -9,11 +9,13 @@ Conversion goes through plain Python ints: unpack, multiply by
 R_jax^-1 * R mod p, repack.  The limb widths and radices are constants
 here, so nothing of the JAX package is needed.  An Fq2 element is
 `(..., 2, L_jax)` in the JAX package and `(2L, ...)` in the port
-(`jax_to_port_fq2`, `port_to_jax_fq2`).
+(`jax_to_port_fq2`, `port_to_jax_fq2`); Fq6 `(..., 3, 2, L_jax)` and
+`(6L, ...)`, Fq12 `(..., 2, 3, 2, L_jax)` and `(12L, ...)` likewise.
 
 Host objects cross by their attributes alone: a point's `.X`, `.Y`, `.Z`
 as integers (`carry_point` builds the same point on a curve of the other
-package), a LegoGroth16 proving key field by field
+package; `carry_pairs` for (G1, G2) pairs), a host Fq12 element as its
+nested ints (`carry_fp12`), a LegoGroth16 proving key field by field
 (`proving_key_to_port`) and a proof as the integers that rebuild it
 (`proof_ints`).
 """
@@ -102,6 +104,37 @@ def port_to_jax_fq2(t: torch.Tensor, p: int, mont: bool = True) -> np.ndarray:
                     axis=-2)
 
 
+def jax_to_port_fq6(arr, p: int, mont: bool = True,
+                    device="cuda") -> torch.Tensor:
+    """Fq6: (..., 3, 2, L_jax) array (`JCubicField`) -> (6L, ...) tensor,
+    c0's 2L rows, then c1's, then c2's (`fields/ttower.py`)."""
+    a = np.asarray(arr)
+    return torch.cat([jax_to_port_fq2(a[..., k, :, :], p, mont, device)
+                      for k in range(3)])
+
+
+def port_to_jax_fq6(t: torch.Tensor, p: int, mont: bool = True) -> np.ndarray:
+    """(6L, ...) Fq6 tensor -> (..., 3, 2, L_jax) array."""
+    return np.stack([port_to_jax_fq2(c, p, mont) for c in t.chunk(3)],
+                    axis=-3)
+
+
+def jax_to_port_fq12(arr, p: int, mont: bool = True,
+                     device="cuda") -> torch.Tensor:
+    """Fq12: (..., 2, 3, 2, L_jax) array (`JQuadOverCubicField`) ->
+    (12L, ...) tensor, c0's 6L rows, then c1's."""
+    a = np.asarray(arr)
+    return torch.cat([jax_to_port_fq6(a[..., k, :, :, :], p, mont, device)
+                      for k in range(2)])
+
+
+def port_to_jax_fq12(t: torch.Tensor, p: int,
+                     mont: bool = True) -> np.ndarray:
+    """(12L, ...) Fq12 tensor -> (..., 2, 3, 2, L_jax) array."""
+    return np.stack([port_to_jax_fq6(c, p, mont) for c in t.chunk(2)],
+                    axis=-4)
+
+
 # ---------------------------------------------------------------------------
 # host objects: points, proving keys and proofs, read by attribute only
 # ---------------------------------------------------------------------------
@@ -130,6 +163,32 @@ def carry_point(pt, curve):
     of the other (or the same) package: the reference's `Point` to the
     port's and back."""
     return point_from_ints(point_ints(pt), curve)
+
+
+def fp12_ints(x) -> tuple:
+    """A host Fq12 element of either package as nested int tuples,
+    ((c0.c0.c0, c0.c0.c1), ...), read from its `.c0`/`.c1`/`.c2`."""
+    return tuple(tuple((int(c2.c0), int(c2.c1)) for c2 in (c6.c0, c6.c1, c6.c2))
+                 for c6 in (x.c0, x.c1))
+
+
+def fp12_from_ints(ints: tuple, fq12):
+    """The element of `fq12` (a `QuadOverCubic` of either package) with
+    these ints (`fp12_ints`' form)."""
+    fq6 = fq12.fq6
+    return fq12(*(fq6(*(fq6.fq2(*c2) for c2 in c6)) for c6 in ints))
+
+
+def carry_fp12(x, fq12):
+    """A host Fq12 element of one package as the same element of `fq12`,
+    a tower of the other (or the same) package."""
+    return fp12_from_ints(fp12_ints(x), fq12)
+
+
+def carry_pairs(pairs, g1, g2) -> list:
+    """Host (G1, G2) pairs of one package as the same pairs on the curves
+    `g1` and `g2` of the other."""
+    return [(carry_point(p, g1), carry_point(q, g2)) for p, q in pairs]
 
 
 def _port_curve(pt):

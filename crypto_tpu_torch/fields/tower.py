@@ -1,11 +1,17 @@
-"""Host-side quadratic extension field Fq2 = Fq[u] / (u^2 - beta).
+"""Host-side extension-field towers for pairing-friendly curves.
 
-The port's own copy of the Fq2 part of `crypto_tpu/fields/tower.py`
-(arkworks' BLS12-381 tower shape, beta = -1 there).  Elements are
-immutable pairs of base-field elements with the same arithmetic interface
-as `host.Fp`, so the host curve code is generic over the coefficient
-field.  The batched path lives in `crypto_tpu_torch.fields.ttower`.  Fq6,
-Fq12 and the square root wait for the slice that ports the pairing.
+The port's own copy of `crypto_tpu/fields/tower.py` (arkworks'
+BLS12-381 tower shape):
+
+    Fq2  = Fq [u] / (u^2 - beta)        (beta a quadratic nonresidue, -1 here)
+    Fq6  = Fq2[v] / (v^3 - xi)          (xi a cubic nonresidue in Fq2)
+    Fq12 = Fq6[w] / (w^2 - v)
+
+Elements are immutable tuples of base-field elements with the same
+arithmetic interface as `host.Fp`, so the host curve and pairing code is
+generic over the coefficient field.  This is the port's ground truth; the
+batched path lives in `crypto_tpu_torch.fields.ttower`.  The Fq2 square
+root (G2 point decompression) is not ported.
 """
 
 from __future__ import annotations
@@ -146,3 +152,239 @@ class Fp2:
 
     def __repr__(self):
         return f"{self.f.name}({self.c0}, {self.c1})"
+
+
+class CubicOverQuad:
+    """Fq6 = Fq2[v]/(v^3 - xi)."""
+
+    __slots__ = ("fq2", "xi", "name", "frob_c1", "frob_c2")
+
+    def __init__(self, fq2: QuadExtField, xi: Fp2, name: str):
+        self.fq2 = fq2
+        self.xi = xi
+        self.name = name
+        p = fq2.base.p
+        # Frobenius coefficients: v^(p^i) = v * xi^((p^i - 1)/3)
+        self.frob_c1 = [xi ** ((p ** i - 1) // 3) for i in range(6)]
+        self.frob_c2 = [xi ** ((2 * (p ** i - 1)) // 3) for i in range(6)]
+
+    def __call__(self, c0, c1, c2):
+        return Fp6(c0, c1, c2, self)
+
+    def zero(self):
+        z = self.fq2.zero()
+        return Fp6(z, z, z, self)
+
+    def one(self):
+        return Fp6(self.fq2.one(), self.fq2.zero(), self.fq2.zero(), self)
+
+    def rand(self, rng):
+        return Fp6(self.fq2.rand(rng), self.fq2.rand(rng), self.fq2.rand(rng), self)
+
+    def __repr__(self):
+        return f"CubicOverQuad({self.name})"
+
+
+class Fp6:
+    __slots__ = ("c0", "c1", "c2", "f")
+
+    def __init__(self, c0: Fp2, c1: Fp2, c2: Fp2, f: CubicOverQuad):
+        self.c0, self.c1, self.c2, self.f = c0, c1, c2, f
+
+    def __add__(self, o):
+        return Fp6(self.c0 + o.c0, self.c1 + o.c1, self.c2 + o.c2, self.f)
+
+    def __sub__(self, o):
+        return Fp6(self.c0 - o.c0, self.c1 - o.c1, self.c2 - o.c2, self.f)
+
+    def __neg__(self):
+        return Fp6(-self.c0, -self.c1, -self.c2, self.f)
+
+    def _mul_by_xi(self, x: Fp2) -> Fp2:
+        return x * self.f.xi
+
+    def __mul__(self, o):
+        if isinstance(o, Fp2):
+            return Fp6(self.c0 * o, self.c1 * o, self.c2 * o, self.f)
+        a0, a1, a2 = self.c0, self.c1, self.c2
+        b0, b1, b2 = o.c0, o.c1, o.c2
+        # Toom/Karatsuba-lite (CH-SQR2 style):
+        v0 = a0 * b0
+        v1 = a1 * b1
+        v2 = a2 * b2
+        c0 = v0 + self._mul_by_xi((a1 + a2) * (b1 + b2) - v1 - v2)
+        c1 = (a0 + a1) * (b0 + b1) - v0 - v1 + self._mul_by_xi(v2)
+        c2 = (a0 + a2) * (b0 + b2) - v0 - v2 + v1
+        return Fp6(c0, c1, c2, self.f)
+
+    def square(self):
+        return self * self
+
+    def mul_by_v(self):
+        """Multiply by v: (c0,c1,c2) -> (xi*c2, c0, c1)."""
+        return Fp6(self._mul_by_xi(self.c2), self.c0, self.c1, self.f)
+
+    def inverse(self):
+        a0, a1, a2 = self.c0, self.c1, self.c2
+        xi = self.f.xi
+        t0 = a0 * a0 - xi * (a1 * a2)
+        t1 = xi * (a2 * a2) - a0 * a1
+        t2 = a1 * a1 - a0 * a2
+        d = a0 * t0 + xi * (a2 * t1) + xi * (a1 * t2)
+        dinv = d.inverse()
+        return Fp6(t0 * dinv, t1 * dinv, t2 * dinv, self.f)
+
+    def frobenius(self, power: int):
+        k = power % 6
+        c0 = self.c0.frobenius(power)
+        c1 = self.c1.frobenius(power) * self.f.frob_c1[k]
+        c2 = self.c2.frobenius(power) * self.f.frob_c2[k]
+        return Fp6(c0, c1, c2, self.f)
+
+    def is_zero(self):
+        return self.c0.is_zero() and self.c1.is_zero() and self.c2.is_zero()
+
+    def __eq__(self, o):
+        return isinstance(o, Fp6) and self.c0 == o.c0 and self.c1 == o.c1 and self.c2 == o.c2
+
+    def __hash__(self):
+        return hash((self.c0, self.c1, self.c2))
+
+    def __repr__(self):
+        return f"Fp6({self.c0}, {self.c1}, {self.c2})"
+
+
+class QuadOverCubic:
+    """Fq12 = Fq6[w]/(w^2 - v). GT lives here."""
+
+    __slots__ = ("fq6", "name", "frob_c1")
+
+    def __init__(self, fq6: CubicOverQuad, name: str):
+        self.fq6 = fq6
+        self.name = name
+        p = fq6.fq2.base.p
+        # w^(p^i) = w * xi^((p^i - 1)/6)
+        self.frob_c1 = [fq6.xi ** ((p ** i - 1) // 6) for i in range(12)]
+
+    def __call__(self, c0, c1):
+        return Fp12(c0, c1, self)
+
+    def zero(self):
+        return Fp12(self.fq6.zero(), self.fq6.zero(), self)
+
+    def one(self):
+        return Fp12(self.fq6.one(), self.fq6.zero(), self)
+
+    def rand(self, rng):
+        return Fp12(self.fq6.rand(rng), self.fq6.rand(rng), self)
+
+    def __repr__(self):
+        return f"QuadOverCubic({self.name})"
+
+
+class Fp12:
+    __slots__ = ("c0", "c1", "f")
+
+    def __init__(self, c0: Fp6, c1: Fp6, f: QuadOverCubic):
+        self.c0, self.c1, self.f = c0, c1, f
+
+    def __add__(self, o):
+        return Fp12(self.c0 + o.c0, self.c1 + o.c1, self.f)
+
+    def __sub__(self, o):
+        return Fp12(self.c0 - o.c0, self.c1 - o.c1, self.f)
+
+    def __neg__(self):
+        return Fp12(-self.c0, -self.c1, self.f)
+
+    def __mul__(self, o):
+        a0, a1 = self.c0, self.c1
+        b0, b1 = o.c0, o.c1
+        v0 = a0 * b0
+        v1 = a1 * b1
+        c0 = v0 + v1.mul_by_v()
+        c1 = (a0 + a1) * (b0 + b1) - v0 - v1
+        return Fp12(c0, c1, self.f)
+
+    def square(self):
+        # complex squaring: (a0 + a1 w)^2 = (a0^2 + v a1^2) + 2 a0 a1 w
+        a0, a1 = self.c0, self.c1
+        v0 = a0 * a1
+        t = (a0 + a1) * (a0 + a1.mul_by_v())
+        c0 = t - v0 - v0.mul_by_v()
+        c1 = v0 + v0
+        return Fp12(c0, c1, self.f)
+
+    def inverse(self):
+        # 1/(a0 + a1 w) = (a0 - a1 w) / (a0^2 - v a1^2)
+        d = self.c0 * self.c0 - (self.c1 * self.c1).mul_by_v()
+        dinv = d.inverse()
+        return Fp12(self.c0 * dinv, -(self.c1 * dinv), self.f)
+
+    def conjugate(self):
+        """Fq12/Fq6 conjugation = unitary inverse for cyclotomic elements."""
+        return Fp12(self.c0, -self.c1, self.f)
+
+    def frobenius(self, power: int):
+        k = power % 12
+        c0 = self.c0.frobenius(power)
+        c1 = self.c1.frobenius(power)
+        g = self.f.frob_c1[k]
+        c1 = Fp6(c1.c0 * g, c1.c1 * g, c1.c2 * g, c1.f)
+        return Fp12(c0, c1, self.f)
+
+    def __pow__(self, e: int):
+        if e < 0:
+            return self.inverse() ** (-e)
+        r = self.f.one()
+        b = self
+        while e:
+            if e & 1:
+                r = r * b
+            b = b.square()
+            e >>= 1
+        return r
+
+    def cyclotomic_square(self):
+        """Granger-Scott squaring for elements of the cyclotomic subgroup
+        (valid after the easy part of final exponentiation).  View Fq12 as a
+        quadratic extension of Fq4 with coordinates grouped as pairs
+        (z0,z1),(z2,z3),(z4,z5) where z's live in Fq2."""
+        f6 = self.f.fq6
+        xi = f6.xi
+        z0, z4, z3 = self.c0.c0, self.c0.c1, self.c0.c2
+        z2, z1, z5 = self.c1.c0, self.c1.c1, self.c1.c2
+
+        def fq4_square(a, b):
+            # (a + b y)^2 in Fq4 = Fq2[y]/(y^2 - xi):
+            # = (a^2 + xi b^2) + 2ab y
+            t = a * b
+            return (a + b) * (a + xi * b) - t - xi * t, t + t
+
+        t0, t1 = fq4_square(z0, z1)
+        t2, t3 = fq4_square(z2, z3)
+        t4, t5 = fq4_square(z4, z5)
+
+        nz0 = ((t0 - z0).double()) + t0          # 3 t0 - 2 z0
+        nz1 = ((t1 + z1).double()) + t1          # 3 t1 + 2 z1
+        xt5 = xi * t5
+        nz2 = ((xt5 + z2).double()) + xt5        # 3 xi t5 + 2 z2
+        nz3 = ((t4 - z3).double()) + t4          # 3 t4 - 2 z3
+        nz4 = ((t2 - z4).double()) + t2          # 3 t2 - 2 z4
+        nz5 = ((t3 + z5).double()) + t3          # 3 t3 + 2 z5
+        return Fp12(Fp6(nz0, nz4, nz3, f6), Fp6(nz2, nz1, nz5, f6), self.f)
+
+    def is_zero(self):
+        return self.c0.is_zero() and self.c1.is_zero()
+
+    def is_one(self):
+        return self == self.f.one()
+
+    def __eq__(self, o):
+        return isinstance(o, Fp12) and self.c0 == o.c0 and self.c1 == o.c1
+
+    def __hash__(self):
+        return hash((self.c0, self.c1))
+
+    def __repr__(self):
+        return f"Fp12({self.c0}, {self.c1})"

@@ -263,9 +263,12 @@ def fq2_mul_plain(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     - v1, with v0 = a0·b0 and v1 = a1·b1."""
     L = F.L
     a0, a1, b0, b1 = a[:L], a[L:], b[:L], b[L:]
-    v0 = mont_mul_plain(a0, b0, F.mod)
-    v1 = mont_mul_plain(a1, b1, F.mod)
-    t = mont_mul_plain(F.add(a0, a1), F.add(b0, b1), F.mod)
+    s = F.add(torch.cat([a0, b0], 1), torch.cat([a1, b1], 1))
+    M = a.shape[1]
+    # the three products side by side in one call (columns are independent)
+    v0, v1, t = mont_mul_plain(torch.cat([a0, a1, s[:, :M]], 1),
+                               torch.cat([b0, b1, s[:, M:]], 1),
+                               F.mod).split(M, 1)
     return torch.cat([F.sub(v0, v1), F.sub(F.sub(t, v0), v1)])
 
 
@@ -294,8 +297,10 @@ def fq2_sqr_plain(F, a: torch.Tensor) -> torch.Tensor:
     field context F (any device): c0 = (a0+a1)(a0-a1), c1 = 2·a0·a1."""
     L = F.L
     a0, a1 = a[:L], a[L:]
-    t0 = mont_mul_plain(a0, a1, F.mod)
-    t1 = mont_mul_plain(F.add(a0, a1), F.sub(a0, a1), F.mod)
+    M = a.shape[1]
+    t0, t1 = mont_mul_plain(torch.cat([a0, F.add(a0, a1)], 1),
+                            torch.cat([a1, F.sub(a0, a1)], 1),
+                            F.mod).split(M, 1)
     return torch.cat([t1, F.add(t0, t0)])
 
 

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 29
+    assert n >= 33
 
 
 def _msm():
@@ -194,6 +194,47 @@ def _witness_map():
     snark.witness_map(cs)
 
 
+def _tcubic_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.ttower import tcubic_for
+    tcubic_for(tb.Fq6)
+
+
+def _tfield12_for():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.fields.ttower import tfield12_for
+    tfield12_for(tb.Fq12)
+
+
+def _tpairing_for():
+    from crypto_tpu_torch.curves.tpairing import tpairing_for
+    tpairing_for("bls12_381")
+
+
+def _tpairing():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.curves.tpairing import TPairing
+    TPairing(tb)
+
+
+def _jax_to_port_fq12():
+    import numpy as np
+    from crypto_tpu_torch import convert
+    convert.jax_to_port_fq12(np.zeros((2, 3, 2, 26), np.int32), 97)
+
+
+def _pairing_checker():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
+    RandomizedPairingChecker(tb.Fr(3), lazy=True)
+
+
+def _batch_verify_signatures():
+    from types import SimpleNamespace
+    from crypto_tpu_torch.bbs_plus.batch import batch_verify_signatures
+    batch_verify_signatures([], [], None, SimpleNamespace())
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -202,7 +243,10 @@ def _witness_map():
                                    _multiply_same_group_elem, _msm_query,
                                    _create_proof,
                                    _generate_random_parameters,
-                                   _witness_map],
+                                   _witness_map, _tcubic_for,
+                                   _tfield12_for, _tpairing_for, _tpairing,
+                                   _jax_to_port_fq12, _pairing_checker,
+                                   _batch_verify_signatures],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
