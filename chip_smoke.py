@@ -53,7 +53,15 @@ before it and read just after:
   device Miller product, valid and with one spoiled pair; the BBS+ batch
   verify of 1,024 signatures over 4 messages (known logs, the pairing on
   the device), its two MSMs against their logs, valid and with one e
-  spoiled; one more multi-pairing profiled.
+  spoiled; one more multi-pairing profiled;
+* the VB accumulator at `benches/bench_accumulator.py`'s size: params
+  hashed from a label, 2^14 elements added, the first 8,192 members'
+  witnesses on the device fixed-base path, then three updates of all
+  8,192 witnesses through `update_membership_batch_with_sk` on the card
+  (256 additions, cold and warm; 256 removals; 128 of each), each split
+  by phase and held to V_new / (y + alpha) from the fixed-base table, its
+  d factors to host integers, 16 members to the host branch and two by
+  pairing; one more update profiled.
 
 Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
@@ -65,8 +73,9 @@ one kind of pair: P1, P2 or both infinite, P + P, P + (-P); the double
 also with Y1 = 0 lanes; the normalize also at ragged widths about its
 chunk and block, on infinities only and with infinities at both ends of
 every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0; mont_mul
-also at the 2^20 NTT's Fr shapes; the Fq2 mul and square, mont_mul and
-mont_pow also at the pairing's narrow widths), times the fast down pass at each of
+also at the 2^20 NTT's Fr shapes and the witness update's; the Fq2 mul
+and square, mont_mul and mont_pow also at the pairing's narrow widths,
+mont_pow also at the witness update's to_affine), times the fast down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
 call down to 16 elements, profiles one more 2^20 G1 MSM on each
 formula and one more G2 MSM for the device's busy share and each
@@ -407,17 +416,29 @@ def record_work(counted, fn):
     return out, totals
 
 
-def device_ms_by_entry(prof) -> dict:
-    """{entry point: (kernels, device ms)} from a profile's key_averages,
-    summed over each entry point's kernel functions."""
+def device_events(prof) -> list:
+    """(name, start ns, end ns) of every device event of a finished
+    profile, read from its raw kineto results: the profiler's own event
+    tree (`events()`, `key_averages()`) takes minutes to build for the
+    half a million launches of a witness update."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            out.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out
+
+
+def device_ms_by_entry(events: list) -> dict:
+    """{entry point: (kernels, device ms)} from `device_events`, summed
+    over each entry point's kernel functions."""
     out = {}
-    for e in prof.key_averages():
-        hit = re.search(r"(\w+_kernel)\b", e.key)
+    for key, start, end in events:
+        hit = re.search(r"(\w+_kernel)\b", key)
         name = KERNEL_ENTRY.get(hit.group(1)) if hit else None
         if name is None:
             continue
         cnt, ms = out.get(name, (0, 0.0))
-        out[name] = (cnt + e.count, ms + e.self_device_time_total / 1e3)
+        out[name] = (cnt + 1, ms + (end - start) / 1e6)
     return out
 
 
@@ -446,31 +467,29 @@ def device_profile(name: str, fn, cpu: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            k = by_name.setdefault(e.name[:48], [0, 0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us()
-    busy_us, reach = 0, None          # union of the kernels' intervals
-    for start, end in sorted(spans):
+    events, by_name = device_events(prof), {}
+    for key, start, end in events:
+        k = by_name.setdefault(key[:48], [0, 0])
+        k[0] += 1
+        k[1] += (end - start) / 1e3
+    busy_ns, reach = 0, None          # union of the kernels' intervals
+    for _, start, end in sorted(events, key=lambda e: e[1]):
         if reach is None or start > reach:
-            busy_us += end - start
+            busy_ns += end - start
             reach = end
         elif end > reach:
-            busy_us += end - reach
+            busy_ns += end - reach
             reach = end
-    busy = busy_us / 1e6
+    busy = busy_ns / 1e9
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     phase(name, wall_s=round(wall, 4),
           device_busy_s=round(busy, 4) if busy else "not measured",
           idle_share=round(1 - busy / wall, 4) if busy
           else "not measured",
-          device_launches=len(spans),
+          device_launches=len(events),
           top_ms=[(k, cnt, round(us / 1e3, 3))
                   for k, (cnt, us) in top])
-    return device_ms_by_entry(prof)
+    return device_ms_by_entry(events)
 
 
 QAP_LOG = 20                        # the G2 cell's circuit: 2^20 variables
@@ -1074,6 +1093,204 @@ def pairing_phases(counted, dev) -> tuple:
     return paths, bbs_widths, sets[1][0]
 
 
+NELEM = 1 << 14                     # benches/bench_accumulator.py NELEM
+NMEMBERS = NELEM // 2               # the members whose witnesses update
+NBATCH = 256                        # the bench's additions
+NCHECK_HOST = 16                    # members held to the port's host branch
+# what a witness update on the card launches: mont_mul (the scans, the
+# double-and-add, the final add, to_affine; batch_inv_t's tree) and
+# mont_pow (to_affine's Fq root; batch_inv_t's Fr root with removals)
+ACCUM_KERNELS = ("mont_mul", "mont_pow")
+
+
+def accumulator_phases(counted, dev) -> tuple:
+    """The VB accumulator at `benches/bench_accumulator.py`'s size: the
+    setup (params hashed from a label, a key from a fixed seed, 2^14
+    elements added, the first 8,192 members' witnesses on the device
+    fixed-base path, two pairing checks), then three updates of all 8,192
+    witnesses through `update_membership_batch_with_sk` on the card: (a)
+    256 additions, the bench's workload, cold and warm; (b) 256 removals
+    of non-members; (c) 128 additions and 128 removals.  Each update is
+    held to an independent result: every witness to V_new / (y + alpha)
+    by a host batch inverse and the device fixed-base table, every d
+    factor to host integers, 16 members to the port's host branch, two
+    members by pairing.  Returns ({path: launches}, a function that runs
+    update (a) once more, for the profile)."""
+    import os
+
+    from crypto_tpu_torch.accumulator import device_update, witness
+    from crypto_tpu_torch.accumulator.batch_utils import _batch_inverse
+    from crypto_tpu_torch.accumulator.core import PositiveAccumulator
+    from crypto_tpu_torch.accumulator.persistence import InMemoryState
+    from crypto_tpu_torch.accumulator.setup import AccumKeypair, \
+        AccumSetupParams
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.utils.msm import \
+        multiply_field_elems_with_same_group_elem
+    F, R = bls.Fr, bls.R
+    rng = random.Random(SEED + 200)
+    paths = {}
+    # the routing held here is the reference's rule, with no override
+    for k in ("CRYPTO_TPU_FORCE_DEVICE_ACCUM", "CRYPTO_TPU_NO_DEVICE_ACCUM"):
+        os.environ.pop(k, None)
+
+    # ---- accumulator_setup
+    secs = {}
+    t = time.perf_counter()
+    params = AccumSetupParams.new(b"bench-accum")
+    secs["params_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    kp = AccumKeypair.generate(rng, params)
+    sk, pk = kp.secret_key, kp.public_key
+    secs["keypair_s"] = time.perf_counter() - t
+    state = InMemoryState()
+    elems = [F.rand(rng) for _ in range(NELEM)]
+    t = time.perf_counter()
+    acc = PositiveAccumulator.initialize(params).add_batch(elems, sk, state)
+    secs["add_batch_s"] = time.perf_counter() - t
+    members = elems[:NMEMBERS]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    wits, wit_launches = drive(counted, lambda: acc.
+                               get_membership_witnesses_for_batch(
+                                   members, sk, state, device=dev))
+    secs["witnesses_s"] = time.perf_counter() - t
+    require("accumulator witnesses", wit_launches, ("mont_mul",))
+    t = time.perf_counter()
+    if not all(acc.verify_membership(members[i], wits[i], pk, params)
+               for i in (0, NMEMBERS - 1)):
+        raise AssertionError("accumulator_setup: a witness fails its "
+                             "pairing check")
+    secs["verify_s"] = time.perf_counter() - t
+    paths["accumulator_witnesses"] = wit_launches
+    phase("accumulator_setup", elements=NELEM, members=NMEMBERS, **secs,
+          vb_accum_witness_gen_8192_wall_s=secs["witnesses_s"],
+          witnesses_per_s=NMEMBERS / secs["witnesses_s"],
+          launches={k: v for k, v in wit_launches.items() if v},
+          correct=True)
+
+    # ---- accumulator_update: three batches, each from the same V
+    V0, alpha = acc.value(), int(sk.alpha)
+    ys = [int(y) for y in members]
+    fresh = [F.rand(rng) for _ in range(NBATCH + NBATCH // 2)]
+    cases = {
+        "a": (fresh[:NBATCH], [], acc.add_batch(fresh[:NBATCH], sk, state)),
+        "b": ([], elems[NMEMBERS:NMEMBERS + NBATCH],
+              acc.remove_batch(elems[NMEMBERS:NMEMBERS + NBATCH], sk,
+                               state)),
+    }
+    rem_c = elems[NMEMBERS + NBATCH:NMEMBERS + NBATCH + NBATCH // 2]
+    cases["c"] = (fresh[NBATCH:], rem_c,
+                  acc.batch_updates(fresh[NBATCH:], rem_c, sk, state))
+    real = device_update.batch_update_with_sk_device
+
+    def update(adds, rems, seen: dict):
+        def shim(*a, **kw):
+            tm = {}
+            out = real(*a, **kw, timings=tm)
+            seen.update(timings=tm, d=out[0])
+            return out
+
+        device_update.batch_update_with_sk_device = shim
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, launches = drive(counted, lambda: witness.
+                                  update_membership_batch_with_sk(
+                                      adds, rems, members, wits, V0, sk,
+                                      device=dev))
+            return out, launches, time.perf_counter() - t
+        finally:
+            device_update.batch_update_with_sk_device = real
+
+    def check(tag, adds, rems, new_acc, new_wits, d) -> dict:
+        t0 = time.perf_counter()
+        # every d factor: d_A(y) / d_D(y) in plain host integers
+        num = [1] * NMEMBERS
+        den = [1] * NMEMBERS
+        for i, y in enumerate(ys):
+            for a in adds:
+                num[i] = num[i] * (int(a) - y) % R
+            for r in rems:
+                den[i] = den[i] * (int(r) - y) % R
+        want_d = [n_ * pow(d_, -1, R) % R for n_, d_ in zip(num, den)]
+        if [int(x) for x in d] != want_d:
+            raise AssertionError(f"accumulator_update ({tag}): a d factor "
+                                 f"differs from the host product")
+        # every witness: V_new / (y + alpha), by a host batch inverse and
+        # the device fixed-base table (not scalar_mul)
+        invs = _batch_inverse([F(y + alpha) for y in ys])
+        want = multiply_field_elems_with_same_group_elem(
+            new_acc.value(), invs, device=dev)
+        got = [None if c.is_infinity() else (int(c.X), int(c.Y))
+               for c in (w.C.normalize() for w in new_wits)]
+        exp = [None if p.is_infinity() else tuple(int(c) for c in
+                                                  p.to_affine())
+               for p in want]
+        if got != exp:
+            raise AssertionError(f"accumulator_update ({tag}): a witness "
+                                 f"differs from V_new / (y + alpha)")
+        t1 = time.perf_counter()
+        # 16 members through the port's host branch (below 512 members)
+        hd, hc = witness._batch_update_with_sk(
+            adds, rems, members[:NCHECK_HOST],
+            [w.C for w in wits[:NCHECK_HOST]], V0, sk, device=dev)
+        if [int(x) for x in hd] != want_d[:NCHECK_HOST] or \
+                hc != [w.C for w in new_wits[:NCHECK_HOST]]:
+            raise AssertionError(f"accumulator_update ({tag}): the host "
+                                 f"branch differs")
+        t2 = time.perf_counter()
+        if not all(new_acc.verify_membership(members[i], new_wits[i], pk,
+                                             params)
+                   for i in (0, NMEMBERS - 1)):
+            raise AssertionError(f"accumulator_update ({tag}): a witness "
+                                 f"fails its pairing check")
+        return dict(check_table_s=t1 - t0, check_host_branch_s=t2 - t1,
+                    check_pairing_s=time.perf_counter() - t2)
+
+    def report(tag, seconds, seen, launches, checks, **kv):
+        require(f"accumulator update ({tag})", launches, ACCUM_KERNELS)
+        phase(f"accumulator_update_{tag}", members=NMEMBERS,
+              additions=len(cases[tag][0]), removals=len(cases[tag][1]),
+              seconds=seconds, updates_per_s=NMEMBERS / seconds,
+              split_s=seen["timings"], **kv,
+              launches={k: v for k, v in launches.items() if v}, **checks,
+              correct=True)
+
+    adds, rems, new_acc = cases["a"]
+    cold = {}
+    wits_a, launches_a, t_cold = update(adds, rems, cold)
+    if "d" not in cold:
+        raise AssertionError("accumulator update (a): 8,192 members did not "
+                             "take the device path")
+    checks = check("a", adds, rems, new_acc, wits_a, cold["d"])
+    report("a", t_cold, cold, launches_a, checks, run="cold")
+    warm = {}
+    wits_w, launches_w, t_warm = update(adds, rems, warm)
+    if [w.C for w in wits_w] != [w.C for w in wits_a] or \
+            warm["d"] != cold["d"]:
+        raise AssertionError("accumulator update (a): the warm run differs "
+                             "from the cold one")
+    report("a", t_warm, warm, launches_w, {}, run="warm",
+           vb_accum_witness_update_8192_after_256_adds_wall_s=t_warm)
+    paths["accumulator_update"] = launches_w
+    for tag in ("b", "c"):
+        adds, rems, new_acc = cases[tag]
+        seen = {}
+        new_wits, launches, secs_ = update(adds, rems, seen)
+        checks = check(tag, adds, rems, new_acc, new_wits, seen["d"])
+        report(tag, secs_, seen, launches, checks)
+        paths[f"accumulator_update_{tag}"] = launches
+
+    adds_a = cases["a"][0]
+
+    def profile_update():
+        return witness.update_membership_batch_with_sk(
+            adds_a, [], members, wits, V0, sk, device=dev)
+
+    return paths, profile_update
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1493,6 +1710,10 @@ def main() -> int:
     pair_paths, bbs_widths, profile_pairs = pairing_phases(counted, dev)
     paths.update((k, (v, bbs_widths if k.startswith("bbs") else []))
                  for k, v in pair_paths.items())
+    t0 = time.time()
+    acc_paths, profile_update = accumulator_phases(counted, dev)
+    paths.update((k, (v, [])) for k, v in acc_paths.items())
+    phase("accumulator_phases", seconds=round(time.time() - t0, 3))
     phase("launches", **{k: v[0] for k, v in paths.items()})
     never = [f.__name__ for f in counted
              if not any(v[0][f.__name__] for v in paths.values())]
@@ -1522,12 +1743,17 @@ def main() -> int:
         return err
 
     # mont_mul at the tail's width (16 windows x 2^15 buckets), Fq and Fr,
-    # and at the 2^20 NTT's Fr shapes: a stage's (8, 2^19) odd halves by
-    # their twiddles, the (8, 2^20) pointwise and coset products
+    # at the 2^20 NTT's Fr shapes: a stage's (8, 2^19) odd halves by
+    # their twiddles, the (8, 2^20) pointwise and coset products; and at
+    # the witness update's: the scans' (8, 8192), the double-and-add's
+    # (12, 16384) over [C_i | V], and a ragged width
     for fld, M, path in ((bls.Fq, 16 << 15, "msm_2^20"),
                          (bls.Fr, 1 << 16, None),
                          (bls.Fr, 1 << (QAP_LOG - 1), "qap_h_2^20"),
-                         (bls.Fr, 1 << QAP_LOG, "qap_h_2^20")):
+                         (bls.Fr, 1 << QAP_LOG, "qap_h_2^20"),
+                         (bls.Fr, NMEMBERS, "accumulator_update"),
+                         (bls.Fq, 2 * NMEMBERS, "accumulator_update"),
+                         (bls.Fq, 2 * NMEMBERS - 3, None)):
         Fx = tfield_for(fld, dev)
         L = Fx.L
         # random field elements, then the edges 0, 1, p-1 and all-ones limbs
@@ -1551,18 +1777,22 @@ def main() -> int:
                 "crypto_tpu/ops/pallas/field_kernels.py:386", path,
                 err, cuda_ms(lambda: fk.mont_mul(ra, rb, Fx.mod)), plain_ms,
                 (ra, rb, Fx.mod), [L, M]))
-    phase("check_mont_mul", fq_pairs=16 << 15,
-          fr_pairs=[1 << 16, 1 << (QAP_LOG - 1), 1 << QAP_LOG],
+    phase("check_mont_mul", fq_pairs=[16 << 15, 2 * NMEMBERS,
+                                      2 * NMEMBERS - 3],
+          fr_pairs=[1 << 16, 1 << (QAP_LOG - 1), 1 << QAP_LOG, NMEMBERS],
           bit_exact=True)
 
     # mont_pow's Fermat root at 1 element (each batch_inv_t root), 16 (the
-    # tail's to_affine) and 2^16, with zeros (0 -> 0), Fq and Fr, against
-    # its plain version on the card
+    # tail's to_affine), 2^16 and, on Fq, the witness update's to_affine
+    # (8,192), with zeros (0 -> 0), Fq and Fr, against its plain version
+    # on the card
     for fld in (bls.Fq, bls.Fr):
         Fx = tfield_for(fld, dev)
         e = fld.p - 2
         hr = random.Random(SEED + 3)
-        for M, zero in ((1, False), (1, True), (16, False), (1 << 16, False)):
+        update = ((NMEMBERS, False),) if fld is bls.Fq else ()
+        for M, zero in ((1, False), (1, True), (16, False),
+                        (1 << 16, False)) + update:
             x = Fx.pack([0 if zero else hr.randrange(1, fld.p)
                          for _ in range(M)])
             x[:, 3::5] = 0
@@ -1570,13 +1800,15 @@ def main() -> int:
                                                                    Fx.mod))
             err = agree("mont_pow", (fk.mont_pow(x, e, Fx.mod),), (plain,),
                         f"on {fld.name} at M={M}")
-            if fld is bls.Fq and (M, zero) == (1, False):
+            if fld is bls.Fq and (M, zero) in ((1, False),
+                                               (NMEMBERS, False)):
                 rows.append(row(
                     "mont_pow", csrc + "mont_mul.cu",
-                    "crypto_tpu/ops/pallas/field_kernels.py:386", "msm_2^20",
+                    "crypto_tpu/ops/pallas/field_kernels.py:386",
+                    "msm_2^20" if M == 1 else "accumulator_update",
                     err, cuda_ms(lambda: fk.mont_pow(x, e, Fx.mod)),
                     plain_ms, (x, e, Fx.mod), [Fx.L, M]))
-    phase("check_mont_pow", elements=[1, 16, 1 << 16], zeros=True,
+    phase("check_mont_pow", elements=[1, 16, 1 << 16, NMEMBERS], zeros=True,
           fields=["Fq", "Fr"], bit_exact=True)
 
     # one Fermat root, in turns: the chain of 608 mont_mul launches from a
@@ -2140,6 +2372,14 @@ def main() -> int:
     _, bounds = record_work(counted, pairing)
     device = device_profile("profile_pairing_64", pairing, cpu=False)
     phase("per_pairing_64", launches_device_ms_bound_ms=json.dumps(
+        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
+         for k, (cnt, b) in bounds.items() if cnt}))
+
+    # ---- one more witness update (a): the same for the accumulator
+    _, bounds = record_work(counted, profile_update)
+    device = device_profile("profile_accumulator_update", profile_update,
+                            cpu=False)
+    phase("per_accumulator_update", launches_device_ms_bound_ms=json.dumps(
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))
 

@@ -163,6 +163,21 @@ class TCurve:
         res = self.select(p_inf, q, res)
         return self.select(q_inf & ~p_inf, p, res)
 
+    def scalar_mul(self, p: TPoints, bits: torch.Tensor) -> TPoints:
+        """Batched double-and-add (`JCurve.scalar_mul`, `jcurve.py:236`):
+        from infinity, each step runs `double`, then `add(acc, p)`, and
+        keeps the sum where the step's bit is set.  `bits` is an
+        (nbits, ...) integer tensor of 0/1, MSB first: row k is step k and
+        is shaped like the batch of `p` (step axis first, as the limbs
+        are in the port's limb-major layout; the reference takes
+        (..., nbits)).  Total: runs on the select-based `double` and
+        `add`, so P + P, infinite bases and zero rows are handled."""
+        acc = self.infinity(p.Z.shape[1:])
+        for row in bits:
+            acc = self.double(acc)
+            acc = self.select(row > 0, self.add(acc, p), acc)
+        return acc
+
     # ------------------------------------------------------------------
     # batch utilities
     # ------------------------------------------------------------------

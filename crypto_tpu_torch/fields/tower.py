@@ -11,10 +11,13 @@ Elements are immutable tuples of base-field elements with the same
 arithmetic interface as `host.Fp`, so the host curve and pairing code is
 generic over the coefficient field.  This is the port's ground truth; the
 batched path lives in `crypto_tpu_torch.fields.ttower`.  The Fq2 square
-root (G2 point decompression) is not ported.
+root and sign (`Fp2.sqrt`, `is_gt_half`) serve hashing to G2
+(`crypto_tpu_torch/hashing.py`).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from .host import Field, Fp
 
@@ -137,6 +140,72 @@ class Fp2:
             b = b.square()
             e >>= 1
         return r
+
+    def sqrt(self) -> Optional["Fp2"]:
+        """Square root in Fq2 (G2 point decompression, hashing to G2).
+        Uses the 'complex method' valid for any beta: for x = a + bu,
+        solve via norm: n = a^2 - beta b^2 must be a QR in Fq."""
+        if self.is_zero():
+            return self
+        n = self.norm()
+        sn = n.sqrt()
+        if sn is None:
+            return None
+        two_inv = self.f.base(2).inverse()
+        for s in (sn, -sn):
+            alpha = (self.c0 + s) * two_inv
+            a0 = alpha.sqrt()
+            if a0 is None:
+                continue
+            if a0.is_zero():
+                # x = beta * b^2 ... handle pure-u case: x = c1 * u
+                # then (y0 + y1 u)^2 = x => y0^2 + beta y1^2 = 0, 2 y0 y1 = c1
+                continue
+            y1 = self.c1 * (a0 + a0).inverse()
+            cand = Fp2(a0, y1, self.f)
+            if cand.square() == self:
+                return cand
+        # fallback: generic Tonelli-Shanks in Fq2 via exponentiation
+        return self._sqrt_ts()
+
+    def _sqrt_ts(self) -> Optional["Fp2"]:
+        p = self.f.base.p
+        q = p * p
+        # Tonelli-Shanks over Fq2 using field exponentiation
+        Q = q - 1
+        S = 0
+        while Q % 2 == 0:
+            Q //= 2
+            S += 1
+        # find non-residue
+        import random as _r
+        rng = _r.Random(7)
+        while True:
+            z = self.f.rand(rng)
+            if z.is_zero():
+                continue
+            if z ** ((q - 1) // 2) == -self.f.one():
+                break
+        M, c, t, r = S, z ** Q, self ** Q, self ** ((Q + 1) // 2)
+        one = self.f.one()
+        while not (t == one):
+            i, tt = 0, t
+            while not (tt == one):
+                tt = tt.square()
+                i += 1
+                if i == M:
+                    return None
+            b = c ** (1 << (M - i - 1))
+            M, c = i, b.square()
+            t = t * c
+            r = r * b
+        return r
+
+    def is_gt_half(self) -> bool:
+        """Lexicographic 'is positive' for sign flags: compare (c1, c0)."""
+        if not self.c1.is_zero():
+            return self.c1.is_gt_half()
+        return self.c0.is_gt_half()
 
     def is_zero(self):
         return self.c0.is_zero() and self.c1.is_zero()

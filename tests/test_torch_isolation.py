@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 33
+    assert n >= 43
 
 
 def _msm():
@@ -235,6 +235,66 @@ def _batch_verify_signatures():
     batch_verify_signatures([], [], None, SimpleNamespace())
 
 
+def _accum_key():
+    from crypto_tpu_torch.accumulator.setup import AccumSecretKey
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    return AccumSecretKey(tb.Fr(5))
+
+
+def _accum_enabled():
+    from crypto_tpu_torch.accumulator import device_update
+    device_update.enabled(1 << 13)
+
+
+def _accum_update_device():
+    from crypto_tpu_torch.accumulator import device_update
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G = tb.G1.generator()
+    device_update.batch_update_with_sk_device(
+        [tb.Fr(3)], [], [tb.Fr(1)], [G], G, _accum_key())
+
+
+def _accum_update_membership():
+    from crypto_tpu_torch.accumulator import witness
+    from crypto_tpu_torch.accumulator.core import MembershipWitness
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G = tb.G1.generator()
+    witness.update_membership_batch_with_sk(
+        [tb.Fr(3)], [], [tb.Fr(1)], [MembershipWitness(G)], G, _accum_key())
+
+
+def _accum_update_non_membership():
+    from crypto_tpu_torch.accumulator import witness
+    from crypto_tpu_torch.accumulator.core import NonMembershipWitness
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G = tb.G1.generator()
+    witness.update_non_membership_batch_with_sk(
+        [tb.Fr(3)], [], [tb.Fr(1)], [NonMembershipWitness(G, tb.Fr(2))], G,
+        _accum_key())
+
+
+def _accum_witnesses_for_batch():
+    from crypto_tpu_torch.accumulator.core import PositiveAccumulator
+    from crypto_tpu_torch.accumulator.persistence import InMemoryState
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    state = InMemoryState()
+    state.add(1)
+    PositiveAccumulator(tb.G1.generator()).get_membership_witnesses_for_batch(
+        [tb.Fr(1)], _accum_key(), state)
+
+
+def _accum_omega():
+    from crypto_tpu_torch.accumulator.batch_utils import Omega
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    Omega.new([tb.Fr(3)], [tb.Fr(4)], tb.G1.generator(), _accum_key())
+
+
+def _accum_coeffs():
+    from crypto_tpu_torch.accumulator import batch_utils
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    batch_utils.poly_v_D_coeffs([tb.Fr(3)], tb.Fr(5))
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -246,7 +306,12 @@ def _batch_verify_signatures():
                                    _witness_map, _tcubic_for,
                                    _tfield12_for, _tpairing_for, _tpairing,
                                    _jax_to_port_fq12, _pairing_checker,
-                                   _batch_verify_signatures],
+                                   _batch_verify_signatures,
+                                   _accum_enabled, _accum_update_device,
+                                   _accum_update_membership,
+                                   _accum_update_non_membership,
+                                   _accum_witnesses_for_batch, _accum_omega,
+                                   _accum_coeffs],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
