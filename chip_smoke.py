@@ -61,7 +61,20 @@ before it and read just after:
   (256 additions, cold and warm; 256 removals; 128 of each), each split
   by phase and held to V_new / (y + alpha) from the fixed-base table, its
   d factors to host integers, 16 members to the host branch and two by
-  pairing; one more update profiled.
+  pairing; one more update profiled;
+* BN254 at the reference's sizes, every kernel at its 8-limb
+  instantiation: 2^20 G1 bench points with known logs (the total
+  `TCurve` ops), three timed 2^20 MSMs at c = 16 on the fast levels, one
+  `safe=True`, the rerun path (one duplicated base: exactly the spoiled
+  windows rerun) and the G1 and G2 edge MSMs; the LegoGroth16 setup,
+  warm-up, three timed and one profiled prove of the 2^16 - 4 constraint
+  chain circuit over BN254 Fr (each checked in the exponent), and the
+  port's verifier on a proof (valid, spoiled input and C rejected, D
+  opened, both rerandomisations verified); the 64-pair `TPairingBN`
+  multi-pairing, cold and three timed, against e(G1, G2)^(sum a_i b_i)
+  from the host pairing; the BN254 paths together must launch every
+  8-limb instantiation and no point kernel.  The BLS12-381 prove phase
+  also runs the port's verifier (`legogroth16_verify`).
 
 Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
@@ -75,7 +88,9 @@ chunk and block, on infinities only and with infinities at both ends of
 every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0; mont_mul
 also at the 2^20 NTT's Fr shapes and the witness update's; the Fq2 mul
 and square, mont_mul and mont_pow also at the pairing's narrow widths,
-mont_pow also at the witness update's to_affine), times the fast down pass at each of
+mont_pow also at the witness update's to_affine; every 8-limb
+instantiation at the BN254 paths' shapes, the same way), times the fast
+down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
 call down to 16 elements, profiles one more 2^20 G1 MSM on each
 formula and one more G2 MSM for the device's busy share and each
@@ -111,13 +126,11 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
 # x 132 SMs x 1.98 GHz boost clock (H100 SXM)
 H100_IMAD_PER_S = 132 * 64 * 1.98e9
-FQ_LIMBS = 12
-FQ_BYTES = 4 * FQ_LIMBS            # one Fq element, 12 x 32-bit limbs
-FQ2_BYTES = 2 * FQ_BYTES           # one Fq2 element
-# 32x32 -> 64-bit products, the fewest known for each function: a
-# Montgomery mul (CIOS) and a Montgomery square (a wide square, the cross
-# products once and the squares, and a reduction) on L limbs, an Fq2
-# product (three unreduced 12 x 12 products and two reductions) and an Fq2
+FQ_LIMBS = 12                       # BLS12-381 Fq; BN254 Fq takes 8
+# 32x32 -> 64-bit products, the fewest known for each function on L
+# limbs: a Montgomery mul (CIOS) and a Montgomery square (a wide square,
+# the cross products once and the squares, and a reduction), an Fq2
+# product (three unreduced L x L products and two reductions) and an Fq2
 # square (Karatsuba on three wide squares and two reductions).  Every
 # square of a function is charged as a square, whatever a kernel runs.
 
@@ -130,11 +143,14 @@ def sqr_products(L: int) -> int:
     return L * (L + 1) // 2 + L * L + L
 
 
-MUL, SQR = mul_products(FQ_LIMBS), sqr_products(FQ_LIMBS)
-SQR_WIDE = FQ_LIMBS * (FQ_LIMBS + 1) // 2
-REDC = FQ_LIMBS * FQ_LIMBS + FQ_LIMBS
-FQ2_MUL = 3 * FQ_LIMBS * FQ_LIMBS + 2 * REDC
-FQ2_SQR = 3 * SQR_WIDE + 2 * REDC
+def fq2_mul_products(L: int) -> int:
+    return 3 * L * L + 2 * (L * L + L)
+
+
+def fq2_sqr_products(L: int) -> int:
+    return 3 * (L * (L + 1) // 2) + 2 * (L * L + L)
+
+
 # CUDA kernel function -> the entry point that launches it
 KERNEL_ENTRY = {
     "mont_mul_kernel": "mont_mul", "mont_pow_kernel": "mont_pow",
@@ -223,7 +239,7 @@ def work(name: str, args: tuple) -> tuple:
     once, each output written once; data-dependent work (doublings,
     gathered columns) counted from these inputs."""
     if name in ("mont_mul", "mont_pow"):
-        L, M = args[0].shape          # 12 limbs (Fq) or 8 (Fr)
+        L, M = args[0].shape          # 12 limbs (BLS12-381 Fq) or 8
         if name == "mont_mul":
             return 3 * 4 * L * M, mul_products(L) * M
         sq, mul = chain_ops(args[1])
@@ -238,7 +254,11 @@ def work(name: str, args: tuple) -> tuple:
     if name == "slot_tables":   # (F, x, y (U, N)) -> (N, U), (2N, U) rows
         return 5 * 4 * args[1].numel(), 0
     from crypto_tpu_torch.ops.kernels.curve_kernels import CHUNK_K
-    M = args[1].shape[1]                 # args[0] is the field context
+    L = args[0].L                        # args[0] is the field context
+    FQ_BYTES, FQ2_BYTES = 4 * L, 8 * L   # an Fq and an Fq2 element
+    MUL, SQR = mul_products(L), sqr_products(L)
+    FQ2_MUL, FQ2_SQR = fq2_mul_products(L), fq2_sqr_products(L)
+    M = args[1].shape[1]
     strips, totals = M - M // CHUNK_K, M // CHUNK_K * FQ_BYTES
     return {
         "fq2_mul": lambda: (3 * FQ2_BYTES * M, FQ2_MUL * M),
@@ -508,13 +528,14 @@ POINT_KERNELS = ("jacobian_add", "jacobian_add_mixed", "jacobian_double",
                  "jacobian_normalize")
 
 
-def chain_circuit(nc: int, x_val=None):
+def chain_circuit(nc: int, x_val=None, F=None):
     """`benches/bench_northstar.py` `chain_circuit` on the port's R1CS:
-    x_{i+1} = x_i^2 + x_i + i over nc constraints, x the first witness,
-    the last value the one public input."""
+    x_{i+1} = x_i^2 + x_i + i over nc constraints of the scalar field F
+    (BLS12-381's by default), x the first witness, the last value the one
+    public input."""
     from crypto_tpu_torch.curves import bls12_381 as bls
     from crypto_tpu_torch.r1cs.cs import LinearCombination as LC
-    F = bls.Fr
+    F = F or bls.Fr
 
     def circuit(cs):
         vals = None
@@ -622,24 +643,27 @@ def qap_at(cs, lag: list, p: int) -> tuple:
     return out
 
 
-def legogroth16_phases(counted, dev) -> dict:
-    """The north-star workload (`benches/bench_northstar.py`):
-    `chain_circuit` at 2^16 - 4 constraints, one committed witness.  The
-    setup from explicit trapdoors, then one warm-up prove and
-    `PROVE_RUNS` timed ones, each checked in the exponent: every proof
+def legogroth16_phases(counted, dev, mod=None, tag: str = "") -> dict:
+    """The north-star workload (`benches/bench_northstar.py`) over the
+    port's curve module `mod` (BLS12-381 by default; BN254 with tag
+    "bn254_"): `chain_circuit` at 2^16 - 4 constraints, one committed
+    witness.  The setup from explicit trapdoors, then one warm-up prove
+    and `PROVE_RUNS` timed ones, each checked in the exponent: every proof
     element equals its discrete log (from the trapdoors, the replayed
     rng's tau, r, s and v, and the assignment) times the generator, the
     logs satisfy the verification equation A B = alpha beta + gamma
     (inputs + D) + delta C, and every device MSM equals the sum of its
-    scalars times its points' known logs.  Returns ({path: launches},
-    the profiled prove's `device_ms_by_entry`)."""
+    scalars times its points' known logs.  Then the port's verifier on
+    the last proof (`verify_phase`).  Returns ({path: launches}, the
+    profiled prove's `device_ms_by_entry`)."""
     from crypto_tpu_torch.curves import bls12_381 as bls
     from crypto_tpu_torch.legogroth16 import snark
     from crypto_tpu_torch.ops import fixed_base
     from crypto_tpu_torch.ops.ntt import domain_for
     from crypto_tpu_torch.r1cs.cs import ConstraintSystem
-    F, R = bls.Fr, bls.R
-    G1, G2 = bls.G1.generator(), bls.G2.generator()
+    mod = mod or bls
+    F, R = mod.Fr, mod.R
+    G1, G2 = mod.G1.generator(), mod.G2.generator()
     nc = (1 << LEGO_LOG) - 4
     N = 1 << LEGO_LOG
     hr = random.Random(SEED + 90)
@@ -671,8 +695,9 @@ def legogroth16_phases(counted, dev) -> dict:
         torch.cuda.synchronize()
         spent["tables_s"] = time.perf_counter() - t
         return snark.generate_parameters_with_trapdoors(
-            chain_circuit(nc), 1, random.Random(setup_seed),
-            *(F(x) for x in (alpha, beta, gamma, delta, eta)), device=dev)
+            chain_circuit(nc, F=F), 1, random.Random(setup_seed),
+            *(F(x) for x in (alpha, beta, gamma, delta, eta)), ctx=mod,
+            device=dev)
 
     snark._fixed_base_many = timer("fixed_base_many_s", real_fb)
     snark._normalized = timer("normalize_s", real_norm)
@@ -684,7 +709,7 @@ def legogroth16_phases(counted, dev) -> dict:
     finally:
         snark._fixed_base_many, snark._normalized = real_fb, real_norm
         fixed_base.FixedBaseTable.mul_many = real_mm
-    require("LegoGroth16 setup", setup_launches, SETUP_KERNELS)
+    require(f"{tag}LegoGroth16 setup", setup_launches, SETUP_KERNELS)
 
     # the CRS's discrete logs, from the trapdoors and the replayed tau
     t0 = time.perf_counter()
@@ -694,8 +719,8 @@ def legogroth16_phases(counted, dev) -> dict:
         if (pow(tau, N, R) - 1) % R:
             break
     cs0 = ConstraintSystem(F, mode="setup")
-    chain_circuit(nc)(cs0)
-    lag = snark._lagrange_coeffs_at(domain_for(F, N, dev), tau)
+    chain_circuit(nc, F=F)(cs0)
+    lag = snark._lagrange_coeffs_at(domain_for(F, N, dev), tau, F)
     qa, qb, qc = qap_at(cs0, lag, R)
     n_inst = cs0.num_instance
     n_commit = n_inst + 1
@@ -727,7 +752,7 @@ def legogroth16_phases(counted, dev) -> dict:
             or vk.eta_gamma_inv_g1 != G1.mul_raw(eta * gi % R)):
         raise AssertionError("setup: a key element is not its log times "
                              "the generator")
-    phase("legogroth16_setup", constraints=nc, domain=N, seconds=t_setup,
+    phase(f"{tag}legogroth16_setup", constraints=nc, domain=N, seconds=t_setup,
           tables_s=spent["tables_s"], mul_many_device_s=spent["mul_many_s"],
           fixed_base_many_s=spent["fixed_base_many_s"],
           normalize_host_s=spent["normalize_s"],
@@ -743,7 +768,7 @@ def legogroth16_phases(counted, dev) -> dict:
     # recorded for the checks
     x = F(hr.randrange(R))
     cs1 = ConstraintSystem(F, mode="prove")
-    chain_circuit(nc, x)(cs1)
+    chain_circuit(nc, x, F)(cs1)
     z = [int(v) for v in cs1.full_assignment()]
     az, bz = (sum(u * v for u, v in zip(z, q)) % R for q in (qa, qb))
     lin_z = [u * v % R for u, v in zip(z, lin)]
@@ -770,13 +795,16 @@ def legogroth16_phases(counted, dev) -> dict:
     def create(seed: int):
         record.clear()
         t = time.perf_counter()
-        out = snark.create_proof(chain_circuit(nc, x), pk,
-                                 random.Random(seed), device=dev)
+        out = snark.create_proof(chain_circuit(nc, x, F), pk,
+                                 random.Random(seed), ctx=mod, device=dev)
         return out, time.perf_counter() - t
+
+    last = []
 
     def prove(seed: int):
         (proof, v, committed), total = create(seed)
         check_proof(seed, proof, int(v), committed)
+        last[:] = [proof, v, committed]
         split = {k: v_ for k, v_ in record.items() if k.endswith("_s")}
         split["other_s"] = total - sum(split.values())
         return total, split
@@ -824,30 +852,99 @@ def legogroth16_phases(counted, dev) -> dict:
                 total, split = prove(SEED + 94 + run)
             runs.append(total)
             splits.append(split)
-            phase("legogroth16_prove_run", run=run, seconds=total, **split,
-                  correct=True)
+            phase(f"{tag}legogroth16_prove_run", run=run, seconds=total,
+                  **split, correct=True)
         t_all = time.perf_counter() - t0
         msm_sizes = {m[0]: len(m[1]) for m in record["msms"]}
-        prove_dev = device_profile("profile_prove",
+        prove_dev = device_profile(f"profile_{tag}prove",
                                    lambda: create(SEED + 94 + PROVE_RUNS),
                                    cpu=False)
     finally:
         snark.witness_map, snark._msm_query = real_wm, real_mq
-    require("LegoGroth16 prove", launches, PROVE_KERNELS)
+    require(f"{tag}LegoGroth16 prove", launches, PROVE_KERNELS)
     if any(launches[k] for k in POINT_KERNELS):
         raise AssertionError(f"prove launched a point kernel: {launches}")
     med = statistics.median(runs)
-    phase("legogroth16_prove", constraints=nc, runs=PROVE_RUNS,
+    phase(f"{tag}legogroth16_prove", constraints=nc, runs=PROVE_RUNS,
           seconds=runs, median_s=med, spread=max(runs) / min(runs),
           warmup_s=warm, phases_median={
               k: statistics.median(sp[k] for sp in splits)
               for k in splits[0]}, msm_points=msm_sizes,
           launches={k: v for k, v in launches.items() if v},
           all_s=t_all, correct=True)
-    phase("per_prove", launches_device_ms=json.dumps(
+    phase(f"per_{tag}prove", launches_device_ms=json.dumps(
         {k: [cnt, round(ms, 4)] for k, (cnt, ms) in prove_dev.items()}))
-    return {"legogroth16_setup": setup_launches,
-            "legogroth16_prove": launches}, prove_dev
+    pub = [F(int(v_)) for v_ in cs1.instance_assignment[1:]]
+    verify_launches = verify_phase(counted, mod, pk, pub, *last, tag)
+    return {f"{tag}legogroth16_setup": setup_launches,
+            f"{tag}legogroth16_prove": launches,
+            f"{tag}legogroth16_verify": verify_launches}, prove_dev
+
+
+def verify_phase(counted, mod, pk, pub, proof, v, committed,
+                 tag: str) -> dict:
+    """The port's verifier (`snark.verify_proof` on the host pairing of
+    `mod`, as the reference's) on a proof of the prove phase: it accepts
+    the proof, rejects a spoiled public input and a spoiled C, opens D
+    with v (`verify_commitment`) and refuses another witness; a
+    `rerandomize_proof` output verifies; a `rerandomize_proof_1` output
+    verifies and opens with the new v and not the old.  Returns the
+    launches (none: host code)."""
+    from crypto_tpu_torch.legogroth16 import snark
+    F, vk = mod.Fr, pk.vk
+    G = mod.G1.generator()
+    secs = {}
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        secs.setdefault(key, []).append(time.perf_counter() - t)
+        return out
+
+    def run():
+        pvk = timed("prepare_s", snark.PreparedVerifyingKey.from_vk, vk,
+                    ctx=mod)
+        bad_c = snark.Proof(a=proof.a, b=proof.b, d=proof.d,
+                            c=(proof.c + G).normalize())
+        new_v = F(0x5EED)
+        rr = timed("rerandomize_s", snark.rerandomize_proof, proof, vk,
+                   random.Random(SEED + 98), ctx=mod)
+        rr1 = timed("rerandomize_1_s", snark.rerandomize_proof_1, proof, v,
+                    new_v, vk, pk.eta_delta_inv_g1, random.Random(SEED + 99),
+                    ctx=mod)
+        got = {
+            "valid": timed("verify_s", snark.verify_proof, pvk, proof, pub,
+                           ctx=mod),
+            "spoiled_input": timed("verify_s", snark.verify_proof, pvk,
+                                   proof, [pub[0] + F(1)], ctx=mod),
+            "spoiled_c": timed("verify_s", snark.verify_proof, pvk, bad_c,
+                               pub, ctx=mod),
+            "commitment": timed("commitment_s", snark.verify_commitment, vk,
+                                proof, pub, committed, v, ctx=mod),
+            "commitment_other_witness": snark.verify_commitment(
+                vk, proof, pub, [committed[0] + F(1)], v, ctx=mod),
+            "rerandomized": timed("verify_s", snark.verify_proof, pvk, rr,
+                                  pub, ctx=mod),
+            "rerandomized_1": timed("verify_s", snark.verify_proof, pvk,
+                                    rr1, pub, ctx=mod),
+            "rerandomized_1_opens_new_v": snark.verify_commitment(
+                vk, rr1, pub, committed, new_v, ctx=mod),
+            "rerandomized_1_opens_old_v": snark.verify_commitment(
+                vk, rr1, pub, committed, v, ctx=mod)}
+        return got
+
+    got, launches = drive(counted, run)
+    want = {"valid": True, "spoiled_input": False, "spoiled_c": False,
+            "commitment": True, "commitment_other_witness": False,
+            "rerandomized": True, "rerandomized_1": True,
+            "rerandomized_1_opens_new_v": True,
+            "rerandomized_1_opens_old_v": False}
+    if got != want:
+        raise AssertionError(f"{tag}legogroth16_verify: {got}")
+    phase(f"{tag}legogroth16_verify", checks=got, seconds=secs,
+          verify_median_s=statistics.median(secs["verify_s"]),
+          launches=sum(launches.values()), correct=True)
+    return launches
 
 PAIRS = 64                          # benches/bench_pairing.py NPAIR
 PAIRING_RUNS = 3                    # timed multi-pairings, fresh pairs each
@@ -1291,6 +1388,629 @@ def accumulator_phases(counted, dev) -> tuple:
     return paths, profile_update
 
 
+BN254_MSM_RUNS = 3                  # timed 2^20 BN254 G1 MSMs
+BN254_PROBE_LOG = 16                # the prove's G2 query MSM: ~2^16 points
+# the L = 8 instantiations the BN254 paths must launch between them: every
+# level kernel of both formulas, the Fq2 level, product and square, the
+# gather and its tables (8 words a row on G1, 16 on G2), mont_mul and
+# mont_pow; the point kernels take BLS12-381 Fq only
+BN254_KERNELS = ("mont_mul", "mont_pow", "affine_level_pre",
+                 "affine_level_post", "chunked_level_prefix",
+                 "chunked_level_down", "affine_level_pre_fast",
+                 "affine_level_post_fast", "chunked_level_prefix_fast",
+                 "chunked_level_down_fast", "fq2_mul", "fq2_sqr",
+                 "affine_level_pre_fq2", "affine_level_post_fq2",
+                 "gather_rows_t", "slot_tables")
+
+
+def bn254_msm_phases(counted, dev) -> tuple:
+    """BN254 G1 at the reference's full size: 2^20 bench points with known
+    discrete logs (built by the total `TCurve` ops: the point kernels
+    take BLS12-381 Fq only), `BN254_MSM_RUNS` timed MSMs at c = 16 on the
+    fast levels, each equal to its known-dlog sum with no rerun, one
+    `safe=True` MSM, the rerun path (one duplicated base colliding in one
+    window: exactly the spoiled windows rerun), and the edge MSMs of G1
+    (8 duplicate bases, rerun through the total pre/post; 300 points
+    with one scalar) and G2 (duplicates, P and -P, infinity, zero and
+    equal scalars).  Returns ({path: (launches, level widths)}, what the
+    kernel checks need)."""
+    from crypto_tpu_torch.bench_points import make_bench_points, \
+        make_bench_scalars
+    from crypto_tpu_torch.curves import bn254 as bn
+    from crypto_tpu_torch.curves.tcurve import TPoints, tcurve_for
+    from crypto_tpu_torch.ops import msm_v2
+    n, R, thr = 1 << N_LOG, bn.R, msm_v2.CHUNK_MIN_PAIRS
+    tc = tcurve_for(bn.G1, dev)
+    G = bn.G1.generator()
+    paths = {}
+
+    # ---- bench points: 2^20 distinct points on the total TCurve ops
+    t0 = time.time()
+    (points, dlog), bp = drive(counted, lambda: make_bench_points(tc, n))
+    torch.cuda.synchronize()
+    t_points = time.time() - t0
+    require("bn254 bench points", bp, ("mont_mul", "mont_pow"))
+    if any(bp[k] for k in POINT_KERNELS):
+        raise AssertionError(f"bn254 bench points launched a point kernel: "
+                             f"{bp}")
+    logs = [dlog(i) for i in range(n)]
+    sample = list(range(0, n, n // 64))
+    got = tc.unpack(TPoints(*(t[:, sample] for t in points)))
+    if any(g != G.mul_raw(logs[i]) for g, i in zip(got, sample)):
+        raise AssertionError("bn254 bench points disagree with their "
+                             "discrete logs")
+    paths["bn254_bench_points_2^20"] = (bp, [])
+    phase("bn254_bench_points", n=n, seconds=round(t_points, 3),
+          mont_mul_launches=bp["mont_mul"], mont_pow_launches=bp["mont_pow"],
+          sample_checked=len(sample), correct=True)
+
+    # ---- the 2^20 MSM, c = 16, fast levels
+    _, warm = make_bench_scalars(R, n, SEED + 200)
+    msm_v2.msm_device_scheduled(bn.G1, points, warm, c=16)
+    secs, runs = [], []
+    for run in range(BN254_MSM_RUNS):
+        sc, sb = make_bench_scalars(R, n, SEED + 201 + run)
+        timings = {}
+        torch.cuda.synchronize()
+
+        def timed():
+            t = time.perf_counter()
+            res = msm_v2.msm_device_scheduled(bn.G1, points, sb, c=16,
+                                              timings=timings)
+            return res, time.perf_counter() - t
+
+        (result, dt), launches = drive(counted, timed)
+        if result != G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % R):
+            raise AssertionError("bn254 2^20 MSM disagrees with the "
+                                 "known-dlog result")
+        if timings["rerun_windows"] or any(launches[k] for k in
+                                           SAFE_KERNELS + FQ2_KERNELS):
+            raise AssertionError(f"bn254 2^20 MSM on distinct bases reran "
+                                 f"{timings['rerun_windows']} or launched "
+                                 f"a total-formula or an Fq2 kernel: "
+                                 f"{launches}")
+        require("bn254 2^20 MSM", launches,
+                level_kernels(timings["level_pairs"], [], thr))
+        secs.append(dt)
+        runs.append((launches, timings))
+        phase("bn254_msm_run", run=run, seconds=dt, points_per_s=n / dt,
+              phases=floats(timings), rerun_windows=[], correct=True)
+    launches, timings = runs[0]
+    main_widths = timings["level_pairs"]
+    paths["bn254_msm_2^20"] = (launches, main_widths)
+    med = statistics.median(secs)
+    phase("bn254_msm", n=n, c=16, runs=BN254_MSM_RUNS, seconds=secs,
+          median_s=med, spread=max(secs) / min(secs), points_per_s=n / med,
+          level_pairs=main_widths, slots=timings["slots"],
+          launches={k: v for k, v in launches.items() if v}, correct=True)
+
+    # ---- safe=True once on fresh scalars
+    sc, sb = make_bench_scalars(R, n, SEED + 240)
+    t_s = {}
+    t0 = time.perf_counter()
+    res, safe_launches = drive(counted, lambda: msm_v2.msm_device_scheduled(
+        bn.G1, points, sb, c=16, safe=True, timings=t_s))
+    dt_s = time.perf_counter() - t0
+    if res != G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % R) \
+            or t_s["rerun_windows"]:
+        raise AssertionError("bn254 2^20 MSM with safe=True disagrees with "
+                             "the known-dlog result or reran")
+    require("bn254 safe 2^20 MSM", safe_launches,
+            level_kernels([], t_s["level_pairs"], thr))
+    paths["bn254_msm_safe_2^20"] = (safe_launches, t_s["level_pairs"])
+    phase("bn254_msm_safe", n=n, seconds=dt_s, phases=floats(t_s),
+          correct=True)
+
+    # ---- the rerun path: a duplicated base collides in window w0's bucket
+    sc, sb = make_bench_scalars(R, n, SEED + 250)
+    dh = msm_v2.device_digits(sb, 16, bn.Fr.bits).cpu().numpy()
+    W, B, w0 = dh.shape[0], 1 << 15, 5
+    i_b = next(k for k in range(11, n) if dh[w0, k] != 0)
+    j_b = next(k for k in range(n // 2, n)
+               if all(dh[w, k] != dh[w, i_b] for w in range(W) if w != w0))
+    v0 = int(dh[w0, i_b])
+    lane = np.arange(n)
+    moved = np.nonzero((np.abs(dh[w0]) == abs(v0)) & (lane != i_b)
+                       & (lane != j_b))[0]
+    new = np.sign(dh[w0, moved]) * ((abs(v0) + np.arange(moved.size)) % B
+                                    + 1)
+    logs_r = list(logs)
+    logs_r[j_b] = logs[i_b]
+    shift = 1 << (16 * w0)
+    expect_s = sum(s * d for s, d in zip(sc, logs_r))
+    expect_s += (v0 - int(dh[w0, j_b])) * shift * logs_r[j_b]
+    expect_s += sum((int(a) - int(b)) * shift * logs_r[k]
+                    for k, a, b in zip(moved, new, dh[w0, moved]))
+    dh[w0, moved] = new
+    dh[w0, j_b] = v0
+    pts_r = TPoints(*(t.clone() for t in points))
+    for t in pts_r:
+        t[:, j_b] = t[:, i_b]
+    t_rr = {}
+    t0 = time.perf_counter()
+    res_r, rr_launches = drive(counted, lambda: msm_v2.msm_device_scheduled(
+        bn.G1, pts_r, torch.from_numpy(dh).to(dev), c=16, timings=t_rr))
+    dt_r = time.perf_counter() - t0
+    del pts_r
+    if res_r != G.mul_raw(expect_s % R):
+        raise AssertionError("bn254 2^20 rerun MSM disagrees with the "
+                             "known-dlog result")
+    spoiled = spoiled_windows(t_rr)
+    if w0 not in spoiled or t_rr["rerun_windows"] != spoiled:
+        raise AssertionError(f"bn254 rerun path: collision in window {w0}, "
+                             f"spoiled windows {spoiled}, rerun "
+                             f"{t_rr['rerun_windows']}")
+    rr_widths = rerun_widths(t_rr)
+    require("bn254 2^20 rerun", rr_launches,
+            level_kernels(t_rr["level_pairs"], rr_widths, thr))
+    paths["bn254_rerun_2^20"] = (rr_launches, rr_widths)
+    phase("bn254_rerun_msm", n=n, collision_window=w0, bases=[i_b, j_b],
+          rerun_windows=spoiled, rerun_level_pairs=rr_widths, seconds=dt_r,
+          phases=floats(t_rr), correct=True)
+
+    # ---- G1 edge MSMs: 8 duplicate bases, and 300 points with one scalar
+    p0 = G.mul_raw(random.Random(SEED + 251).randrange(1, R))
+    m_eq, s_eq = 300, 0x1234567890ABCDEF
+    sub = TPoints(*(t[:, :m_eq].contiguous() for t in points))
+    t_dup, t_eq = {}, {}
+    (dup, eq_res), edge_launches = drive(counted, lambda: (
+        msm_v2.msm_device_scheduled(bn.G1, [p0] * 8, [7] * 8, timings=t_dup),
+        msm_v2.msm_device_scheduled(bn.G1, sub, [s_eq] * m_eq,
+                                    timings=t_eq)))
+    if dup != p0.mul_raw(56) \
+            or eq_res != G.mul_raw(s_eq * sum(logs[:m_eq]) % R):
+        raise AssertionError("bn254 edge MSMs disagree with the host")
+    if 0 not in t_dup["rerun_windows"] \
+            or t_dup["rerun_windows"] != spoiled_windows(t_dup) \
+            or t_eq["rerun_windows"]:
+        raise AssertionError(f"bn254 edge MSMs: rerun "
+                             f"{t_dup['rerun_windows']} and "
+                             f"{t_eq['rerun_windows']}")
+    edge_widths = t_dup["level_pairs"] + t_eq["level_pairs"]
+    edge_safe = rerun_widths(t_dup)
+    require("bn254 edge MSM", edge_launches,
+            level_kernels(edge_widths, edge_safe, thr)
+            | set(LEVEL_KERNELS[("pre_post", True)]))
+    paths["bn254_edge_msm"] = (edge_launches, edge_widths)
+    phase("bn254_edge_msm", duplicate_bases=True, all_equal_scalars_n=m_eq,
+          level_pairs=edge_widths, rerun_windows=t_dup["rerun_windows"],
+          rerun_level_pairs=edge_safe, correct=True)
+
+    # ---- G2 edge MSMs on the Fq2 levels: no flag, no rerun
+    G2 = bn.G2.generator()
+    hr = random.Random(SEED + 260)
+    q0, q1, *qs = (G2.mul_raw(hr.randrange(1, R)) for _ in range(8))
+    e_pts = [q0] * 6 + [q1, -q1, bn.G2.infinity(), q0.double()] + qs
+    e_sc = [7] * 6 + [9, 9, 5, 0, 0, 3, 7, 11, 2, 13]
+    e_expect = bn.G2.infinity()
+    for p_, s_ in zip(e_pts, e_sc):
+        e_expect = e_expect + p_.mul_raw(s_)
+    eq_logs = [hr.randrange(1, R) for _ in range(64)]
+    eq_pts = known_log_points(G2, eq_logs, dev)
+    t_e1, t_e2 = {}, {}
+    (e_res, eq2_res), edge2_launches = drive(counted, lambda: (
+        msm_v2.msm_device_scheduled(bn.G2, e_pts, e_sc, timings=t_e1),
+        msm_v2.msm_device_scheduled(bn.G2, eq_pts, [s_eq] * len(eq_pts),
+                                    timings=t_e2)))
+    if e_res != e_expect or eq2_res != G2.mul_raw(s_eq * sum(eq_logs) % R):
+        raise AssertionError("bn254 G2 edge MSMs disagree with the host")
+    not_g2 = G1_LEVEL_KERNELS + POINT_KERNELS
+    require("bn254 G2 edge MSM", edge2_launches, G2_KERNELS)
+    if any(edge2_launches[k] for k in not_g2) or t_e1["rerun_windows"] \
+            or t_e2["rerun_windows"]:
+        raise AssertionError(f"bn254 G2 edge MSM: a G1 kernel or a rerun: "
+                             f"{edge2_launches}")
+    g2_edge_widths = t_e1["level_pairs"] + t_e2["level_pairs"]
+    paths["bn254_g2_edge_msm"] = (edge2_launches, g2_edge_widths)
+    phase("bn254_g2_edge_msm", points=[len(e_pts), len(eq_pts)],
+          level_pairs=g2_edge_widths, rerun_windows=[], correct=True)
+    return paths, dict(points=points, sb=sb, main_widths=main_widths,
+                       slots=timings["slots"], rr_widths=rr_widths,
+                       edge_widths=edge_widths, edge_safe=edge_safe,
+                       g2_edge_widths=g2_edge_widths)
+
+
+def bn254_pairing_phase(counted, dev) -> tuple:
+    """`TPairingBN` at `bench_pairing.py`'s size: 64 BN254 pairs from known
+    logs plus one with G1 at infinity, once cold and `PAIRING_RUNS` times
+    timed on fresh pairs, each product equal to e(G1, G2)^(sum a_i b_i)
+    from the port's host `bn254` pairing; the first set's per-pair Miller
+    values against the host Miller loop and its product against the host
+    multi-pairing; e(aP, bQ) == e(abP, Q).  Returns (launches, the pair
+    set to profile)."""
+    from crypto_tpu_torch.curves import bn254 as bn
+    from crypto_tpu_torch.curves.tpairing import tpairing_for
+    R = bn.R
+    G1, G2 = bn.G1.generator(), bn.G2.generator()
+    tp = tpairing_for("bn254", dev)
+    hr = random.Random(SEED + 300)
+    t0 = time.perf_counter()
+    nsets = 2 + PAIRING_RUNS
+    la = [hr.randrange(1, R) for _ in range(nsets * PAIRS)]
+    lb = [hr.randrange(1, R) for _ in range(nsets * PAIRS)]
+    A, B = known_log_points(G1, la, dev), known_log_points(G2, lb, dev)
+    sets = []
+    for k in range(nsets):
+        sl = slice(k * PAIRS, (k + 1) * PAIRS)
+        sets.append((list(zip(A[sl], B[sl])) + [(bn.G1.infinity(),
+                                                 B[k * PAIRS])],
+                     sum(x * y for x, y in zip(la[sl], lb[sl])) % R))
+    gt = bn.pairing(G1, G2)
+    t_setup = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cold = tp.multi_pairing(sets[0][0])
+    t_cold = time.perf_counter() - t
+    t0 = time.perf_counter()
+    lanes = tp.t12.unpack_host(tp.miller_loop_batch(
+        *tp.pack_pairs(sets[0][0])))
+    if any(m != bn.miller_loop([pq]) for m, pq in zip(lanes, sets[0][0])):
+        raise AssertionError("bn254_pairing_64: a lane's Miller value "
+                             "differs from the host Miller loop")
+    if cold != bn.multi_pairing(sets[0][0]) or cold != gt ** sets[0][1]:
+        raise AssertionError("bn254_pairing_64: the product differs from "
+                             "the host multi-pairing")
+    t_check = time.perf_counter() - t0
+    secs, launches = [], None
+    for run in range(PAIRING_RUNS):
+        pairs, log = sets[1 + run]
+
+        def timed():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = tp.multi_pairing(pairs)
+            return out, time.perf_counter() - t
+
+        if launches is None:
+            (out, dt), launches = drive(counted, timed)
+        else:
+            out, dt = timed()
+        if out != gt ** log:
+            raise AssertionError("bn254_pairing_64: a timed multi-pairing "
+                                 "differs from its known log")
+        secs.append(dt)
+    require("bn254_pairing_64", launches, PAIRING_KERNELS)
+    if any(launches[k] for k in G1_LEVEL_KERNELS + POINT_KERNELS):
+        raise AssertionError(f"bn254_pairing_64 launched a level or point "
+                             f"kernel: {launches}")
+    a, b = hr.randrange(1, R), hr.randrange(1, R)
+    aP, bQ = G1.mul_raw(a).normalize(), G2.mul_raw(b).normalize()
+    abP = G1.mul_raw(a * b % R).normalize()
+    if not tp.multi_pairing([(aP, bQ), (-abP, G2)]).is_one():
+        raise AssertionError("bn254_pairing_64: e(aP, bQ) != e(abP, Q)")
+    med = statistics.median(secs)
+    phase("bn254_pairing_64", pairs=PAIRS, infinite_pairs=1,
+          runs=PAIRING_RUNS, seconds=secs, median_s=med,
+          spread=max(secs) / min(secs), cold_s=t_cold,
+          pairings_per_s=PAIRS / med, setup_s=t_setup, host_check_s=t_check,
+          launches={k: v for k, v in launches.items() if v}, bilinear=True,
+          correct=True)
+    return launches, sets[-1][0]
+
+
+def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
+    """Every L = 8 instantiation held bit for bit against its plain version
+    at the BN254 paths' own shapes, with ragged widths, dead lanes and
+    infinite operands, as the L = 12 checks are; returns the kernels-line
+    rows (`row`) of each at its path's shape."""
+    from crypto_tpu_torch.bench_points import make_bench_points, \
+        make_bench_scalars
+    from crypto_tpu_torch.curves import bn254 as bn
+    from crypto_tpu_torch.curves.tcurve import tcurve_for
+    from crypto_tpu_torch.fields.tfield import tfield_for
+    from crypto_tpu_torch.ops import msm_v2
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    csrc = "crypto_tpu_torch/csrc/"
+    ref = "crypto_tpu/ops/pallas/curve_kernels.py:"
+    mref = "crypto_tpu/ops/pallas/field_kernels.py:386"
+    thr = msm_v2.CHUNK_MIN_PAIRS
+    tc, tc2 = tcurve_for(bn.G1, dev), tcurve_for(bn.G2, dev)
+    F, F2 = tc.F, tc2.F
+    points = data["points"]
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 400)
+    hr = random.Random(SEED + 401)
+    P = bn.P
+
+    # the prove's G2 query MSM shape: 2^16 G2 points at c = 8, from known
+    # logs, for the Fq2 level's and the G2 gather's shapes (a probe,
+    # outside the counted paths)
+    n2 = 1 << BN254_PROBE_LOG
+    pts2, dlog2 = make_bench_points(tc2, n2)
+    sc2, sb2 = make_bench_scalars(bn.R, n2, SEED + 402)
+    t2 = {}
+    res2 = msm_v2.msm_device_scheduled(bn.G2, pts2, sb2, c=8, timings=t2)
+    want2 = sum(s * dlog2(i) for i, s in enumerate(sc2)) % bn.R
+    if res2 != bn.G2.generator().mul_raw(want2):
+        raise AssertionError("bn254 G2 probe MSM disagrees with its logs")
+
+    def lvl(M, pts, Fx):
+        n = pts.X.shape[1]
+        i1 = torch.randint(0, n, (M,), generator=gen, device=dev)
+        i2 = torch.randint(0, n, (M,), generator=gen, device=dev)
+        lane = torch.arange(M, device=dev)
+        i2 = torch.where(lane % 7 < 2, i1, i2)
+        x1, y1, x2, y2 = pts.X[:, i1], pts.Y[:, i1], pts.X[:, i2], \
+            pts.Y[:, i2]
+        y2 = torch.where((lane % 7 == 1)[None], Fx.neg(y2), y2)
+        m1 = ((lane % 11 == 3) | (lane % 13 == 5)).to(torch.int32)
+        m2 = ((lane % 17 == 4) | (lane % 13 == 5)).to(torch.int32)
+        return x1, y1, m1, x2, y2, m2
+
+    def add_row(name, src, rep, path, err, fn, plain_ms, args, shape, **kw):
+        rows.append(row(name, src, rep, path, err, cuda_ms(fn), plain_ms,
+                        args, shape, **kw))
+
+    # ---- mont_mul at the G1 tail's width and ragged, Fr at the 2^16 NTT's
+    # stage, the pairing's base products; mont_pow's roots
+    for fld, M, path in ((bn.Fq, 16 << 15, "bn254_msm_2^20"),
+                         (bn.Fq, (16 << 15) - 3, None),
+                         (bn.Fr, 1 << 15, None),
+                         (bn.Fq, 2 * (PAIRS + 1), "bn254_pairing_64")):
+        Fx = tfield_for(fld, dev)
+        ra = Fx.pack([hr.randrange(fld.p) for _ in range(M)])
+        rb = Fx.pack([hr.randrange(fld.p) for _ in range(M)])
+        ra[:, :4] = Fx.pack([0, 1, fld.p - 1, fld.p - 1], mont=False)
+        rb[:, :4] = ra[:, :4].flip(1)
+        ra[:, 4] = rb[:, 5] = -1
+        plain, plain_ms = timed_call(lambda: fk.mont_mul_plain(ra, rb,
+                                                               Fx.mod))
+        err = agree("mont_mul", (fk.mont_mul(ra, rb, Fx.mod),), (plain,),
+                    f"on {fld.name} at M={M}")
+        if path:
+            add_row("mont_mul", csrc + "mont_mul.cu", mref, path, err,
+                    lambda: fk.mont_mul(ra, rb, Fx.mod), plain_ms,
+                    (ra, rb, Fx.mod), [8, M])
+    for M, zero, path in ((1, False, "bn254_msm_2^20"), (1, True, None),
+                          (16, False, None), (1 << 16, False, None)):
+        x = F.pack([0 if zero else hr.randrange(1, P) for _ in range(M)])
+        x[:, 3::5] = 0
+        pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(x, P - 2, F.mod))
+        err = agree("mont_pow", (fk.mont_pow(x, P - 2, F.mod),), (pw,),
+                    f"on bn254.Fq at M={M}")
+        if path:
+            add_row("mont_pow", csrc + "mont_mul.cu", mref, path, err,
+                    lambda: fk.mont_pow(x, P - 2, F.mod), pw_ms,
+                    (x, P - 2, F.mod), [8, M])
+    phase("check_mont_mul_bn254", fq=[16 << 15, (16 << 15) - 3,
+                                      2 * (PAIRS + 1)], fr=[1 << 15],
+          mont_pow=[1, 16, 1 << 16], zeros=True, bit_exact=True)
+
+    # ---- the affine levels, both formulas, at the edge MSMs' widths, a
+    # ragged count and a 2^20 level width
+    for fast, widths in ((False, data["edge_safe"]),
+                         (True, data["edge_widths"])):
+        w_pre = max(w for w in widths if w < thr)
+        if fast:
+            pre, post = ck.affine_level_pre_fast, ck.affine_level_post_fast
+            pre_p = ck.affine_level_pre_fast_plain
+            post_p = ck.affine_level_post_fast_plain
+        else:
+            pre, post = ck.affine_level_pre, ck.affine_level_post
+            pre_p, post_p = ck.affine_level_pre_plain, \
+                ck.affine_level_post_plain
+        for M in (w_pre, w_pre + 3, min(data["main_widths"])):
+            ins = lvl(M, points, F)
+            kd = pre(F, *ins)
+            pd, pre_ms = timed_call(lambda: pre_p(F, *ins))
+            e_pre = agree(pre.__name__, kd, pd, f"at bn254 M={M}")
+            d = kd[0].clone()
+            d[0] |= F.is_zero(d).to(torch.int32)
+            dinv = msm_v2.batch_inv_t(F, d)
+            x1, y1, m1, x2, y2, m2 = ins
+            args = (x1, y1, x2, y2, dinv, m1, m2) if fast else \
+                (x1, y1, x2, y2, dinv, kd[1], m1, m2)
+            pp, post_ms = timed_call(lambda: post_p(F, *args))
+            e_post = agree(post.__name__, post(F, *args), pp,
+                           f"at bn254 M={M}")
+            if M == w_pre:
+                lines = ("739", "752") if fast else ("533", "548")
+                add_row(pre.__name__, csrc + "affine_level.cu",
+                        ref + lines[0], "bn254_edge_msm", e_pre,
+                        lambda: pre(F, *ins), pre_ms, (F,) + ins, [8, M])
+                add_row(post.__name__, csrc + "affine_level.cu",
+                        ref + lines[1], "bn254_edge_msm", e_post,
+                        lambda: post(F, *args), post_ms, (F,) + args, [8, M])
+    phase("check_affine_level_bn254", path="bn254_edge_msm", bit_exact=True)
+
+    # ---- the chunked levels at 524,288 pairs, a width of both the rerun
+    # (total formula) and the 2^20 MSM (fast) and the width of the
+    # BLS12-381 rows; ragged, and every warp holding an infinite operand
+    def chunked(M, inf_warps=False):
+        pad = (-M) % msm_v2.CHUNK_PAD
+        x1, y1, m1, x2, y2, m2 = lvl(M, points, F)
+        x1, y1, x2, y2 = (msm_v2._pad_cols(t, pad, 0)
+                          for t in (x1, y1, x2, y2))
+        m1, m2 = msm_v2._pad_cols(m1, pad, 1), msm_v2._pad_cols(m2, pad, 1)
+        if inf_warps:
+            Mp = x1.shape[1]
+            lane = torch.arange(Mp, device=dev)
+            warp = lane % (Mp // ck.CHUNK_K) // 32
+            m1 = ((warp % 4 == 0) | (warp % 4 == 2)
+                  | ((warp % 4 == 3) & (lane % 3 == 0))).to(torch.int32)
+            m2 = ((warp % 4 == 1) | (warp % 4 == 2)
+                  | ((warp % 4 == 3) & (lane % 3 == 1))).to(torch.int32)
+        return x1, y1, m1, x2, y2, m2
+
+    for fast, path, widths in ((False, "bn254_rerun_2^20",
+                                data["rr_widths"]),
+                               (True, "bn254_msm_2^20",
+                                data["main_widths"])):
+        chunk_widths = sorted(w for w in widths if w >= thr)
+        w_chunk = 1 << 19 if 1 << 19 in chunk_widths else \
+            chunk_widths[len(chunk_widths) // 2]
+        if fast:
+            prefix, down = ck.chunked_level_prefix_fast, \
+                ck.chunked_level_down_fast
+            prefix_p = ck.chunked_level_prefix_fast_plain
+            down_p = ck.chunked_level_down_fast_plain
+        else:
+            prefix, down = ck.chunked_level_prefix, ck.chunked_level_down
+            prefix_p = ck.chunked_level_prefix_plain
+            down_p = ck.chunked_level_down_plain
+        for M, iw in ((w_chunk, False), (w_chunk + 5, False),
+                      (w_chunk, True)):
+            ins = chunked(M, iw)
+            kq = prefix(F, *ins)
+            pq, prefix_ms = timed_call(lambda: prefix_p(F, *ins))
+            e_pre = agree(prefix.__name__, kq, pq, f"at bn254 M={M}")
+            total = kq[1].clone()
+            total[0] |= F.is_zero(total).to(torch.int32)
+            args = ins + (kq[0], msm_v2.batch_inv_t(F, total)) \
+                + (() if fast else (kq[2],))
+            pdn, down_ms = timed_call(lambda: down_p(F, *args))
+            e_down = agree(down.__name__, down(F, *args), pdn,
+                           f"at bn254 M={M}")
+            if M == w_chunk and not iw:
+                lines = ("669", "683") if fast else ("844", "860")
+                Mp = ins[0].shape[1]
+                add_row(prefix.__name__, csrc + "chunked_level.cu",
+                        ref + lines[0], path, e_pre,
+                        lambda: prefix(F, *ins), prefix_ms, (F,) + ins,
+                        [8, Mp])
+                add_row(down.__name__, csrc + "chunked_level.cu",
+                        ref + lines[1], path, e_down,
+                        lambda: down(F, *args), down_ms, (F,) + args,
+                        [8, Mp])
+    phase("check_chunked_level_bn254", infinite_operand_in_every_warp=True,
+          bit_exact=True)
+
+    # ---- the Fq2 level at the prove's G2 query MSM's narrowest level
+    # (the probe), ragged, the G2 edge MSMs' widest and 96 pairs whose
+    # first warp mixes doublings, P + (-P) and infinite operands
+    g2_widths = t2["level_pairs"]
+    w_lvl = min(g2_widths)
+    for M in (w_lvl, w_lvl + 5, max(data["g2_edge_widths"]), 96):
+        ins = lvl(M, pts2, F2)
+        kd = ck.affine_level_pre_fq2(F2, *ins)
+        pd, pre_ms = timed_call(lambda: ck.affine_level_pre_plain(F2, *ins))
+        e_pre = agree("affine_level_pre_fq2", kd, pd, f"at bn254 M={M}")
+        x1, y1, m1, x2, y2, m2 = ins
+        args = (x1, y1, x2, y2, msm_v2.batch_inv_t(F2, kd[0]), kd[1], m1,
+                m2)
+        pp, post_ms = timed_call(lambda: ck.affine_level_post_plain(F2,
+                                                                    *args))
+        e_post = agree("affine_level_post_fq2",
+                       ck.affine_level_post_fq2(F2, *args), pp,
+                       f"at bn254 M={M}")
+        if M == 96 and not all(int(t.sum()) for t in (
+                kd[1][:32], kd[2][:32] & (m1[:32] == 0) & (m2[:32] == 0),
+                m1[:32], m2[:32])):
+            raise AssertionError("bn254 Fq2 level inputs: a warp without a "
+                                 "doubling, P + (-P) or an infinite operand")
+        if M == w_lvl:
+            add_row("affine_level_pre_fq2", csrc + "affine_level_fq2.cu",
+                    ref + "1014", "bn254_legogroth16_prove", e_pre,
+                    lambda: ck.affine_level_pre_fq2(F2, *ins), pre_ms,
+                    (F2,) + ins, [16, M])
+            add_row("affine_level_post_fq2", csrc + "affine_level_fq2.cu",
+                    ref + "1029", "bn254_legogroth16_prove", e_post,
+                    lambda: ck.affine_level_post_fq2(F2, *args), post_ms,
+                    (F2,) + args, [16, M])
+    phase("check_affine_level_fq2_bn254", pairs=[w_lvl, w_lvl + 5,
+                                                 max(data["g2_edge_widths"]),
+                                                 96], g2_probe_level_pairs=
+          g2_widths, bit_exact=True)
+
+    # ---- the Fq2 product and square: at the probe's first product-tree
+    # width and the pairing's line products (15 a lane) and squares (4 a
+    # lane), random coordinates with the edges 0, 1, u, (p-1)(1 + u) and
+    # the canonical limbs that bound the lazy reduction
+    edges2 = F2.pack([bn.Fq2(0, 0), bn.Fq2(1, 0), bn.Fq2(0, 1),
+                      bn.Fq2(P - 1, P - 1)])
+    limb_edges = F2.pack([bn.Fq2(P - 1, P - 1), bn.Fq2(0, P - 1),
+                          bn.Fq2(P - 1, 0), bn.Fq2(1, 0), bn.Fq2(P - 1, 1)],
+                         mont=False)
+    lanes = PAIRS + 1
+    for M, path in ((w_lvl // 2, "bn254_legogroth16_prove"),
+                    (w_lvl // 2 - 3, None),
+                    (15 * lanes, "bn254_pairing_64")):
+        a = pts2.X[:, torch.randint(0, n2, (M,), generator=gen, device=dev)]
+        b = pts2.Y[:, torch.randint(0, n2, (M,), generator=gen, device=dev)]
+        a[:, :4], b[:, :4] = edges2, edges2.flip(1)
+        a[:, 5:10], b[:, 5:10] = limb_edges, limb_edges
+        a[:, 10:15], b[:, 10:15] = limb_edges, limb_edges.flip(1)
+        pm, pm_ms = timed_call(lambda: fk.fq2_mul_plain(F, a, b))
+        err = agree("fq2_mul", (fk.fq2_mul(F, a, b),), (pm,),
+                    f"at bn254 M={M}")
+        if path:
+            add_row("fq2_mul", csrc + "fq2_mul.cu", ref + "1066", path, err,
+                    lambda: fk.fq2_mul(F, a, b), pm_ms, (F, a, b), [16, M])
+        a = a.clone()
+        a[8:, 15] = a[:8, 15]                        # a0 = a1
+        a[8:, 16] = 0                                # a1 = 0
+        sq_M = 4 * lanes if path == "bn254_pairing_64" else M
+        a = a[:, :sq_M].contiguous()
+        ps, ps_ms = timed_call(lambda: fk.fq2_sqr_plain(F, a))
+        err = agree("fq2_sqr", (fk.fq2_sqr(F, a),), (ps,),
+                    f"at bn254 M={sq_M}")
+        if path:
+            add_row("fq2_sqr", csrc + "fq2_mul.cu", ref + "908", path, err,
+                    lambda: fk.fq2_sqr(F, a), ps_ms, (F, a), [16, sq_M])
+    phase("check_fq2_bn254", fq2_mul=[w_lvl // 2, w_lvl // 2 - 3,
+                                      15 * lanes],
+          fq2_sqr=[w_lvl // 2, w_lvl // 2 - 3, 4 * lanes], limb_edges=True,
+          bit_exact=True)
+
+    # ---- the slot tables and the gather at 8 words a row (the 2^20 G1
+    # MSM's layout) and 16 (the probe's): each point once a window at
+    # random slots, the rest empty, then a ragged count with indices past
+    # the table and below -1 and an all-dead tile; the library call is
+    # index_select on the clamped index with a zero fill
+    g_line = {}
+    for tag, Fx, pts, slots, W, path in (
+            ("g1", F, points, data["slots"], (bn.Fr.bits + 16) // 16,
+             "bn254_msm_2^20"),
+            ("g2", F2, pts2, t2["slots"], (bn.Fr.bits + 8) // 8,
+             "bn254_legogroth16_prove")):
+        n = pts.X.shape[1]
+        y = pts.Y.clone()
+        y[:, ::4097] = 0
+        pt, tables_ms = timed_call(lambda: fk.slot_tables_plain(Fx, pts.X,
+                                                                 y))
+        e_t = agree("slot_tables", fk.slot_tables(Fx, pts.X, y), pt,
+                    f"on bn254 {tag}")
+        add_row("slot_tables", csrc + "gather.cu",
+                "crypto_tpu/ops/msm_v2.py:719", path, e_t,
+                lambda: fk.slot_tables(Fx, pts.X, y), tables_ms,
+                (Fx, pts.X, y), [Fx.U, n])
+        tab = pt[0]
+        for M in (max(slots), n + 3):
+            live = min(M, W * n)
+            idx = torch.full((M,), -1, dtype=torch.int64, device=dev)
+            pos = torch.randperm(M, generator=gen, device=dev)[:live]
+            idx[pos] = torch.cat([torch.randperm(n, generator=gen,
+                                                 device=dev)
+                                  for _ in range(W)])[:live]
+            if M == n + 3:
+                idx[:3] = torch.tensor([n, n + 9, -5], device=dev)
+                idx[256:512] = -1
+            pg, gather_ms = timed_call(lambda: fk.gather_rows_t_plain(tab,
+                                                                      idx))
+            e_g = agree("gather_rows_t", (fk.gather_rows_t(tab, idx),),
+                        (pg,), f"on bn254 {tag} at M={M}")
+            if M == n + 3:
+                break
+
+            def library():
+                return tab.t().index_select(1, idx.clamp(min=0)) \
+                    .masked_fill_(idx < 0, 0)
+
+            agree("index_select", (library(),), (pg,), f"at bn254 M={M}")
+            t_library = cuda_ms(library)
+            add_row("gather_rows_t", csrc + "gather.cu",
+                    "crypto_tpu/ops/pallas/field_kernels.py:356", path, e_g,
+                    lambda: fk.gather_rows_t(tab, idx), gather_ms,
+                    (tab, idx), [Fx.U, M], library_ms=t_library)
+            g_line[tag] = dict(U=Fx.U, slots=M, live=live,
+                               library_ms=t_library)
+    phase("check_gather_bn254", **g_line, dead_tile=[256, 512],
+          bit_exact=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1298,6 +2018,7 @@ def main() -> int:
     from crypto_tpu_torch.bench_points import make_bench_points, \
         make_bench_scalars
     from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves import bn254 as bn
     from crypto_tpu_torch.curves.tcurve import TPoints, tcurve_for
     from crypto_tpu_torch.fields.tfield import tfield_for
     from crypto_tpu_torch.ops import msm_v2
@@ -1714,6 +2435,24 @@ def main() -> int:
     acc_paths, profile_update = accumulator_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in acc_paths.items())
     phase("accumulator_phases", seconds=round(time.time() - t0, 3))
+
+    # ---- BN254: the 2^20 G1 MSMs and the edge MSMs, the LegoGroth16
+    # setup, proves and verifier at 2^16 constraints, the 64-pair pairing
+    t0 = time.time()
+    bn_paths, bn_data = bn254_msm_phases(counted, dev)
+    paths.update(bn_paths)
+    bn_lego, _ = legogroth16_phases(counted, dev, bn, "bn254_")
+    paths.update((k, (v, [])) for k, v in bn_lego.items())
+    bn_pairing, bn_profile_pairs = bn254_pairing_phase(counted, dev)
+    paths["bn254_pairing_64"] = (bn_pairing, [])
+    bn_union = {f.__name__: sum(v[0][f.__name__] for k, v in paths.items()
+                                if k.startswith("bn254_")) for f in counted}
+    require("BN254", bn_union, BN254_KERNELS)
+    if any(bn_union[k] for k in POINT_KERNELS):
+        raise AssertionError(f"a BN254 path launched a point kernel: "
+                             f"{bn_union}")
+    phase("bn254_phases", seconds=round(time.time() - t0, 3),
+          launches={k: v for k, v in bn_union.items() if v})
     phase("launches", **{k: v[0] for k, v in paths.items()})
     never = [f.__name__ for f in counted
              if not any(v[0][f.__name__] for v in paths.values())]
@@ -2346,13 +3085,18 @@ def main() -> int:
     phase("check_gather", ragged_slots=n + 3, dead_tile=[256, 512],
           **g_line, bit_exact=True)
 
+    # ---- every L = 8 instantiation at the BN254 paths' shapes
+    rows.extend(bn254_kernel_checks(row, agree, paths, bn_data, dev))
+
     # ---- device busy share of one more 2^20 MSM of each curve, and each
     # kernel's device time and summed bound over one MSM ----------------
-    for tag, curve, pts, safe in (("", bls.G1, points, False),
-                                  ("_safe", bls.G1, points, True),
-                                  ("_g2", bls.G2, points2, False)):
+    for tag, curve, pts, scalars, safe in (
+            ("", bls.G1, points, sb, False),
+            ("_safe", bls.G1, points, sb, True),
+            ("_g2", bls.G2, points2, sb, False),
+            ("_bn254", bn.G1, bn_data["points"], bn_data["sb"], False)):
         def msm():
-            return msm_v2.msm_device_scheduled(curve, pts, sb, c=16,
+            return msm_v2.msm_device_scheduled(curve, pts, scalars, c=16,
                                                safe=safe)
 
         _, bounds = record_work(counted, msm)
@@ -2372,6 +3116,19 @@ def main() -> int:
     _, bounds = record_work(counted, pairing)
     device = device_profile("profile_pairing_64", pairing, cpu=False)
     phase("per_pairing_64", launches_device_ms_bound_ms=json.dumps(
+        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
+         for k, (cnt, b) in bounds.items() if cnt}))
+
+    # ---- one more BN254 64-pair multi-pairing: the same
+    tp_bn = tpairing_for("bn254", dev)
+
+    def bn_pairing():
+        return tp_bn.multi_pairing(bn_profile_pairs)
+
+    _, bounds = record_work(counted, bn_pairing)
+    device = device_profile("profile_bn254_pairing_64", bn_pairing,
+                            cpu=False)
+    phase("per_bn254_pairing_64", launches_device_ms_bound_ms=json.dumps(
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))
 

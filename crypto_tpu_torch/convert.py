@@ -6,7 +6,8 @@ limbs, least significant first, in Montgomery form with R_jax =
 2^(15*L_jax) (L_jax = 26 for BLS12-381 Fq, 17 for Fr).  The port packs it
 as `(L, ...)` int32 with 32-bit limbs (uint32 bit patterns), R = 2^(32L).
 Conversion goes through plain Python ints: unpack, multiply by
-R_jax^-1 * R mod p, repack.  The limb widths and radices are constants
+R_jax^-1 * R mod p, repack; any prime works (BN254's Fq and Fr take 17
+JAX limbs and 8 port limbs).  The limb widths and radices are constants
 here, so nothing of the JAX package is needed.  An Fq2 element is
 `(..., 2, L_jax)` in the JAX package and `(2L, ...)` in the port
 (`jax_to_port_fq2`, `port_to_jax_fq2`); Fq6 `(..., 3, 2, L_jax)` and
@@ -16,8 +17,8 @@ Host objects cross by their attributes alone: a point's `.X`, `.Y`, `.Z`
 as integers (`carry_point` builds the same point on a curve of the other
 package; `carry_pairs` for (G1, G2) pairs), a host Fq12 element as its
 nested ints (`carry_fp12`), a LegoGroth16 proving key field by field
-(`proving_key_to_port`) and a proof as the integers that rebuild it
-(`proof_ints`).
+onto the port's curve module of its curve (`proving_key_to_port`) and a
+proof as the integers that rebuild it (`proof_ints`).
 """
 
 from __future__ import annotations
@@ -191,17 +192,17 @@ def carry_pairs(pairs, g1, g2) -> list:
     return [(carry_point(p, g1), carry_point(q, g2)) for p, q in pairs]
 
 
-def _port_curve(pt):
-    return bls.G2 if hasattr(pt.X, "c0") else bls.G1
+def _port_curve(pt, mod):
+    """The G1 or G2 of the port's curve module `mod` that `pt` lies on."""
+    return mod.G2 if hasattr(pt.X, "c0") else mod.G1
 
 
-def proving_key_to_port(pk):
-    """A LegoGroth16 `ProvingKey` of the reference (BLS12-381) as the
-    port's, read attribute by attribute."""
-    from .legogroth16 import snark
-
+def proving_key_to_port(pk, mod=bls):
+    """A LegoGroth16 `ProvingKey` of the reference as the port's, over the
+    port's curve module `mod` (`curves.bls12_381`, the default, or
+    `curves.bn254`: the key's own curve), read attribute by attribute."""
     def pt(p):
-        return carry_point(p, _port_curve(p))
+        return carry_point(p, _port_curve(p, mod))
 
     vk = pk.vk
     return snark.ProvingKey(

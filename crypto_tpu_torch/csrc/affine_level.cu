@@ -1,5 +1,7 @@
 // One batched-affine halving level in two kernels, around a batch
-// inversion of the denominators (BLS12-381 Fq), in two variants.
+// inversion of the denominators, in two variants, each instantiated for
+// BLS12-381 Fq (L = 12 limbs) and BN254 Fq (L = 8); the C entry points
+// take L at run time (ctt::by_limbs).
 //
 // Total unified add/double: replaces crypto_tpu/ops/pallas/curve_kernels.py
 // affine_kernels_for (call_pre / call_post), the level used below the
@@ -9,7 +11,7 @@
 // Doubling-free: replaces affine_kernels_fast (call_pre / call_post):
 //   pre_fast(x1, m1, x2, m2) -> (d, inf3), d = x2 - x1 (0 on a collision)
 //   post_fast(x1, y1, x2, y2, dinv, m1, m2) -> (x3, y3), 3 muls
-// Coordinates are (12, M) limb-major uint32, masks (M,) int32 (nonzero =
+// Coordinates are (L, M) limb-major uint32, masks (M,) int32 (nonzero =
 // infinity / doubling / infinite result).
 //
 // Bound on the H100: pre moves 4 coordinates in and 1 out with no
@@ -21,124 +23,129 @@
 
 namespace {
 
-using ctt::FQ_LIMBS;
 constexpr int T = 128;
 
+template <int L>
 __global__ void __launch_bounds__(T) pre_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const int* __restrict__ m1, const uint32_t* __restrict__ x2,
     const uint32_t* __restrict__ y2, const int* __restrict__ m2, uint32_t* __restrict__ d,
-    int* __restrict__ dbl, int* __restrict__ inf3, long long M, ctt::Fq m) {
+    int* __restrict__ dbl, int* __restrict__ inf3, long long M, ctt::Mod<L> m) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], D[FQ_LIMBS];
-  ctt::load<FQ_LIMBS>(X1, x1, M, i);
-  ctt::load<FQ_LIMBS>(Y1, y1, M, i);
-  ctt::load<FQ_LIMBS>(X2, x2, M, i);
-  ctt::load<FQ_LIMBS>(Y2, y2, M, i);
+  uint32_t X1[L], Y1[L], X2[L], Y2[L], D[L];
+  ctt::load<L>(X1, x1, M, i);
+  ctt::load<L>(Y1, y1, M, i);
+  ctt::load<L>(X2, x2, M, i);
+  ctt::load<L>(Y2, y2, M, i);
   bool is_dbl, is_inf3;
-  ctt::denom_dbl_inf(D, is_dbl, is_inf3, X1, Y1, X2, Y2, m1[i] != 0, m2[i] != 0, m);
-  ctt::store<FQ_LIMBS>(d, D, M, i);
+  ctt::denom_dbl_inf<L>(D, is_dbl, is_inf3, X1, Y1, X2, Y2, m1[i] != 0, m2[i] != 0, m);
+  ctt::store<L>(d, D, M, i);
   dbl[i] = is_dbl ? 1 : 0;
   inf3[i] = is_inf3 ? 1 : 0;
 }
 
+template <int L>
 __global__ void __launch_bounds__(T) post_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
     const uint32_t* __restrict__ dinv, const int* __restrict__ dbl,
     const int* __restrict__ m1, const int* __restrict__ m2, uint32_t* __restrict__ x3,
-    uint32_t* __restrict__ y3, long long M, ctt::Fq m) {
+    uint32_t* __restrict__ y3, long long M, ctt::Mod<L> m) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], DI[FQ_LIMBS];
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
-  ctt::load<FQ_LIMBS>(X1, x1, M, i);
-  ctt::load<FQ_LIMBS>(Y1, y1, M, i);
-  ctt::load<FQ_LIMBS>(X2, x2, M, i);
-  ctt::load<FQ_LIMBS>(Y2, y2, M, i);
-  ctt::load<FQ_LIMBS>(DI, dinv, M, i);
-  ctt::unified_apply(X3, Y3, X1, Y1, X2, Y2, DI, dbl[i] != 0, m1[i] != 0, m2[i] != 0, m);
-  ctt::store<FQ_LIMBS>(x3, X3, M, i);
-  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  uint32_t X1[L], Y1[L], X2[L], Y2[L], DI[L];
+  uint32_t X3[L], Y3[L];
+  ctt::load<L>(X1, x1, M, i);
+  ctt::load<L>(Y1, y1, M, i);
+  ctt::load<L>(X2, x2, M, i);
+  ctt::load<L>(Y2, y2, M, i);
+  ctt::load<L>(DI, dinv, M, i);
+  ctt::unified_apply<L>(X3, Y3, X1, Y1, X2, Y2, DI, dbl[i] != 0, m1[i] != 0, m2[i] != 0, m);
+  ctt::store<L>(x3, X3, M, i);
+  ctt::store<L>(y3, Y3, M, i);
 }
 
+template <int L>
 __global__ void __launch_bounds__(T) pre_fast_kernel(
     const uint32_t* __restrict__ x1, const int* __restrict__ m1,
     const uint32_t* __restrict__ x2, const int* __restrict__ m2, uint32_t* __restrict__ d,
-    int* __restrict__ inf3, long long M, ctt::Fq m) {
+    int* __restrict__ inf3, long long M, ctt::Mod<L> m) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  uint32_t X1[FQ_LIMBS], X2[FQ_LIMBS], D[FQ_LIMBS];
-  ctt::load<FQ_LIMBS>(X1, x1, M, i);
-  ctt::load<FQ_LIMBS>(X2, x2, M, i);
+  uint32_t X1[L], X2[L], D[L];
+  ctt::load<L>(X1, x1, M, i);
+  ctt::load<L>(X2, x2, M, i);
   bool is_inf3;
-  ctt::denom_fast(D, is_inf3, X1, X2, m1[i] != 0, m2[i] != 0, m);
-  ctt::store<FQ_LIMBS>(d, D, M, i);
+  ctt::denom_fast<L>(D, is_inf3, X1, X2, m1[i] != 0, m2[i] != 0, m);
+  ctt::store<L>(d, D, M, i);
   inf3[i] = is_inf3 ? 1 : 0;
 }
 
+template <int L>
 __global__ void __launch_bounds__(T) post_fast_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
     const uint32_t* __restrict__ dinv, const int* __restrict__ m1,
     const int* __restrict__ m2, uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
-    long long M, ctt::Fq m) {
+    long long M, ctt::Mod<L> m) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], DI[FQ_LIMBS];
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS];
-  ctt::load<FQ_LIMBS>(X1, x1, M, i);
-  ctt::load<FQ_LIMBS>(Y1, y1, M, i);
-  ctt::load<FQ_LIMBS>(X2, x2, M, i);
-  ctt::load<FQ_LIMBS>(Y2, y2, M, i);
-  ctt::load<FQ_LIMBS>(DI, dinv, M, i);
-  ctt::fast_apply(X3, Y3, X1, Y1, X2, Y2, DI, m1[i] != 0, m2[i] != 0, m);
-  ctt::store<FQ_LIMBS>(x3, X3, M, i);
-  ctt::store<FQ_LIMBS>(y3, Y3, M, i);
+  uint32_t X1[L], Y1[L], X2[L], Y2[L], DI[L];
+  uint32_t X3[L], Y3[L];
+  ctt::load<L>(X1, x1, M, i);
+  ctt::load<L>(Y1, y1, M, i);
+  ctt::load<L>(X2, x2, M, i);
+  ctt::load<L>(Y2, y2, M, i);
+  ctt::load<L>(DI, dinv, M, i);
+  ctt::fast_apply<L>(X3, Y3, X1, Y1, X2, Y2, DI, m1[i] != 0, m2[i] != 0, m);
+  ctt::store<L>(x3, X3, M, i);
+  ctt::store<L>(y3, Y3, M, i);
 }
 
 }  // namespace
 
+// kernel<N> over M pairs for the run-time limb count L, the modulus by value
+#define LAUNCH(kernel, M, stream, ...)                                             \
+  ctt::by_limbs(L, [&](auto n) {                                                   \
+    constexpr int N = decltype(n)::value;                                          \
+    kernel<N><<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(             \
+        __VA_ARGS__, M, ctt::make_mod<N>((const uint32_t*)p, n0inv));              \
+    return cudaSuccess;                                                            \
+  })
+
 extern "C" int crypto_affine_pre(const void* x1, const void* y1, const void* m1,
                                  const void* x2, const void* y2, const void* m2, void* d,
-                                 void* dbl, void* inf3, long long M, const void* p,
+                                 void* dbl, void* inf3, long long M, int L, const void* p,
                                  unsigned int n0inv, void* stream) {
-  pre_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x1, (const uint32_t*)y1, (const int*)m1, (const uint32_t*)x2,
-      (const uint32_t*)y2, (const int*)m2, (uint32_t*)d, (int*)dbl, (int*)inf3, M,
-      ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
-  return (int)cudaGetLastError();
+  return LAUNCH(pre_kernel, M, stream, (const uint32_t*)x1, (const uint32_t*)y1,
+                (const int*)m1, (const uint32_t*)x2, (const uint32_t*)y2, (const int*)m2,
+                (uint32_t*)d, (int*)dbl, (int*)inf3);
 }
 
 extern "C" int crypto_affine_post(const void* x1, const void* y1, const void* x2,
                                   const void* y2, const void* dinv, const void* dbl,
                                   const void* m1, const void* m2, void* x3, void* y3,
-                                  long long M, const void* p, unsigned int n0inv,
+                                  long long M, int L, const void* p, unsigned int n0inv,
                                   void* stream) {
-  post_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)x2, (const uint32_t*)y2,
-      (const uint32_t*)dinv, (const int*)dbl, (const int*)m1, (const int*)m2,
-      (uint32_t*)x3, (uint32_t*)y3, M, ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
-  return (int)cudaGetLastError();
+  return LAUNCH(post_kernel, M, stream, (const uint32_t*)x1, (const uint32_t*)y1,
+                (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)dinv,
+                (const int*)dbl, (const int*)m1, (const int*)m2, (uint32_t*)x3,
+                (uint32_t*)y3);
 }
 
 extern "C" int crypto_affine_pre_fast(const void* x1, const void* m1, const void* x2,
-                                      const void* m2, void* d, void* inf3, long long M,
+                                      const void* m2, void* d, void* inf3, long long M, int L,
                                       const void* p, unsigned int n0inv, void* stream) {
-  pre_fast_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x1, (const int*)m1, (const uint32_t*)x2, (const int*)m2,
-      (uint32_t*)d, (int*)inf3, M, ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
-  return (int)cudaGetLastError();
+  return LAUNCH(pre_fast_kernel, M, stream, (const uint32_t*)x1, (const int*)m1,
+                (const uint32_t*)x2, (const int*)m2, (uint32_t*)d, (int*)inf3);
 }
 
 extern "C" int crypto_affine_post_fast(const void* x1, const void* y1, const void* x2,
                                        const void* y2, const void* dinv, const void* m1,
-                                       const void* m2, void* x3, void* y3, long long M,
+                                       const void* m2, void* x3, void* y3, long long M, int L,
                                        const void* p, unsigned int n0inv, void* stream) {
-  post_fast_kernel<<<ctt::blocks_for(M, T), T, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)x2, (const uint32_t*)y2,
-      (const uint32_t*)dinv, (const int*)m1, (const int*)m2, (uint32_t*)x3,
-      (uint32_t*)y3, M, ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv));
-  return (int)cudaGetLastError();
+  return LAUNCH(post_fast_kernel, M, stream, (const uint32_t*)x1, (const uint32_t*)y1,
+                (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)dinv,
+                (const int*)m1, (const int*)m2, (uint32_t*)x3, (uint32_t*)y3);
 }

@@ -25,6 +25,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "ptx.cuh"
@@ -605,11 +606,21 @@ __device__ __forceinline__ void neg(uint32_t r[N], const uint32_t a[N], const Mo
 }
 
 // ---------------------------------------------------------------------------
-// batched-affine level helpers (BLS12-381 Fq, N = 12)
+// batched-affine level helpers, on N limbs: BLS12-381 Fq (N = 12) and
+// BN254 Fq (N = 8)
 // ---------------------------------------------------------------------------
 
+// BLS12-381 Fq, the field of the kernels that take 12 limbs only
+// (jacobian.cu, normalize.cu, sqr_designs.cu).
 constexpr int FQ_LIMBS = 12;
 using Fq = Mod<FQ_LIMBS>;
+
+// r = a plain limb-0 1 (the inversion's filler in a dead lane)
+template <int N>
+__device__ __forceinline__ void plain_one(uint32_t r[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = j == 0 ? 1u : 0u;
+}
 
 // Denominator of the total unified affine add/double of P1 + P2, and the
 // case masks: d = 2*y1 when doubling, else x2 - x1; a plain limb-0 1 in
@@ -617,29 +628,25 @@ using Fq = Mod<FQ_LIMBS>;
 // stays valid.  The chunked level's prefix and the affine level's pre call
 // this; the total down pass rebuilds the same d from the prefix's dbl mask
 // (see chunked_level.cu).
-__device__ __forceinline__ void denom_dbl_inf(uint32_t d[FQ_LIMBS], bool& is_dbl,
-                                              bool& is_inf3, const uint32_t x1[FQ_LIMBS],
-                                              const uint32_t y1[FQ_LIMBS],
-                                              const uint32_t x2[FQ_LIMBS],
-                                              const uint32_t y2[FQ_LIMBS], bool i1,
-                                              bool i2, const Fq& m) {
-  bool same_x = eq<FQ_LIMBS>(x1, x2);
-  uint32_t t[FQ_LIMBS];
-  neg<FQ_LIMBS>(t, y2, m);
-  bool y_opp = eq<FQ_LIMBS>(y1, t);
+template <int N>
+__device__ __forceinline__ void denom_dbl_inf(uint32_t d[N], bool& is_dbl, bool& is_inf3,
+                                              const uint32_t x1[N], const uint32_t y1[N],
+                                              const uint32_t x2[N], const uint32_t y2[N],
+                                              bool i1, bool i2, const Mod<N>& m) {
+  bool same_x = eq<N>(x1, x2);
+  uint32_t t[N];
+  neg<N>(t, y2, m);
+  bool y_opp = eq<N>(y1, t);
   bool both = !i1 && !i2;
   is_dbl = same_x && !y_opp && both;
   is_inf3 = (same_x && y_opp && both) || (i1 && i2);
   bool dead = !both || is_inf3;
   if (is_dbl) {
-    add<FQ_LIMBS>(d, y1, y1, m);
+    add<N>(d, y1, y1, m);
   } else {
-    sub<FQ_LIMBS>(d, x2, x1, m);
+    sub<N>(d, x2, x1, m);
   }
-  if (dead || is_zero<FQ_LIMBS>(d)) {
-#pragma unroll
-    for (int j = 0; j < FQ_LIMBS; ++j) d[j] = j == 0 ? 1u : 0u;
-  }
+  if (dead || is_zero<N>(d)) plain_one<N>(d);
 }
 
 // Denominator of the doubling-free affine add (crypto_tpu's _denom_fast):
@@ -647,147 +654,157 @@ __device__ __forceinline__ void denom_dbl_inf(uint32_t d[FQ_LIMBS], bool& is_dbl
 // inf3 = both infinite.  d == 0 (P + P or P + (-P)) stays 0: the caller
 // detects it and reruns the window with the total formula.  Prefix and
 // down of the fast chunked level both call this.
-__device__ __forceinline__ void denom_fast(uint32_t d[FQ_LIMBS], bool& is_inf3,
-                                           const uint32_t x1[FQ_LIMBS],
-                                           const uint32_t x2[FQ_LIMBS], bool i1, bool i2,
-                                           const Fq& m) {
-  sub<FQ_LIMBS>(d, x2, x1, m);
-  if (i1 || i2) {
-#pragma unroll
-    for (int j = 0; j < FQ_LIMBS; ++j) d[j] = j == 0 ? 1u : 0u;
-  }
+template <int N>
+__device__ __forceinline__ void denom_fast(uint32_t d[N], bool& is_inf3, const uint32_t x1[N],
+                                           const uint32_t x2[N], bool i1, bool i2,
+                                           const Mod<N>& m) {
+  sub<N>(d, x2, x1, m);
+  if (i1 || i2) plain_one<N>(d);
   is_inf3 = i1 && i2;
 }
 
 // The distinct-points affine add given dinv = 1/(x2 - x1): lambda =
 // (y2 - y1) * dinv, x3 = lambda^2 - x1 - x2, y3 = lambda*(x1 - x3) - y1
 // (3 Montgomery muls); an infinite operand passes the other one through.
-__device__ __forceinline__ void fast_apply(uint32_t x3[FQ_LIMBS], uint32_t y3[FQ_LIMBS],
-                                           const uint32_t x1[FQ_LIMBS],
-                                           const uint32_t y1[FQ_LIMBS],
-                                           const uint32_t x2[FQ_LIMBS],
-                                           const uint32_t y2[FQ_LIMBS],
-                                           const uint32_t dinv[FQ_LIMBS], bool i1, bool i2,
-                                           const Fq& m) {
-  uint32_t t[FQ_LIMBS], lam[FQ_LIMBS];
-  sub<FQ_LIMBS>(t, y2, y1, m);
-  mont_mul<FQ_LIMBS>(lam, t, dinv, m);
-  mont_mul<FQ_LIMBS>(t, lam, lam, m);
-  sub<FQ_LIMBS>(t, t, x1, m);
-  sub<FQ_LIMBS>(x3, t, x2, m);
-  sub<FQ_LIMBS>(t, x1, x3, m);
-  mont_mul<FQ_LIMBS>(t, lam, t, m);
-  sub<FQ_LIMBS>(y3, t, y1, m);
+template <int N>
+__device__ __forceinline__ void fast_apply(uint32_t x3[N], uint32_t y3[N], const uint32_t x1[N],
+                                           const uint32_t y1[N], const uint32_t x2[N],
+                                           const uint32_t y2[N], const uint32_t dinv[N],
+                                           bool i1, bool i2, const Mod<N>& m) {
+  uint32_t t[N], lam[N];
+  sub<N>(t, y2, y1, m);
+  mont_mul<N>(lam, t, dinv, m);
+  mont_mul<N>(t, lam, lam, m);
+  sub<N>(t, t, x1, m);
+  sub<N>(x3, t, x2, m);
+  sub<N>(t, x1, x3, m);
+  mont_mul<N>(t, lam, t, m);
+  sub<N>(y3, t, y1, m);
   if (i1) {
-    copy<FQ_LIMBS>(x3, x2);
-    copy<FQ_LIMBS>(y3, y2);
+    copy<N>(x3, x2);
+    copy<N>(y3, y2);
   } else if (i2) {
-    copy<FQ_LIMBS>(x3, x1);
-    copy<FQ_LIMBS>(y3, y1);
+    copy<N>(x3, x1);
+    copy<N>(y3, y1);
   }
 }
 
 // Given dinv = 1/d: lambda = (3*x1^2 when doubling, else y2 - y1) * dinv,
 // x3 = lambda^2 - x1 - x2, y3 = lambda*(x1 - x3) - y1; an infinite
 // operand passes the other one through.
-__device__ __forceinline__ void unified_apply(uint32_t x3[FQ_LIMBS], uint32_t y3[FQ_LIMBS],
-                                              const uint32_t x1[FQ_LIMBS],
-                                              const uint32_t y1[FQ_LIMBS],
-                                              const uint32_t x2[FQ_LIMBS],
-                                              const uint32_t y2[FQ_LIMBS],
-                                              const uint32_t dinv[FQ_LIMBS], bool is_dbl,
-                                              bool i1, bool i2, const Fq& m) {
-  uint32_t num[FQ_LIMBS], t[FQ_LIMBS], lam[FQ_LIMBS];
+template <int N>
+__device__ __forceinline__ void unified_apply(uint32_t x3[N], uint32_t y3[N],
+                                              const uint32_t x1[N], const uint32_t y1[N],
+                                              const uint32_t x2[N], const uint32_t y2[N],
+                                              const uint32_t dinv[N], bool is_dbl, bool i1,
+                                              bool i2, const Mod<N>& m) {
+  uint32_t num[N], t[N], lam[N];
   if (is_dbl) {
-    mont_mul<FQ_LIMBS>(t, x1, x1, m);
-    add<FQ_LIMBS>(num, t, t, m);
-    add<FQ_LIMBS>(num, num, t, m);
+    mont_mul<N>(t, x1, x1, m);
+    add<N>(num, t, t, m);
+    add<N>(num, num, t, m);
   } else {
-    sub<FQ_LIMBS>(num, y2, y1, m);
+    sub<N>(num, y2, y1, m);
   }
-  mont_mul<FQ_LIMBS>(lam, num, dinv, m);
-  mont_mul<FQ_LIMBS>(t, lam, lam, m);
-  sub<FQ_LIMBS>(t, t, x1, m);
-  sub<FQ_LIMBS>(x3, t, x2, m);
-  sub<FQ_LIMBS>(t, x1, x3, m);
-  mont_mul<FQ_LIMBS>(t, lam, t, m);
-  sub<FQ_LIMBS>(y3, t, y1, m);
+  mont_mul<N>(lam, num, dinv, m);
+  mont_mul<N>(t, lam, lam, m);
+  sub<N>(t, t, x1, m);
+  sub<N>(x3, t, x2, m);
+  sub<N>(t, x1, x3, m);
+  mont_mul<N>(t, lam, t, m);
+  sub<N>(y3, t, y1, m);
   if (i1) {
-    copy<FQ_LIMBS>(x3, x2);
-    copy<FQ_LIMBS>(y3, y2);
+    copy<N>(x3, x2);
+    copy<N>(y3, y2);
   } else if (i2) {
-    copy<FQ_LIMBS>(x3, x1);
-    copy<FQ_LIMBS>(y3, y1);
+    copy<N>(x3, x1);
+    copy<N>(y3, y1);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Fq2 = Fq[u]/(u^2 + 1) over BLS12-381 Fq (beta = -1)
+// Fq2 = Fq[u]/(u^2 + 1) on N-limb halves (beta = -1: BLS12-381 Fq at N =
+// 12, BN254 Fq at N = 8)
 // ---------------------------------------------------------------------------
 //
-// An element is 24 limbs: c0's 12 in [0, 12), c1's in [12, 24), which is
-// the (24, M) row order of the Python side (crypto_tpu_torch.fields.ttower).
+// An element is 2N limbs: c0's N in [0, N), c1's in [N, 2N), which is
+// the (2N, M) row order of the Python side (crypto_tpu_torch.fields.ttower).
 // add, sub, neg, eq and is_zero are the base templates on each half (or on
-// all 24 limbs at once for eq and is_zero); a product takes three
+// all 2N limbs at once for eq and is_zero); a product takes three
 // unreduced products and two reductions; a square three wide squares and
 // two reductions in fq2_sqr_karatsuba (the square kernel's), or two CIOS
 // products in fq2_sqr (the Fq2 post's).
+//
+// The lazy reductions need p^2 < 2^(32*2N) / 2 and 2p < 2^(32N), and each
+// REDC input below p*R: both hold when 4p < R, so for both moduli (BLS12-381
+// Fq leaves 3 spare bits in 384, BN254 Fq 2 in 256).
 
 constexpr int FQ2_LIMBS = 2 * FQ_LIMBS;
 
-// p^2 in 24 words, the offset of fq2_mul's and fq2_sqr_karatsuba's lazy
+// p^2 in 2N words, the offset of fq2_mul's and fq2_sqr_karatsuba's lazy
 // reduction, built on the host and passed by value only to the kernels
 // that call them.
-struct FqSquare {
-  uint32_t w[FQ2_LIMBS];
+template <int N>
+struct PSquare {
+  uint32_t w[2 * N];
 };
+using FqSquare = PSquare<FQ_LIMBS>;
 
-__host__ inline FqSquare make_fq_square(const uint32_t* p) {
-  FqSquare s;
-  for (int i = 0; i < FQ2_LIMBS; ++i) s.w[i] = 0;
-  for (int i = 0; i < FQ_LIMBS; ++i) {
+template <int N>
+__host__ inline PSquare<N> make_p_square(const uint32_t* p) {
+  PSquare<N> s;
+  for (int i = 0; i < 2 * N; ++i) s.w[i] = 0;
+  for (int i = 0; i < N; ++i) {
     uint64_t c = 0;
-    for (int j = 0; j < FQ_LIMBS; ++j) {
+    for (int j = 0; j < N; ++j) {
       uint64_t t = (uint64_t)p[i] * p[j] + s.w[i + j] + c;
       s.w[i + j] = (uint32_t)t;
       c = t >> 32;
     }
-    s.w[i + FQ_LIMBS] = (uint32_t)c;
+    s.w[i + N] = (uint32_t)c;
   }
   return s;
 }
 
-__device__ __forceinline__ void fq2_add(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
-                                        const uint32_t b[FQ2_LIMBS], const Fq& m) {
-  add<FQ_LIMBS>(r, a, b, m);
-  add<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, b + FQ_LIMBS, m);
+__host__ inline FqSquare make_fq_square(const uint32_t* p) {
+  return make_p_square<FQ_LIMBS>(p);
 }
 
-__device__ __forceinline__ void fq2_sub(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
-                                        const uint32_t b[FQ2_LIMBS], const Fq& m) {
-  sub<FQ_LIMBS>(r, a, b, m);
-  sub<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, b + FQ_LIMBS, m);
+template <int N>
+__device__ __forceinline__ void fq2_add(uint32_t r[2 * N], const uint32_t a[2 * N],
+                                        const uint32_t b[2 * N], const Mod<N>& m) {
+  add<N>(r, a, b, m);
+  add<N>(r + N, a + N, b + N, m);
 }
 
-__device__ __forceinline__ void fq2_neg(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
-                                        const Fq& m) {
-  neg<FQ_LIMBS>(r, a, m);
-  neg<FQ_LIMBS>(r + FQ_LIMBS, a + FQ_LIMBS, m);
+template <int N>
+__device__ __forceinline__ void fq2_sub(uint32_t r[2 * N], const uint32_t a[2 * N],
+                                        const uint32_t b[2 * N], const Mod<N>& m) {
+  sub<N>(r, a, b, m);
+  sub<N>(r + N, a + N, b + N, m);
+}
+
+template <int N>
+__device__ __forceinline__ void fq2_neg(uint32_t r[2 * N], const uint32_t a[2 * N],
+                                        const Mod<N>& m) {
+  neg<N>(r, a, m);
+  neg<N>(r + N, a + N, m);
 }
 
 // r = a*b by Karatsuba with lazy reduction (blst's mul_mont_384x): three
-// unreduced 12 x 12-word products v0 = a0*b0, v1 = a1*b1 and t = (a0 +
-// a1)(b0 + b1), the sums left unreduced (below 2p < 2^384), then two
+// unreduced N x N-word products v0 = a0*b0, v1 = a1*b1 and t = (a0 +
+// a1)(b0 + b1), the sums left unreduced (below 2p < 2^(32N)), then two
 // reductions: c0 = redc(v0 + p^2 - v1) and c1 = redc(t - v0 - v1).  Both
 // inputs lie in [0, 2p^2), below p*R, so each redc ends canonical: for
 // canonical inputs the result is the canonical product, which the
-// reference's three Montgomery products (Fq2Ctx.mul) also give.  744 wide
-// products (3 x 144 + 2 x 156) against 900 for three CIOS products.  r
-// may alias a or b.
-__device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
-                                        const uint32_t b[FQ2_LIMBS], const Fq& m,
-                                        const FqSquare& p2) {
-  constexpr int L = FQ_LIMBS, W = 2 * FQ_LIMBS;
+// reference's three Montgomery products (Fq2Ctx.mul) also give.  3N^2 +
+// 2(N^2 + N) wide products (744 at N = 12, 336 at N = 8) against 3(2N^2 +
+// N) for three CIOS products.  r may alias a or b.
+template <int N>
+__device__ __forceinline__ void fq2_mul(uint32_t r[2 * N], const uint32_t a[2 * N],
+                                        const uint32_t b[2 * N], const Mod<N>& m,
+                                        const PSquare<N>& p2) {
+  constexpr int L = N, W = 2 * N;
   uint32_t sa[L], sb[L], v0[W], v1[W], t[W];
   add_words<L>(sa, a, a + L);
   add_words<L>(sb, b, b + L);
@@ -807,12 +824,13 @@ __device__ __forceinline__ void fq2_mul(uint32_t r[FQ2_LIMBS], const uint32_t a[
 // (below 2p), then c0 = redc(v0 + p^2 - v1) and c1 = redc(t - v0 -
 // v1) = redc(2*a0*a1), both inputs in [0, 2p^2), below p*R, so each
 // ends canonical: for canonical inputs bit for bit what fq2_sqr gives.
-// 546 wide products (3 x 78 + 2 x 156) against fq2_sqr's 600, without
-// its moves and its three modular adds and subs.  r may alias a.
-__device__ __forceinline__ void fq2_sqr_karatsuba(uint32_t r[FQ2_LIMBS],
-                                                  const uint32_t a[FQ2_LIMBS], const Fq& m,
-                                                  const FqSquare& p2) {
-  constexpr int L = FQ_LIMBS, W = 2 * FQ_LIMBS;
+// 3N(N + 1)/2 + 2(N^2 + N) wide products (546 at N = 12, 252 at N = 8)
+// against fq2_sqr's 2(2N^2 + N), without its moves and its three modular
+// adds and subs.  r may alias a.
+template <int N>
+__device__ __forceinline__ void fq2_sqr_karatsuba(uint32_t r[2 * N], const uint32_t a[2 * N],
+                                                  const Mod<N>& m, const PSquare<N>& p2) {
+  constexpr int L = N, W = 2 * N;
   uint32_t s[L], v0[W], v1[W];
   add_words<L>(s, a, a + L);
   sqr_wide<L>(v0, a);
@@ -832,21 +850,38 @@ __device__ __forceinline__ void fq2_sqr_karatsuba(uint32_t r[FQ2_LIMBS],
 // r = a^2 by complex squaring over two Montgomery products (crypto_tpu's
 // Fq2Ctx.square): c0 = (a0 + a1)(a0 - a1), c1 = 2*a0*a1.  r may alias a.
 // Rolled = true takes mont_mul_rolled (the same result, less code).
-template <bool Rolled = false>
-__device__ __forceinline__ void fq2_sqr(uint32_t r[FQ2_LIMBS], const uint32_t a[FQ2_LIMBS],
-                                        const Fq& m) {
-  uint32_t s[FQ_LIMBS], t[FQ_LIMBS];
-  add<FQ_LIMBS>(s, a, a + FQ_LIMBS, m);
-  sub<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+template <bool Rolled = false, int N>
+__device__ __forceinline__ void fq2_sqr(uint32_t r[2 * N], const uint32_t a[2 * N],
+                                        const Mod<N>& m) {
+  uint32_t s[N], t[N];
+  add<N>(s, a, a + N, m);
+  sub<N>(t, a, a + N, m);
   if constexpr (Rolled) {
-    mont_mul_rolled<FQ_LIMBS>(s, s, t, m);
-    mont_mul_rolled<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+    mont_mul_rolled<N>(s, s, t, m);
+    mont_mul_rolled<N>(t, a, a + N, m);
   } else {
-    mont_mul<FQ_LIMBS>(s, s, t, m);
-    mont_mul<FQ_LIMBS>(t, a, a + FQ_LIMBS, m);
+    mont_mul<N>(s, s, t, m);
+    mont_mul<N>(t, a, a + N, m);
   }
-  copy<FQ_LIMBS>(r, s);
-  add<FQ_LIMBS>(r + FQ_LIMBS, t, t, m);
+  copy<N>(r, s);
+  add<N>(r + N, t, t, m);
+}
+
+// Run fn(std::integral_constant<int, N>{}) for the limb count L (12 or 8):
+// the C entry points' instantiation by their runtime L.  fn launches and
+// returns a cudaError_t; then the launch's own error, or
+// cudaErrorInvalidValue for another L.
+template <class Fn>
+inline int by_limbs(int L, Fn&& fn) {
+  cudaError_t err;
+  if (L == 12) {
+    err = fn(std::integral_constant<int, 12>{});
+  } else if (L == 8) {
+    err = fn(std::integral_constant<int, 8>{});
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 inline int blocks_for(long long n, int threads) {

@@ -19,15 +19,16 @@
 // Design: one thread per slot, T slots a block.  A thread loads its
 // slot's index once, and, if the slot is live, its row as C/4 16-byte
 // vector loads from contiguous addresses (3 for C = 12, 48 bytes; 6 for
-// C = 24, 96 bytes: three whole 32-byte sectors), all issued before the
+// C = 24, 96 bytes: three whole 32-byte sectors; 2 and 4 for BN254's C =
+// 8 and 16, one and two whole sectors), all issued before the
 // first is used, so 6 x 2,048 loads are in flight on an SM at full
 // occupancy; a dead slot loads nothing.  The transpose happens in
 // registers: the thread owns its slot's output column, so for each word
 // w a warp stores 32 consecutive slots of row w, 128 contiguous bytes.
 // The stores stream (evict-first), so the 1-2 GB of output does not push
-// the payload out of L2.  Rows are 12 or 24 words (an Fq or Fq2
-// coordinate) and the payload 16-byte aligned: the wrapper refuses
-// others.
+// the payload out of L2.  Rows are 12 or 24 words (a BLS12-381 Fq or
+// Fq2 coordinate) or 8 or 16 (BN254's) and the payload 16-byte aligned:
+// the wrapper refuses others.
 //
 // slot_tables_kernel builds the gather's two payloads of an MSM, once per
 // MSM, from its limb-major coordinates: (x, y (U, N)) -> xtab (N, U), x's
@@ -73,14 +74,15 @@ __global__ void __launch_bounds__(T) gather_rows_t_kernel(const uint4* __restric
   }
 }
 
-// U = 12 (an Fq coordinate) or 24 (Fq2, c0's limbs then c1's).
-template <int U>
+// U = L (an Fq coordinate) or 2L (Fq2, c0's limbs then c1's), L = 12
+// (BLS12-381) or 8 (BN254).
+template <int U, int L>
 __global__ void __launch_bounds__(T) slot_tables_kernel(const uint32_t* __restrict__ x,
                                                         const uint32_t* __restrict__ y,
                                                         uint4* __restrict__ xtab,
                                                         uint4* __restrict__ ytab, long long N,
-                                                        ctt::Fq m) {
-  constexpr int L = ctt::FQ_LIMBS, Q = U / 4;
+                                                        ctt::Mod<L> m) {
+  constexpr int Q = U / 4;
   const long long i = (long long)blockIdx.x * T + threadIdx.x;
   if (i >= N) return;
   uint32_t r[U];
@@ -101,21 +103,25 @@ __global__ void __launch_bounds__(T) slot_tables_kernel(const uint32_t* __restri
 
 }  // namespace
 
+// U words a row from L-limb coordinates: U = L or 2L, L = 12 or 8.
 extern "C" int crypto_slot_tables(const void* x, const void* y, void* xtab, void* ytab, long long U,
-                                  long long N, const void* p, unsigned int n0inv, void* stream) {
+                                  long long N, int L, const void* p, unsigned int n0inv,
+                                  void* stream) {
   const unsigned int blocks = (unsigned int)((N + T - 1) / T);
-  const ctt::Fq m = ctt::make_mod<ctt::FQ_LIMBS>((const uint32_t*)p, n0inv);
+  if (U != L && U != 2 * L) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (U == 12) {
-    slot_tables_kernel<12><<<blocks, T, 0, s>>>((const uint32_t*)x, (const uint32_t*)y,
-                                                (uint4*)xtab, (uint4*)ytab, N, m);
-  } else if (U == 24) {
-    slot_tables_kernel<24><<<blocks, T, 0, s>>>((const uint32_t*)x, (const uint32_t*)y,
-                                                (uint4*)xtab, (uint4*)ytab, N, m);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return ctt::by_limbs(L, [&](auto n) {
+    constexpr int LN = decltype(n)::value;
+    const ctt::Mod<LN> m = ctt::make_mod<LN>((const uint32_t*)p, n0inv);
+    if (U == LN) {
+      slot_tables_kernel<LN, LN><<<blocks, T, 0, s>>>((const uint32_t*)x, (const uint32_t*)y,
+                                                      (uint4*)xtab, (uint4*)ytab, N, m);
+    } else {
+      slot_tables_kernel<2 * LN, LN><<<blocks, T, 0, s>>>(
+          (const uint32_t*)x, (const uint32_t*)y, (uint4*)xtab, (uint4*)ytab, N, m);
+    }
+    return cudaSuccess;
+  });
 }
 
 extern "C" int crypto_gather_rows_t(const void* payload, const void* idx, void* out,
@@ -126,8 +132,12 @@ extern "C" int crypto_gather_rows_t(const void* payload, const void* idx, void* 
   const uint4* p = (const uint4*)payload;
   const long long* ix = (const long long*)idx;
   uint32_t* o = (uint32_t*)out;
-  if (C == 12) {
+  if (C == 8) {
+    gather_rows_t_kernel<8><<<blocks, T, 0, s>>>(p, ix, o, N, M);
+  } else if (C == 12) {
     gather_rows_t_kernel<12><<<blocks, T, 0, s>>>(p, ix, o, N, M);
+  } else if (C == 16) {
+    gather_rows_t_kernel<16><<<blocks, T, 0, s>>>(p, ix, o, N, M);
   } else if (C == 24) {
     gather_rows_t_kernel<24><<<blocks, T, 0, s>>>(p, ix, o, N, M);
   } else {

@@ -1,8 +1,9 @@
 """Batched short-Weierstrass point arithmetic on tensors (Jacobian, a = 0).
 
 Counterpart of `crypto_tpu/curves/jcurve.py`, generic over the
-coefficient field: BLS12-381 G1 over Fq (`fields/tfield.py`, `(L, ...)`
-limb tensors) and G2 over Fq2 (`fields/ttower.py`, `(2L, ...)`).  A batch
+coefficient field: G1 over Fq (`fields/tfield.py`, `(L, ...)` limb
+tensors) and G2 over Fq2 (`fields/ttower.py`, `(2L, ...)`), of BLS12-381
+(L = 12) and BN254 (L = 8).  A batch
 of points is `TPoints(X, Y, Z)` with each coordinate a Montgomery limb
 tensor; Z == 0 encodes infinity, and `infinity()` is (1, 1, 0).  Every op
 is branch-free (select-based), total (doubling, P + (-P), infinity

@@ -1,8 +1,12 @@
-"""Batched BLS12-381 pairing on tensors: the port's `JPairing`.
+"""Batched pairings on tensors: the port's `JPairing` and `JPairingBN`.
 
-Counterpart of `crypto_tpu/curves/jpairing.py` `JPairing` (the optimal
+Counterparts of `crypto_tpu/curves/jpairing.py` `JPairing` (the optimal
 ate pairing of the host `curves/bls12_381.py`: M-type twist, negative x,
-lines multiplied in by `_mul_by_014`).  N pairs run as one batch along
+lines multiplied in by `_mul_by_014`) and `JPairingBN` (`TPairingBN`, the
+host `curves/bn254.py`'s: D-type twist, positive x, a loop over the bits
+of 6x + 2 closed by two Frobenius addition steps, lines multiplied in by
+`_mul_by_034`, the hard part from the base-p digits of (p^4 - p^2 +
+1)/r).  N pairs run as one batch along
 the last axis: the Miller loop is a static loop over the bits of |x| (63
 doubling steps, the addition steps where a bit is set, no selects), each
 step over all pairs at once, every pair's value kept apart; `product`
@@ -37,8 +41,7 @@ class TPairing:
     port's `bls12_381`) on one device."""
 
     def __init__(self, mod, device="cuda"):
-        if mod.X >= 0:
-            raise ValueError("TPairing takes a BLS12 curve with x < 0")
+        self._check(mod)
         dev = resolve_device(device)
         self.mod = mod
         self.device = dev
@@ -46,12 +49,20 @@ class TPairing:
         self.t2 = tquad_for(mod.Fq2, dev)
         self.t6 = tcubic_for(mod.Fq6, dev)
         self.t12 = tfield12_for(mod.Fq12, dev)
+        self.two_inv = self.tf.pack(int(mod.Fq(2).inverse()))
+        self._family_init(mod)
+
+    @staticmethod
+    def _check(mod):
+        if mod.X >= 0:
+            raise ValueError("TPairing takes a BLS12 curve with x < 0")
+
+    def _family_init(self, mod):
         x_abs = -mod.X
         self.x_bits = [int(c) for c in bin(x_abs)[2:]]
         # (x - 1)/3 in magnitude, for the hard part's chain
         self.k_bits = [int(c) for c in bin((x_abs + 1) // 3)[2:]]
         self.twist_b = self.t2.pack(mod.XI.mul_base(4))
-        self.two_inv = self.tf.pack(int(mod.Fq(2).inverse()))
 
     # ------------------------------------------------------------------
     # the Miller loop's steps, over (2L, B) batches of G2 coordinates
@@ -232,17 +243,141 @@ class TPairing:
         return self.multi_pairing([(p, q)])
 
 
+class TPairingBN(TPairing):
+    """Device pairing context for a BN curve module with x > 0 (the port's
+    `bn254`), ported from `JPairingBN`: the D-type twist's lines embed at
+    Fq12 coefficients (0, 3, 4), the ate loop runs over the bits of 6x +
+    2 and ends with additions of pi(Q) and -pi^2(Q), and the final
+    exponentiation's hard part is f^d = prod_i frob(f, i)^(d_i) over the
+    base-p digits d_i of d = (p^4 - p^2 + 1)/r.  The doubling and
+    addition steps are `TPairing`'s; only the order of a line's
+    coefficients differs."""
+
+    @staticmethod
+    def _check(mod):
+        if mod.X <= 0:
+            raise ValueError("TPairingBN takes a BN curve with x > 0")
+
+    def _family_init(self, mod):
+        self.ate_bits = [int(c) for c in bin(mod.ATE_LOOP)[2:]]
+        self.twist_b = self.t2.pack(mod.TWIST_B)
+        self.gamma_x = self.t2.pack(mod.GAMMA_X)
+        self.gamma_y = self.t2.pack(mod.GAMMA_Y)
+        d = (mod.P ** 4 - mod.P ** 2 + 1) // mod.R
+        self.hard_digits = []
+        for _ in range(4):
+            self.hard_digits.append(d % mod.P)
+            d //= mod.P
+        if d:
+            raise ValueError("the hard part's exponent has more than four "
+                             "base-p digits")
+
+    def _mul_by_034(self, f, c0, c3, c4):
+        """f * (c0 + c3 w + c4 v w), the D-twist's sparse line product
+        (host `_mul_by_034`): with f = x + y w, a = (c0, 0, 0) and b = (c3,
+        c4, 0), v0 = x a, v1 = y b and t = (x + y)(a + b); their fifteen
+        Fq2 products run as one `fq2_mul` launch."""
+        F2 = self.t2
+        z = self.t12.coords2(f)                          # x0 x1 x2 y0 y1 y2
+        s = F2.add(torch.cat([z[:, :3], c0.unsqueeze(1)], 1),
+                   torch.cat([z[:, 3:], c3.unsqueeze(1)], 1))
+        ops = torch.cat([z, s[:, :3]], 1)                # x, y, x + y
+        cs = stack(c0, c3, c4, s[:, 3])                  # c0 c3 c4 c0 + c3
+        p = F2.mul(ops[:, [0, 1, 2, 3, 5, 3, 4, 4, 5, 6, 8, 6, 7, 7, 8]],
+                   cs[:, [0, 0, 0, 1, 2, 2, 1, 2, 1, 3, 2, 2, 3, 2, 3]])
+        # v1 = (y0 c3 + xi y2 c4, y0 c4 + y1 c3, y1 c4 + y2 c3); t likewise
+        # over x + y and c0 + c3, c4
+        d12 = F2.add(p[:, [5, 7, 11, 13]], p[:, [6, 8, 12, 14]])
+        xi = self.t6.mul_xi(stack(p[:, 4], p[:, 10], d12[:, 1]))
+        d0, t0 = F2.add(p[:, [3, 9]], xi[:, :2]).unbind(1)
+        v0 = p[:, :3]
+        v1 = stack(d0, d12[:, 0], d12[:, 1])
+        vv1 = stack(xi[:, 2], d0, d12[:, 0])             # v1 * v
+        t = stack(t0, d12[:, 2], d12[:, 3])
+        out = torch.cat([F2.add(v0, vv1), F2.sub(F2.sub(t, v0), v1)], 1)
+        return out.movedim(1, 0).flatten(0, 1)
+
+    def _ell(self, f, line, px, py, active):
+        """f times the line, read in the D-twist's order: c0 = l2 y, c3 =
+        l1 x (one `mont_mul` launch), c4 = l0; inactive pairs' lines are
+        (1, 0, 0)."""
+        F2 = self.t2
+        l0, l1, l2 = line
+        c0, c3 = F2.mul_base(stack(l2, l1), stack(py, px)).unbind(1)
+        c0 = F2.select(active, c0, F2.ones(c0.shape[1:]))
+        c3, c4 = F2.select(active, stack(c3, l0), 0).unbind(1)
+        return self._mul_by_034(f, c0, c3, c4)
+
+    def _frob_twist(self, qx, qy, power: int):
+        """pi^power of affine twist points: x^p gamma_x, y^p gamma_y, each
+        step one `fq2_mul` launch."""
+        F2 = self.t2
+        g = stack(self._col(self.gamma_x, qx), self._col(self.gamma_y, qy))
+        q = stack(qx, qy)
+        for _ in range(power):
+            q = F2.mul(F2.conjugate(q), g)
+        return q.unbind(1)
+
+    def miller_loop_batch(self, px, py, qx, qy, active):
+        """Per-pair Miller values (12L, B) of packed pairs (`pack_pairs`),
+        each equal to the host `miller_loop([(P, Q)])`."""
+        F2, F12 = self.t2, self.t12
+        shape = px.shape[1:]
+        f = F12.ones(shape)
+        rx, ry, rz = qx, qy, F2.ones(shape)
+        for n, bit in enumerate(self.ate_bits[1:]):
+            if n:
+                f = F12.square(f)
+            (rx, ry, rz), line = self._doubling_step(rx, ry, rz)
+            f = self._ell(f, line, px, py, active)
+            if bit:
+                (rx, ry, rz), line = self._addition_step(rx, ry, rz, qx, qy)
+                f = self._ell(f, line, px, py, active)
+        q1x, q1y = self._frob_twist(qx, qy, 1)
+        (rx, ry, rz), line = self._addition_step(rx, ry, rz, q1x, q1y)
+        f = self._ell(f, line, px, py, active)
+        q2x, q2y = self._frob_twist(qx, qy, 2)
+        _, line = self._addition_step(rx, ry, rz, q2x, F2.neg(q2y))
+        return self._ell(f, line, px, py, active)    # x > 0: no conjugation
+
+    def final_exponentiation(self, f: torch.Tensor) -> torch.Tensor:
+        """f^((p^12 - 1)/r) (host `final_exponentiation`): the easy part
+        by conjugation, one inverse and a Frobenius; the hard part as
+        prod_i frob(f, i)^(d_i) over the nonzero base-p digits, the
+        powers side by side in one batch: a square-and-multiply over the
+        digits' bits, most significant first, each lane multiplied where
+        its digit has the bit (`_cyc_exp_abs` of every digit at once)."""
+        F12 = self.t12
+        f = F12.mul(F12.conjugate(f), F12.inv(f))
+        f = F12.mul(F12.frobenius(f, 2), f)
+        lanes = [(i, d) for i, d in enumerate(self.hard_digits) if d]
+        bases = torch.stack([F12.frobenius(f, i) if i else f
+                             for i, _ in lanes], 1)
+        top = max(d.bit_length() for _, d in lanes)
+        r = F12.ones(bases.shape[1:])
+        for b in range(top - 1, -1, -1):
+            if b < top - 1:
+                r = F12.cyclotomic_square(r)
+            take = torch.tensor([(d >> b) & 1 for _, d in lanes],
+                                dtype=torch.bool, device=self.device)
+            take = take.view((-1,) + (1,) * (bases.dim() - 2))
+            r = torch.where(take.unsqueeze(0), F12.mul(r, bases), r)
+        return self.product(r)
+
+
 _CACHE: dict = {}
 
 
 def tpairing_for(mod_name: str = "bls12_381", device="cuda") -> TPairing:
-    """The pairing context of a curve module on `device` (CUDA unless the
-    caller names the CPU; raises without a card).  BLS12-381 only."""
-    if mod_name != "bls12_381":
+    """The pairing context of a curve module, "bls12_381" (`TPairing`) or
+    "bn254" (`TPairingBN`), on `device` (CUDA unless the caller names the
+    CPU; raises without a card)."""
+    if mod_name not in ("bls12_381", "bn254"):
         raise ValueError(f"no device pairing for {mod_name!r} in the port")
     dev = resolve_device(device)
     key = (mod_name, str(dev))
     if key not in _CACHE:
-        from . import bls12_381 as mod
-        _CACHE[key] = TPairing(mod, dev)
+        from . import bls12_381, bn254
+        _CACHE[key] = TPairing(bls12_381, dev) if mod_name == "bls12_381" \
+            else TPairingBN(bn254, dev)
     return _CACHE[key]

@@ -1,13 +1,15 @@
 """Batched extension-field towers on tensors: the port's `jtower.py`.
 
 Counterparts of `crypto_tpu/fields/jtower.py` `JQuadField`,
-`JCubicField` and `JQuadOverCubicField` for BLS12-381's tower:
+`JCubicField` and `JQuadOverCubicField` for the towers of BLS12-381 and
+BN254:
 
     Fq2  = Fq [u] / (u^2 + 1)      (2L, ...) rows: c0's L limbs, then c1's
     Fq6  = Fq2[v] / (v^3 - xi)     (6L, ...) rows: c0, c1, c2, each an Fq2
     Fq12 = Fq6[w] / (w^2 - v)      (12L, ...) rows: c0, c1, each an Fq6
 
-with beta = -1 and xi = u + 1 (asserted; true of BLS12-381).  Limb-major
+with beta = -1 and xi = k + u for a small k (asserted): u + 1 for
+BLS12-381 (L = 12), 9 + u for BN254 (L = 8).  Limb-major
 rows are the Fq2 kernels' own layout (`Fq2Ctx`), so a batch of Fq2
 coordinates goes to the kernels without a transpose.  `U` is the rows per
 element (`TField.U = L`), which the MSM reads for every layout.
@@ -24,7 +26,8 @@ Fq6 and Fq12 ops stack their independent Fq2 products along a batch axis
 and run them as one `fq2_mul` launch (Fq6 Karatsuba's 6 products, an Fq12
 product's 18), and their squares as one `fq2_sqr` launch; the reference
 runs them as separate calls.  Every op is exact, so either form gives the
-same canonical values.  Multiplying by xi = u + 1 is two base-field adds.
+same canonical values.  Multiplying by xi = u + 1 is two base-field adds,
+by 9 + u a short chain of them.
 """
 
 from __future__ import annotations
@@ -222,13 +225,19 @@ def _unpack_coords(sub, limbs: torch.Tensor, k: int, make):
     return out.reshape(parts[0].shape) if parts[0].shape else out[0]
 
 
+XI_MAX = 16        # the largest k of xi = k + u that mul_xi takes
+
+
 class TCubicField:
-    """Fq6 = Fq2[v]/(v^3 - xi), xi = u + 1, as (6L, ...) tensors: c0's 2L
-    rows, then c1's, then c2's (`JCubicField`)."""
+    """Fq6 = Fq2[v]/(v^3 - xi), xi = k + u (u + 1 or 9 + u), as (6L, ...)
+    tensors: c0's 2L rows, then c1's, then c2's (`JCubicField`)."""
 
     def __init__(self, host: CubicOverQuad, device="cuda"):
-        if (int(host.xi.c0), int(host.xi.c1)) != (1, 1):
-            raise ValueError("TCubicField assumes xi == u + 1")
+        k = int(host.xi.c0)
+        if int(host.xi.c1) != 1 or not 1 <= k <= XI_MAX:
+            raise ValueError(f"TCubicField assumes xi == k + u with 1 <= k "
+                             f"<= {XI_MAX}")
+        self.xi_k = k
         self.host = host
         self.fq2 = tquad_for(host.fq2, device)
         self.base = self.fq2.base
@@ -277,9 +286,18 @@ class TCubicField:
         return self.add(a, a)
 
     def mul_xi(self, c: torch.Tensor) -> torch.Tensor:
-        """An Fq2 batch (2L, ...) times xi = u + 1: (c0 - c1) + (c0 + c1) u."""
+        """An Fq2 batch (2L, ...) times xi = k + u: (k c0 - c1) + (c0 + k
+        c1) u.  For u + 1, two base-field adds; else k (c0, c1) first, by
+        doublings and adds over both components at once (9 (c0, c1) is
+        three doublings and an add)."""
         F, L = self.base, self.L
-        return torch.cat([F.sub(c[:L], c[L:]), F.add(c[:L], c[L:])])
+        kc = c
+        if self.xi_k > 1:
+            for bit in bin(self.xi_k)[3:]:
+                kc = self.fq2.double(kc)
+                if bit == "1":
+                    kc = self.fq2.add(kc, c)
+        return torch.cat([F.sub(kc[:L], c[L:]), F.add(c[:L], kc[L:])])
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Karatsuba over Fq2 (host `Fp6.__mul__`): the six products v0,

@@ -1,8 +1,11 @@
-"""LegoGroth16 cc-SNARK on the device: the generator and the prover.
+"""LegoGroth16 cc-SNARK: the generator and the prover on the device, the
+verifier and proof rerandomisation on the host.
 
 The port's counterpart of `crypto_tpu/legogroth16/snark.py` (reference
-`legogroth16/src/{generator,prover}.rs`, `data_structures.rs`): Groth16
-with a Pedersen commitment to a prefix of the witnesses, over BLS12-381.
+`legogroth16/src/{generator,prover,verifier}.rs`, `data_structures.rs`):
+Groth16 with a Pedersen commitment to a prefix of the witnesses, over
+BLS12-381 by default or BN254 (Circom's bn128): every entry point takes
+`ctx`, the port's `curves.bls12_381` or `curves.bn254`.
 
 CRS (trapdoors alpha, beta, gamma, delta, eta and tau):
   vk:  alpha*G1, beta*G2, gamma*G2, delta*G2,
@@ -22,14 +25,19 @@ Prove (r, s, v random; v is the commitment's randomness):
       - v * eta/delta
   D = <gamma_abc[committed slots], committed wits> + v * eta/gamma
 
+Verify: e(A, B) == e(alpha, beta) e(inputs + D, gamma) e(C, delta), as
+one host multi-pairing of `ctx` (`ctx.multi_pairing`) against a prepared
+e(alpha, beta), as the reference's verifier does; `verify_commitment`
+opens D with v.
+
 The device work: the NTTs (`ops/ntt.py`), the query MSMs from
 `DEVICE_MSM_THRESHOLD` points on (`ops/msm_v2.py`, each query packed once
 and kept on the device in `ProvingKey.device_cache`) and the CRS's
 fixed-base products from `DEVICE_FIXED_BASE_THRESHOLD` scalars on
 (`ops/fixed_base.py`).  Below the thresholds the host does the work.
-Every entry point runs on `device`, CUDA unless the caller names the
-CPU, and raises without a card.  Verification, the pairing and proof
-rerandomisation are not ported yet.
+Every entry point of the generator and the prover runs on `device`,
+CUDA unless the caller names the CPU, and raises without a card; the
+verifier and the rerandomisations are host code, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 
 from .. import resolve_device
 from ..curves import bls12_381 as bls
+from ..curves import bn254
 from ..curves.sw import Point
 from ..curves.tcurve import TPoints, tcurve_for
 from ..fields.host import Field, Fp
@@ -61,11 +70,11 @@ class LegoGroth16Error(Exception):
 
 
 def _check_ctx(ctx) -> None:
-    """The port runs LegoGroth16 over its own BLS12-381 module only."""
-    if ctx is not bls:
+    """The port runs LegoGroth16 over its own curve modules only."""
+    if ctx is not bls and ctx is not bn254:
         raise LegoGroth16Error(
-            "ctx must be crypto_tpu_torch.curves.bls12_381: the port has no "
-            "other pairing curve yet")
+            "ctx must be crypto_tpu_torch.curves.bls12_381 or "
+            "crypto_tpu_torch.curves.bn254")
 
 
 def _msm(points, scalars, device="cuda") -> Point:
@@ -88,7 +97,7 @@ def _msm_query(pk: "ProvingKey", name: str, scalars, offset: int = 0,
     k = len(scalars)
     points = full[offset:offset + k]
     if not points:
-        return bls.G1.infinity()
+        return (full[0] if full else pk.vk.alpha_g1).curve.infinity()
     if k < DEVICE_MSM_THRESHOLD:
         return msm_host(points, scalars)
     curve = full[0].curve
@@ -168,6 +177,17 @@ class Proof:
     b: Point
     c: Point
     d: Point
+
+
+@dataclass
+class PreparedVerifyingKey:
+    vk: VerifyingKey
+    alpha_beta: object  # e(alpha, beta), an element of ctx's Fq12
+
+    @classmethod
+    def from_vk(cls, vk: VerifyingKey, ctx=bls) -> "PreparedVerifyingKey":
+        _check_ctx(ctx)
+        return cls(vk=vk, alpha_beta=ctx.pairing(vk.alpha_g1, vk.beta_g2))
 
 
 def _lagrange_coeffs_at(domain: NTTDomain, t: int, F: Field = F) -> list:
@@ -405,3 +425,102 @@ def create_proof(circuit, pk: ProvingKey, rng, v: Fp | None = None,
     proof = Proof(a=g_a.normalize(), b=g2_b.normalize(),
                   c=g_c.normalize(), d=g_d.normalize())
     return proof, v, [F(x) for x in committed]
+
+
+# ---------------------------------------------------------------------------
+# rerandomisation and verification (host, `ctx`'s pairing)
+# ---------------------------------------------------------------------------
+
+def rerandomize_proof(proof: Proof, vk: VerifyingKey, rng, ctx=bls) -> Proof:
+    """BKSV20-style rerandomisation (`legogroth16/src/prover.rs:478-508`):
+    A' = A/r1, B' = r1 B + r1 r2 (delta + gamma), C' = C + r2 A, D' = D
+    + r2 A.  D no longer commits to the witnesses afterwards."""
+    _check_ctx(ctx)
+    F = ctx.Fr
+    r1 = F.rand_nonzero(rng)
+    r2 = F.rand_nonzero(rng)
+    a_r2 = proof.a * int(r2)
+    return Proof(
+        a=(proof.a * int(r1.inverse())).normalize(),
+        b=(proof.b * int(r1)
+           + (vk.delta_g2 + vk.gamma_g2) * int(r1 * r2)).normalize(),
+        c=(proof.c + a_r2).normalize(),
+        d=(proof.d + a_r2).normalize())
+
+
+def rerandomize_proof_1(proof: Proof, old_v: Fp, new_v: Fp,
+                        vk: VerifyingKey, eta_delta_inv_g1: Point, rng,
+                        ctx=bls) -> Proof:
+    """Rerandomisation that keeps D a commitment to the witnesses, with the
+    fresh randomness new_v (`legogroth16/src/prover.rs:510-549`): C' = C +
+    r2 A + (old_v - new_v) eta/delta G1, D' = D + (new_v - old_v)
+    eta/gamma G1."""
+    _check_ctx(ctx)
+    F = ctx.Fr
+    r1 = F.rand_nonzero(rng)
+    r2 = F.rand_nonzero(rng)
+    a_r2 = proof.a * int(r2)
+    return Proof(
+        a=(proof.a * int(r1.inverse())).normalize(),
+        b=(proof.b * int(r1) + vk.delta_g2 * int(r1 * r2)).normalize(),
+        c=(proof.c + a_r2
+           + eta_delta_inv_g1 * int(old_v - new_v)).normalize(),
+        d=(proof.d + vk.eta_gamma_inv_g1 * int(new_v - old_v)).normalize())
+
+
+def prepare_inputs(vk: VerifyingKey, public_inputs, ctx=bls) -> Point:
+    """gamma_abc[0] + sum_i x_i gamma_abc[i + 1] over the public inputs."""
+    _check_ctx(ctx)
+    F = ctx.Fr
+    inp = [F(1)] + [F(int(x)) for x in public_inputs]
+    if len(inp) > vk.num_public_inputs:
+        raise LegoGroth16Error("too many public inputs")
+    return msm_host(vk.gamma_abc_g1[:len(inp)], inp)
+
+
+def verify_qap_proof(pvk: PreparedVerifyingKey, a: Point, b: Point,
+                     c: Point, d: Point, ctx=bls) -> bool:
+    """The bare 3-pairing QAP check with a whole d accumulator
+    (`verifier.rs:62-85`): e(a, b) e(c, -delta) e(d, -gamma) == e(alpha,
+    beta)."""
+    _check_ctx(ctx)
+    vk = pvk.vk
+    neg_delta = (-vk.delta_g2).normalize()
+    neg_gamma = (-vk.gamma_g2).normalize()
+    lhs = ctx.multi_pairing([(a, b), (c, neg_delta),
+                             (d.normalize(), neg_gamma)])
+    return lhs == pvk.alpha_beta
+
+
+def verify_proof(pvk: PreparedVerifyingKey, proof: Proof, public_inputs,
+                 ctx=bls) -> bool:
+    """The 3-pairing check of a proof and its public inputs
+    (`verifier.rs:64-110`)."""
+    d = prepare_inputs(pvk.vk, public_inputs, ctx) + proof.d
+    return verify_qap_proof(pvk, proof.a, proof.b, proof.c, d, ctx)
+
+
+def verify_proof_with_checker(pvk: PreparedVerifyingKey, proof: Proof,
+                              public_inputs, checker, ctx=bls) -> None:
+    """Adds the verification equation e(A, B) e(C, -delta) e(D + inputs,
+    -gamma) == e(alpha, beta) to a shared `RandomizedPairingChecker`
+    (`utils/checkers.py`, BLS12-381 only, as the reference's; `verifier.rs`
+    with `VerifierConfig`)."""
+    vk = pvk.vk
+    d = (prepare_inputs(vk, public_inputs, ctx) + proof.d).normalize()
+    checker.add_multiple_sources_and_target(
+        [proof.a, proof.c, d],
+        [proof.b, (-vk.delta_g2).normalize(), (-vk.gamma_g2).normalize()],
+        pvk.alpha_beta)
+
+
+def verify_commitment(vk: VerifyingKey, proof: Proof, public_inputs,
+                      committed_witnesses, v: Fp, ctx=bls) -> bool:
+    """Opens D: D == sum gamma_abc[committed slot i] w_i + v eta/gamma
+    (`verifier.rs` `verify_commitment`)."""
+    _check_ctx(ctx)
+    n_pub = vk.num_public_inputs
+    bases = vk.gamma_abc_g1[n_pub:n_pub + len(committed_witnesses)]
+    expect = msm_host(bases + [vk.eta_gamma_inv_g1],
+                      list(committed_witnesses) + [v])
+    return expect == proof.d

@@ -1,8 +1,9 @@
 """Batched-affine halving levels: CUDA kernels, wrappers and plain versions.
 
 Four TPU kernels of `crypto_tpu/ops/pallas/curve_kernels.py` on the MSM's
-levels, over BLS12-381 Fq.  The total formula (the safe path and the
-per-window rerun):
+levels, over BLS12-381 Fq (12 limbs) and BN254 Fq (8), as the reference's
+take `base.L`.  The total formula (the safe path and the per-window
+rerun):
 
 * `affine_level_pre` / `affine_level_post` replace `affine_kernels_for`
   (`call_pre` / `call_post`), `csrc/affine_level.cu`:
@@ -13,7 +14,7 @@ per-window rerun):
 * `chunked_level_prefix` / `chunked_level_down` replace
   `chunked_level_kernels_for` (`call_prefix` / `call_down`),
   `csrc/chunked_level.cu`: Montgomery's trick over the K = 8 pairs
-  t + j*(M/K) that thread t owns; only the (12, M/K) totals go through
+  t + j*(M/K) that thread t owns; only the (L, M/K) totals go through
   `batch_inv_t`, and down walks back, rebuilding each d that prefix
   formed from prefix's doubling mask (`_denom_of_dbl`).
 
@@ -28,18 +29,18 @@ infinite, and d == 0 left as 0 so a colliding pair shows):
   `chunked_level_kernels_fast`: prefix -> (prefix, total, inf3), a total
   of 0 where a pair of its thread collides; down -> (x3, y3).
 
-The total formula over Fq2 (BLS12-381 G2, whose MSM runs it at every
-level with no chunked level, as the reference does):
+The total formula over Fq2 (G2 of either curve, whose MSM runs it at
+every level with no chunked level, as the reference does):
 
 * `affine_level_pre_fq2` / `affine_level_post_fq2` replace
   `affine_kernels_for_fq2` (`call_pre` / `call_post`),
   `csrc/affine_level_fq2.cu`: the contract of `affine_level_pre` /
-  `affine_level_post` with (24, M) coordinates (c0's limbs in rows
-  [:12], c1's in [12:], `fields/ttower.py`); the limb-0 1 of a dead lane
+  `affine_level_post` with (2L, M) coordinates (c0's limbs in rows
+  [:L], c1's in [L:], `fields/ttower.py`); the limb-0 1 of a dead lane
   is in row 0 (c0).  Their plain versions are `affine_level_pre_plain` /
   `affine_level_post_plain`, which are generic over the field.
 
-Coordinates are (12, M) limb-major int32 tensors (see `fields/tfield.py`),
+Coordinates are (L, M) limb-major int32 tensors (see `fields/tfield.py`),
 masks (M,) int32, nonzero meaning infinity (m1, m2, inf3) or doubling
 (dbl).  What bounds each kernel on the H100 and what the design does about
 it is noted in its source file.  Each wrapper launches its kernel for CUDA
@@ -56,11 +57,10 @@ import ctypes
 import torch
 
 from .build import check, load_library
-from .field_kernels import (FQ_LIMBS, check_limbs, check_masks,
+from .field_kernels import (check_kernel_field, check_limbs, check_masks,
                             mont_mul_plain, on_card, stream_of)
 
 CHUNK_K = 8        # pairs each thread of the chunked level owns
-FQ2_ROWS = 2 * FQ_LIMBS
 
 
 # ---------------------------------------------------------------------------
@@ -218,12 +218,15 @@ def chunked_level_down_fast_plain(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, F, coords, masks, rows=FQ_LIMBS):
-    """Checks of the level wrappers; `rows` per element: 12 for the Fq
-    kernels, 24 for the Fq2 ones."""
-    if F.L != FQ_LIMBS or F.U != rows:
-        raise ValueError(f"{name}: the kernel takes {rows} rows of "
-                         f"BLS12-381 Fq limbs an element, got {F.U}")
+def _check(name, F, coords, masks, fq2=False):
+    """Checks of the level wrappers: a base field the kernels take
+    (`check_kernel_field`), and L rows an element for the Fq kernels, 2L
+    for the Fq2 ones."""
+    check_kernel_field(name, F.mod)
+    rows = 2 * F.L if fq2 else F.L
+    if F.U != rows:
+        raise ValueError(f"{name}: the kernel takes {rows} rows an "
+                         f"element, got {F.U}")
     M = check_limbs(name, rows, *coords)
     check_masks(name, M, coords[0].device, *masks)
     return M
@@ -234,8 +237,10 @@ def _ptrs(*ts):
 
 
 def _c_args(F, M, device):
-    """The trailing C arguments: M, the modulus, -p^-1, the stream."""
-    return [M, ctypes.addressof(F.mod.p_c), F.mod.n0inv, stream_of(device)]
+    """The trailing C arguments: M, the limb count, the modulus, -p^-1,
+    the stream."""
+    return [M, F.L, ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+            stream_of(device)]
 
 
 def affine_level_pre(F, x1, y1, m1, x2, y2, m2):
@@ -273,9 +278,9 @@ def affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
 
 
 def affine_level_pre_fq2(F, x1, y1, m1, x2, y2, m2):
-    """Fq2 level denominators and case masks: (d (24, M), dbl, inf3)."""
+    """Fq2 level denominators and case masks: (d (2L, M), dbl, inf3)."""
     M = _check("affine_level_pre_fq2", F, (x1, y1, x2, y2), (m1, m2),
-               FQ2_ROWS)
+               fq2=True)
     if not on_card("affine_level_pre_fq2", x1.device):
         return affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2)
     d = torch.empty_like(x1)
@@ -294,7 +299,7 @@ def affine_level_pre_fq2(F, x1, y1, m1, x2, y2, m2):
 def affine_level_post_fq2(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
     """The unified Fq2 add/double given dinv: (x3, y3)."""
     M = _check("affine_level_post_fq2", F, (x1, y1, x2, y2, dinv),
-               (dbl, m1, m2), FQ2_ROWS)
+               (dbl, m1, m2), fq2=True)
     if not on_card("affine_level_post_fq2", x1.device):
         return affine_level_post_plain(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
     x3 = torch.empty_like(x1)
@@ -310,7 +315,7 @@ def affine_level_post_fq2(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
 
 
 def chunked_level_prefix(F, x1, y1, m1, x2, y2, m2):
-    """(prefix (12, M), total (12, M/K), dbl, inf3); M a multiple of K."""
+    """(prefix (L, M), total (L, M/K), dbl, inf3); M a multiple of K."""
     M = _check("chunked_level_prefix", F, (x1, y1, x2, y2), (m1, m2))
     if M % CHUNK_K:
         raise ValueError(f"chunked_level_prefix: M={M} is not a multiple "
@@ -341,7 +346,7 @@ def chunked_level_down(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
                          f"of {CHUNK_K}")
     check_limbs("chunked_level_down", F.L, tinv)
     if tinv.shape[1] != M // CHUNK_K or tinv.device != x1.device:
-        raise ValueError("chunked_level_down: tinv must be (12, M/K) on the "
+        raise ValueError("chunked_level_down: tinv must be (L, M/K) on the "
                          "coordinates' device")
     if not on_card("chunked_level_down", x1.device):
         return chunked_level_down_plain(F, x1, y1, m1, x2, y2, m2, prefix,
@@ -393,7 +398,7 @@ def affine_level_post_fast(F, x1, y1, x2, y2, dinv, m1, m2):
 
 
 def chunked_level_prefix_fast(F, x1, y1, m1, x2, y2, m2):
-    """(prefix (12, M), total (12, M/K), inf3); a total is 0 where one of
+    """(prefix (L, M), total (L, M/K), inf3); a total is 0 where one of
     its thread's pairs collides.  M a multiple of K; y1, y2 not read."""
     M = _check("chunked_level_prefix_fast", F, (x1, y1, x2, y2), (m1, m2))
     if M % CHUNK_K:
@@ -424,7 +429,7 @@ def chunked_level_down_fast(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
                          f"of {CHUNK_K}")
     check_limbs("chunked_level_down_fast", F.L, tinv)
     if tinv.shape[1] != M // CHUNK_K or tinv.device != x1.device:
-        raise ValueError("chunked_level_down_fast: tinv must be (12, M/K) on "
+        raise ValueError("chunked_level_down_fast: tinv must be (L, M/K) on "
                          "the coordinates' device")
     if not on_card("chunked_level_down_fast", x1.device):
         return chunked_level_down_fast_plain(F, x1, y1, m1, x2, y2, m2,

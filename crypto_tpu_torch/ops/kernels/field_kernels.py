@@ -6,7 +6,8 @@ its CUDA kernel, its wrapper and its plain PyTorch version.
 `mont_mul_t_fn` (the TPU kernel behind every device field mul,
 `_mont_mul_body`).  Same function, a·b·R^-1 mod p over `(L, M)`
 limb-major batches, in the port's
-representation: L 32-bit limbs (L = 12 for BLS12-381 Fq, 8 for Fr) held
+representation: L 32-bit limbs (12 for BLS12-381 Fq, 8 for its Fr and
+for BN254's Fq and Fr) held
 in int32 tensors as uint32 bit patterns, R = 2^(32L).  The TPU kernel's
 MXU one-hot columns, Toeplitz REDC and Kogge-Stone row carries are TPU
 artefacts and are not carried over.
@@ -38,15 +39,16 @@ p - 2; the binary chain it runs takes 608 products).
 
 `fq2_mul` replaces `crypto_tpu/ops/pallas/curve_kernels.py` `fq2_mul_t_fn`
 (`Fq2Ctx.mul`, beta = -1): (2L, M) x (2L, M) -> (2L, M), c0's limbs in
-rows [:L] and c1's in [L:] (`csrc/fq2_mul.cu`, BLS12-381 Fq only).  The
-kernel is Karatsuba with lazy reduction: three unreduced 12 x 12-limb
+rows [:L] and c1's in [L:] (`csrc/fq2_mul.cu`, over BLS12-381 Fq, L = 12,
+and BN254 Fq, L = 8, as the reference's `fq2_mul_t_fn(base.L, ...)`).  The
+kernel is Karatsuba with lazy reduction: three unreduced L x L-limb
 products v0 = a0·b0, v1 = a1·b1, t = (a0+a1)(b0+b1), then c0 =
 REDC(v0 + p² − v1) and c1 = REDC(t − v0 − v1), 744 wide products against
-288 bytes, on the operations side of the card's balance point.  Its
-contract: for canonical inputs (below p) it returns the canonical
-product, so it equals the plain version, which stays the reference's
-three Montgomery products, bit for bit; every path feeds canonical
-inputs.  `fq2_sqr` is the reference's complex squaring (`Fq2Ctx.square`,
+288 bytes at L = 12 (336 against 192 at L = 8), on the operations side of
+the card's balance point.  Its contract: for canonical inputs (below p)
+it returns the canonical product, so it equals the plain version, which
+stays the reference's three Montgomery products, bit for bit; every path
+feeds canonical inputs.  `fq2_sqr` is the reference's complex squaring (`Fq2Ctx.square`,
 `JQuadField.square`): c0 = (a0+a1)(a0-a1), c1 = 2·a0·a1, two base
 products, in the same source; the kernel computes the same bits as
 `fq2_mul`'s Karatsuba with b = a, on three wide squares and two
@@ -58,7 +60,8 @@ with its contract: (payload (N, C) int32, point-major, idx (M,) int64) ->
 (C, M) limb-major, row idx[j] of the payload in column j, a zero column
 where idx[j] is outside [0, N), on both sides (`csrc/gather.cu`).  It is
 bound by bytes: one thread a slot reads the slot's row as 16-byte
-vectors (C = 12 or 24) and writes its column, coalesced across the warp.
+vectors (C = 12 or 24 over BLS12-381, 8 or 16 over BN254) and writes its
+column, coalesced across the warp.
 `slot_tables` builds its two payloads of an MSM from the limb-major
 coordinates, once per MSM: x's rows, and y's rows over -y's (the same
 source; the plain version is a transpose and `F.neg`).
@@ -254,7 +257,19 @@ def mont_pow(a: torch.Tensor, e: int, mod: Modulus) -> torch.Tensor:
     return out
 
 
-FQ_LIMBS = 12      # the Fq2 kernel's base field: BLS12-381 Fq
+KERNEL_LIMBS = (8, 12)     # the limb counts the level, Fq2 and table
+                           # kernels are built for: BN254 Fq, BLS12-381 Fq
+
+
+def check_kernel_field(name: str, mod: Modulus) -> None:
+    """The level, Fq2 and table kernels take a base field of 8 or 12 limbs
+    whose p leaves 2 spare bits, 4p < R = 2^(32L): the bound their lazy
+    reductions and even/odd products were proved under (BN254 Fq and
+    BLS12-381 Fq; not BLS12-381 Fr, whose r > R/4)."""
+    if mod.L not in KERNEL_LIMBS or 4 * mod.p >= 1 << (32 * mod.L):
+        raise ValueError(f"{name}: the kernel takes a base field of "
+                         f"{KERNEL_LIMBS} limbs with 4p < 2^(32L), got "
+                         f"{mod.L} limbs and a {mod.p.bit_length()}-bit p")
 
 
 def fq2_mul_plain(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -275,9 +290,7 @@ def fq2_mul_plain(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def fq2_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fq2 product of (2L, M) batches over the base field context F.  CUDA
     tensors launch `csrc/fq2_mul.cu`; CPU tensors take `fq2_mul_plain`."""
-    if F.L != FQ_LIMBS:
-        raise ValueError(f"fq2_mul: the kernel takes BLS12-381 Fq "
-                         f"({FQ_LIMBS} limbs), got {F.L}")
+    check_kernel_field("fq2_mul", F.mod)
     M = check_limbs("fq2_mul", 2 * F.L, a, b)
     if not on_card("fq2_mul", a.device):
         return fq2_mul_plain(F, a, b)
@@ -286,7 +299,7 @@ def fq2_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     lib = load_library()
     check(lib.crypto_fq2_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), M,
-                             ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+                             F.L, ctypes.addressof(F.mod.p_c), F.mod.n0inv,
                              stream_of(a.device)), "fq2_mul")
     fq2_mul.launches += 1
     return out
@@ -308,9 +321,7 @@ def fq2_sqr(F, a: torch.Tensor) -> torch.Tensor:
     """Fq2 square of a (2L, M) batch over the base field context F.  CUDA
     tensors launch `csrc/fq2_mul.cu`'s square; CPU tensors take
     `fq2_sqr_plain`."""
-    if F.L != FQ_LIMBS:
-        raise ValueError(f"fq2_sqr: the kernel takes BLS12-381 Fq "
-                         f"({FQ_LIMBS} limbs), got {F.L}")
+    check_kernel_field("fq2_sqr", F.mod)
     M = check_limbs("fq2_sqr", 2 * F.L, a)
     if not on_card("fq2_sqr", a.device):
         return fq2_sqr_plain(F, a)
@@ -318,11 +329,14 @@ def fq2_sqr(F, a: torch.Tensor) -> torch.Tensor:
     if M == 0:
         return out
     lib = load_library()
-    check(lib.crypto_fq2_sqr(a.data_ptr(), out.data_ptr(), M,
+    check(lib.crypto_fq2_sqr(a.data_ptr(), out.data_ptr(), M, F.L,
                              ctypes.addressof(F.mod.p_c), F.mod.n0inv,
                              stream_of(a.device)), "fq2_sqr")
     fq2_sqr.launches += 1
     return out
+
+
+GATHER_ROWS = (8, 12, 16, 24)      # an Fq or Fq2 coordinate of either curve
 
 
 def gather_rows_t_plain(payload: torch.Tensor,
@@ -338,8 +352,9 @@ def gather_rows_t(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(N, C) int32 point-major payload x (M,) int64 indices -> (C, M)
     int32: row idx[j] of the payload in column j, zero where idx[j] is
     outside [0, N) (the MSM marks an empty slot with -1).  CUDA tensors
-    launch `csrc/gather.cu`, for rows of 12 or 24 words (an Fq or Fq2
-    coordinate); CPU tensors take `gather_rows_t_plain`."""
+    launch `csrc/gather.cu`, for rows of 12 or 24 words (a BLS12-381 Fq
+    or Fq2 coordinate) or 8 or 16 (BN254's); CPU tensors take
+    `gather_rows_t_plain`."""
     if payload.dtype != torch.int32 or payload.dim() != 2 \
             or not payload.is_contiguous():
         raise ValueError(f"gather_rows_t: expected a contiguous int32 (N, C) "
@@ -353,9 +368,10 @@ def gather_rows_t(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not on_card("gather_rows_t", payload.device):
         return gather_rows_t_plain(payload, idx)
     N, C = payload.shape
-    if C not in (12, 24) or payload.data_ptr() % 16:
-        raise ValueError(f"gather_rows_t: the kernel takes rows of 12 or 24 "
-                         f"words on a 16-byte boundary, got {C} words at "
+    if C not in GATHER_ROWS or payload.data_ptr() % 16:
+        raise ValueError(f"gather_rows_t: the kernel takes rows of 8 or 16 "
+                         f"(BN254) or 12 or 24 (BLS12-381) words on a "
+                         f"16-byte boundary, got {C} words at "
                          f"{payload.data_ptr():#x}")
     M = idx.shape[0]
     out = torch.empty((C, M), dtype=torch.int32, device=payload.device)
@@ -378,24 +394,23 @@ def slot_tables_plain(F, x: torch.Tensor, y: torch.Tensor) -> tuple:
 
 def slot_tables(F, x: torch.Tensor, y: torch.Tensor) -> tuple:
     """The row gather's payloads of an MSM from its (U, N) limb-major
-    coordinates over the field context F (Fq, U = 12, or Fq2 over it, U =
-    24): (xtab (N, U), ytab (2N, U)), x's rows, and y's rows then -y's, so
+    coordinates over the field context F (Fq, U = L, or Fq2 over it, U =
+    2L; L = 12 or 8): (xtab (N, U), ytab (2N, U)), x's rows, and y's rows
+    then -y's, so
     row src + N*neg of ytab is the slot's signed y.  CUDA tensors launch
     `csrc/gather.cu`'s table kernel; CPU tensors take
     `slot_tables_plain`."""
     M = check_limbs("slot_tables", F.U, x, y)
     if not on_card("slot_tables", x.device):
         return slot_tables_plain(F, x, y)
-    if F.mod.L != FQ_LIMBS:
-        raise ValueError(f"slot_tables: the kernel takes BLS12-381 Fq "
-                         f"({FQ_LIMBS} limbs) and Fq2 over it, got {F.mod.L}")
+    check_kernel_field("slot_tables", F.mod)
     xtab = torch.empty((M, F.U), dtype=torch.int32, device=x.device)
     ytab = torch.empty((2 * M, F.U), dtype=torch.int32, device=x.device)
     if M == 0:
         return xtab, ytab
     lib = load_library()
     check(lib.crypto_slot_tables(x.data_ptr(), y.data_ptr(), xtab.data_ptr(),
-                                 ytab.data_ptr(), F.U, M,
+                                 ytab.data_ptr(), F.U, M, F.mod.L,
                                  ctypes.addressof(F.mod.p_c), F.mod.n0inv,
                                  stream_of(x.device)), "slot_tables")
     slot_tables.launches += 1

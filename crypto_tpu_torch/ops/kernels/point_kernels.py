@@ -35,8 +35,9 @@ import torch
 
 from ...curves.tcurve import TCurve, TPoints
 from .build import check, load_library
-from .curve_kernels import FQ_LIMBS
 from .field_kernels import check_limbs, mont_mul_plain, on_card, stream_of
+
+FQ_LIMBS = 12      # the point kernels' field: BLS12-381 Fq
 
 
 # ---------------------------------------------------------------------------

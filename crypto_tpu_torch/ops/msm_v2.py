@@ -9,9 +9,9 @@ bases) shows as a zero denominator, flags its window, and the flagged
 windows are rerun with the total unified add/double before the tail.
 `safe=True` runs the total formula everywhere (the reference's
 `CRYPTO_TPU_SAFE_AFFINE`), exact for every input with no flag and no
-rerun.  A curve over Fq2 (BLS12-381 G2) runs the reference's Fq2
-configuration whatever `safe` says: the total-formula Fq2 pre/post at
-every level, no chunked level, no flag and no rerun.  Every layout is
+rerun.  A curve over Fq2 (G2 of BLS12-381 or BN254) runs the reference's
+Fq2 configuration whatever `safe` says: the total-formula Fq2 pre/post
+at every level, no chunked level, no flag and no rerun.  Every layout is
 read in rows per element, `F.U` (L for Fq, 2L for Fq2).  The steps:
 
 1. signed c-bit window digits on the device (`device_digits`);
@@ -626,7 +626,8 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
                          safe: bool = False) -> Point:
     """sum_i scalars[i] * points[i] on the device; returns a host Point.
 
-    `curve`: BLS12-381 G1 or G2.  `points`: host Point list or `TPoints`
+    `curve`: G1 or G2 of BLS12-381 or BN254 (its level, Fq2 and gather
+    kernels at 12 or 8 limbs).  `points`: host Point list or `TPoints`
     with Z in {0, 1}.
     `scalars`: int sequence, (N, nbytes) uint8 LE bytes (numpy or tensor),
     or a (W, N) int32 digit tensor from `device_digits`.

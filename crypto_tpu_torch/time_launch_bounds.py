@@ -90,7 +90,7 @@ BUILDS = {
                        f"constexpr int TREE_LOG = {tree_log};")]
         for w in (1, 4, 5)
         for k, (chunk, tree_log) in NORMALIZE_SHAPES.items()}),
-    "down": ("chunked_level.cu", "down_kernel", "crypto_chunked_down", {
+    "down": ("chunked_level.cu", "down_kernel<12>", "crypto_chunked_down", {
         str(k): [(r"constexpr int DOWN_BLOCKS = 4;",
                   f"constexpr int DOWN_BLOCKS = {k};")] for k in (4, 5)}),
 }
@@ -263,7 +263,7 @@ def _down(libs, F, gen, reps) -> dict:
 
         def run(k):
             build.check(libs[k][0].crypto_chunked_down(
-                *[t.data_ptr() for t in ins + outs[k]], M,
+                *[t.data_ptr() for t in ins + outs[k]], M, F.L,
                 ctypes.addressof(F.mod.p_c), F.mod.n0inv,
                 torch.cuda.current_stream().cuda_stream), f"down at {k}")
 

@@ -144,7 +144,7 @@ def _compare_down(libs, F, reps) -> dict:
     canonical coordinates, prefixes and inverses with infinite operands."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     out = {"resources": {name: libs[f"down_{name}"][1].get(
-        "down_fast_kernel", {}) for name in DOWN}, "widths": []}
+        "down_fast_kernel<12>", {}) for name in DOWN}, "widths": []}
     for M in sorted(set(LEVEL_PAIRS), reverse=True):
         x1, y1, x2, y2, prefix = (_limbs(F.L, 1, M, gen) for _ in range(5))
         tinv = _limbs(F.L, 1, M // CHUNK_K, gen)
@@ -157,7 +157,7 @@ def _compare_down(libs, F, reps) -> dict:
 
         def run(name):
             build.check(libs[f"down_{name}"][0].crypto_chunked_down_fast(
-                *[t.data_ptr() for t in ins + outs[name]], M,
+                *[t.data_ptr() for t in ins + outs[name]], M, F.L,
                 ctypes.addressof(F.mod.p_c), F.mod.n0inv,
                 torch.cuda.current_stream().cuda_stream), name)
 

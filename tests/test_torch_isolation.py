@@ -24,7 +24,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "crypto_tpu."))
              or m == "crypto_tpu")
-print("MODULES", len(names))
+print("MODULES", len(names), " ".join(names))
 print("BAD", bad)
 """
 
@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 43
+    assert n >= 44
+    assert "crypto_tpu_torch.curves.bn254" in out.stdout
 
 
 def _msm():
@@ -289,6 +290,45 @@ def _accum_omega():
     Omega.new([tb.Fr(3)], [tb.Fr(4)], tb.G1.generator(), _accum_key())
 
 
+def _msm_bn254():
+    from crypto_tpu_torch.curves import bn254 as tbn
+    from crypto_tpu_torch.ops.msm_v2 import msm_device_scheduled
+    G = tbn.G1.generator()
+    msm_device_scheduled(tbn.G1, [G, G.double()], [1, 2])
+
+
+def _msm_bn254_g2():
+    from crypto_tpu_torch.curves import bn254 as tbn
+    from crypto_tpu_torch.ops.msm_v2 import msm_device_scheduled
+    G = tbn.G2.generator()
+    msm_device_scheduled(tbn.G2, [G, G.double()], [1, 2])
+
+
+def _tpairing_for_bn254():
+    from crypto_tpu_torch.curves.tpairing import tpairing_for
+    tpairing_for("bn254")
+
+
+def _tpairing_bn():
+    from crypto_tpu_torch.curves import bn254 as tbn
+    from crypto_tpu_torch.curves.tpairing import TPairingBN
+    TPairingBN(tbn)
+
+
+def _tcubic_for_bn254():
+    from crypto_tpu_torch.curves import bn254 as tbn
+    from crypto_tpu_torch.fields.ttower import tcubic_for
+    tcubic_for(tbn.Fq6)
+
+
+def _generate_random_parameters_bn254():
+    import random
+    from crypto_tpu_torch.curves import bn254 as tbn
+    from crypto_tpu_torch.legogroth16 import snark
+    snark.generate_random_parameters(_square_circuit, 0, random.Random(1),
+                                     ctx=tbn)
+
+
 def _accum_coeffs():
     from crypto_tpu_torch.accumulator import batch_utils
     from crypto_tpu_torch.curves import bls12_381 as tb
@@ -311,7 +351,10 @@ def _accum_coeffs():
                                    _accum_update_membership,
                                    _accum_update_non_membership,
                                    _accum_witnesses_for_batch, _accum_omega,
-                                   _accum_coeffs],
+                                   _accum_coeffs, _msm_bn254, _msm_bn254_g2,
+                                   _tpairing_for_bn254, _tpairing_bn,
+                                   _tcubic_for_bn254,
+                                   _generate_random_parameters_bn254],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""

@@ -102,6 +102,6 @@ def test_multi_pairing_with_infinity_vs_host():
 
 def test_tpairing_refuses_other_curves():
     with pytest.raises(ValueError):
-        tpairing_for("bn254", "cpu")
+        tpairing_for("secp256k1", "cpu")
     with pytest.raises(ValueError):
         TPairing(type("Mod", (), {"X": 5}), "cpu")
