@@ -39,13 +39,13 @@ before it and read just after:
 * the LegoGroth16 north-star workload (`benches/bench_northstar.py`):
   the setup of a 2^16 - 4 constraint chain circuit with one committed
   witness from explicit trapdoors (fixed-base tables and products on the
-  card, host normalisation, timed apart), one warm-up and three timed
+  card, host normalisation, timed apart), one warm-up and two timed
   proves (witness map and each query MSM timed), each proof checked in
   the exponent against its discrete logs and the verification equation,
   and every device MSM against its known logs; one more prove profiled;
 * the pairing at `benches/bench_pairing.py`'s size: a 64-pair
   multi-pairing (plus one pair with G1 at infinity) through `TPairing`,
-  once cold and three times timed on fresh pairs from known logs, each
+  once cold and twice timed on fresh pairs from known logs, each
   product against its log; the first set's per-pair Miller values
   against the host Miller loop and its product against the host
   multi-pairing; e(aP, bQ) == e(abP, Q) and e(aP, Q) e(-aP, Q) == 1; a
@@ -54,6 +54,16 @@ before it and read just after:
   verify of 1,024 signatures over 4 messages (known logs, the pairing on
   the device), its two MSMs against their logs, valid and with one e
   spoiled; one more multi-pairing profiled;
+* BASELINE config 2, BBS+ proofs of knowledge over 32 messages (4
+  revealed): `batch_verify_proofs` of 256 proofs (252 from the protocol's
+  algebra over known logs, 4 through the port's `SignatureG1.new` and
+  `PoKOfSignatureG1Protocol`, their sign, prove and host verify timed),
+  the pairing on the device, cold (both MSMs against their known logs)
+  and warm (host checker, device MSMs and pairing timed apart), and two
+  spoiled sets rejected (a response off by one; a proof under another
+  key, which passes the mult checker and fails the pairing); one lazy
+  checker on the card with 16 PoKs, 4 signatures and 2 BBS23 PoKs (44
+  deferred pairs), valid and with one signature spoiled;
 * the VB accumulator at `benches/bench_accumulator.py`'s size: params
   hashed from a label, 2^14 elements added, the first 8,192 members'
   witnesses on the device fixed-base path, then three updates of all
@@ -67,11 +77,11 @@ before it and read just after:
   `TCurve` ops), three timed 2^20 MSMs at c = 16 on the fast levels, one
   `safe=True`, the rerun path (one duplicated base: exactly the spoiled
   windows rerun) and the G1 and G2 edge MSMs; the LegoGroth16 setup,
-  warm-up, three timed and one profiled prove of the 2^16 - 4 constraint
+  warm-up, two timed and one profiled prove of the 2^16 - 4 constraint
   chain circuit over BN254 Fr (each checked in the exponent), and the
   port's verifier on a proof (valid, spoiled input and C rejected, D
   opened, both rerandomisations verified); the 64-pair `TPairingBN`
-  multi-pairing, cold and three timed, against e(G1, G2)^(sum a_i b_i)
+  multi-pairing, cold and twice timed, against e(G1, G2)^(sum a_i b_i)
   from the host pairing; the BN254 paths together must launch every
   8-limb instantiation and no point kernel.  The BLS12-381 prove phase
   also runs the port's verifier (`legogroth16_verify`).
@@ -87,17 +97,23 @@ also with Y1 = 0 lanes; the normalize also at ragged widths about its
 chunk and block, on infinities only and with infinities at both ends of
 every thread's chunk; the Fq2 square also on a0 = a1 and a1 = 0; mont_mul
 also at the 2^20 NTT's Fr shapes and the witness update's; the Fq2 mul
-and square, mont_mul and mont_pow also at the pairing's narrow widths,
+and square, mont_mul and mont_pow also at the pairing's narrow widths
+(those three also at the PoK batch verify's 2 lanes and the PoK
+checker's 44; the fast levels at every width of the PoK batch verify's
+MSMs),
 mont_pow also at the witness update's to_affine; every 8-limb
 instantiation at the BN254 paths' shapes, the same way), times the fast
 down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
 call down to 16 elements, profiles one more 2^20 G1 MSM on each
 formula and one more G2 MSM for the device's busy share and each
-kernel's device time against its summed bound, and ranks the affine
+kernel's device time against its summed bound (the bound summed by
+shims over the same profiled run, its data-dependent part after the
+profile closes), and ranks the affine
 level's kernels (total and fast) on the edge MSMs and the prove by their
 device time a launch against a latency floor.  It fails if a kernel of
-a path was not launched on it.  One line per phase; before the last line
+a path was not launched on it.  One line per phase, each ending with
+its time since the start (`at_s`); before the last line
 the card's name and power limit and a JSON object of the kernels'
 launches and times; the last line is the result object.  Exits non-zero on any failure, and when
 there is no CUDA device.
@@ -171,7 +187,13 @@ KERNEL_ENTRY = {
 }
 
 
+STARTED = time.monotonic()
+
+
 def phase(name: str, **kv) -> None:
+    """One line `[name] key=value ...`, ending with `at_s`, the seconds
+    since the script started."""
+    kv["at_s"] = round(time.monotonic() - STARTED, 1)
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -400,21 +422,39 @@ def floats(timings: dict) -> dict:
     return {k: v for k, v in timings.items() if isinstance(v, float)}
 
 
+# the wrapper argument whose values (not only its shape) a launch's
+# `work` reads: the gather's index, the posts' and down passes' doubling
+# flags
+DATA_ARG = {"gather_rows_t": 1, "affine_level_post": 6,
+            "affine_level_post_fq2": 6, "chunked_level_down": 9}
+
+
 def record_work(counted, fn):
     """fn() with every counted wrapper replaced, in each module of the
     port that holds it, by a shim that sums `work` over the calls that
     launched; returns fn()'s result and {name: [launches, summed bound
-    ms]}.  The wrappers' own counts go to the shims meanwhile."""
+    ms]}.  The wrappers' own counts go to the shims meanwhile.  A shim
+    runs nothing on the card: a launch whose work depends on data keeps
+    that one argument (the rest as shapes on the meta device) and its
+    work is summed once fn() has returned, so a profile in fn() sees
+    the wrappers' own launches only."""
     totals = {f.__name__: [0, 0.0] for f in counted}
-    shims = {}
+    shims, pending = {}, []
     for f in counted:
         def shim(*args, _f=f):
             before = shims[_f].launches
             out = _f(*args)
             if shims[_f].launches > before:
-                tot = totals[_f.__name__]
-                tot[0] += 1
-                tot[1] += bound_ms(*work(_f.__name__, args))[0]
+                name = _f.__name__
+                totals[name][0] += 1
+                if name in DATA_ARG:
+                    k = DATA_ARG[name]
+                    pending.append((name, tuple(
+                        torch.empty(a.shape, device="meta")
+                        if i != k and isinstance(a, torch.Tensor) else a
+                        for i, a in enumerate(args))))
+                else:
+                    totals[name][1] += bound_ms(*work(name, args))[0]
             return out
         shim.launches = 0
         shim.__name__ = f.__name__
@@ -433,6 +473,8 @@ def record_work(counted, fn):
     finally:
         for mod, k, v in patched:
             setattr(mod, k, v)
+    for name, args in pending:
+        totals[name][1] += bound_ms(*work(name, args))[0]
     return out, totals
 
 
@@ -514,7 +556,7 @@ def device_profile(name: str, fn, cpu: bool = True) -> dict:
 
 QAP_LOG = 20                        # the G2 cell's circuit: 2^20 variables
 LEGO_LOG = 16                       # BASELINE.json: the prove at 2^16
-PROVE_RUNS = 3                      # timed proves after one warm-up
+PROVE_RUNS = 2                      # timed proves after one warm-up
 # what a LegoGroth16 prove launches: the NTTs' mont_mul; the G1 query
 # MSMs' fast chunked levels, gather, slot tables and Fermat roots; the
 # b_g2 MSM's Fq2 level, mul and square.  The setup's fixed-base tables
@@ -947,7 +989,7 @@ def verify_phase(counted, mod, pk, pub, proof, v, committed,
     return launches
 
 PAIRS = 64                          # benches/bench_pairing.py NPAIR
-PAIRING_RUNS = 3                    # timed multi-pairings, fresh pairs each
+PAIRING_RUNS = 2                    # timed multi-pairings, fresh pairs each
 NSIG = 1024                         # bench_pairing.py NSIG, over 4 messages
 SIG_MSGS = 4
 PAIRING_ENV = "CRYPTO_TPU_PAIRING_BACKEND"
@@ -1188,6 +1230,300 @@ def pairing_phases(counted, dev) -> tuple:
           launches={k: v for k, v in bbs_launches.items() if v},
           valid=True, spoiled_rejected=True, correct=True)
     return paths, bbs_widths, sets[1][0]
+
+
+POK_N = 256                         # proofs in the batch verify
+POK_MSGS = 32                       # BASELINE.json config 2: 32 messages,
+POK_REVEALED = 4                    # 4 of them revealed
+POK_PROTOCOL = 4                    # proofs made by the port's own protocol
+CHECKER_POKS, CHECKER_SIGS, CHECKER_23 = 16, 4, 2
+
+
+def bbs_pok_phases(counted, dev) -> tuple:
+    """BASELINE config 2 on the card: `batch_verify_proofs` over `POK_N`
+    PoKOfSignatureG1 proofs of `POK_MSGS` messages (`POK_REVEALED`
+    revealed), the pairing on the device, once cold (counted, both MSMs
+    held to their known logs) and once warm (timed, host checker, device
+    MSMs and pairing apart), and two spoiled sets that must be rejected:
+    one response off by one (the mult checker fails, no pairing runs) and
+    one proof made under another secret key (its Schnorr legs hold, the
+    pairing fails).  The params, key and `POK_N - POK_PROTOCOL` proofs
+    come from the protocol's algebra over known logs (one
+    `known_log_points` call); `POK_PROTOCOL` proofs come from the port's
+    `SignatureG1.new` and `PoKOfSignatureG1Protocol`, their sign, prove
+    and host verify timed.  Then one lazy `RandomizedPairingChecker` on
+    the card takes `CHECKER_POKS` PoKs, `CHECKER_SIGS` signatures and
+    `CHECKER_23` BBS23 PoKs: valid, and with one signature spoiled.
+    Returns ({path: launches}, the batch verify's MSM level widths,
+    {path: lanes of its device Miller loop})."""
+    import os
+
+    from crypto_tpu_torch.bbs_plus import batch
+    from crypto_tpu_torch.bbs_plus import bbs23
+    from crypto_tpu_torch.bbs_plus.proof import (
+        MessageOrBlinding, PoKOfSignatureG1Proof, PoKOfSignatureG1Protocol,
+        compute_challenge_contribution)
+    from crypto_tpu_torch.bbs_plus.setup import (PublicKeyG2, SecretKey,
+                                                 SignatureParamsG1)
+    from crypto_tpu_torch.bbs_plus.signature import SignatureG1
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.hashing import compute_random_oracle_challenge
+    from crypto_tpu_torch.ops import msm_v2
+    from crypto_tpu_torch.schnorr.discrete_log import PokPedersenCommitment
+    from crypto_tpu_torch.schnorr.generalized import SchnorrResponse
+    from crypto_tpu_torch.serialize import ByteWriter
+    from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
+    R, Fr = bls.R, bls.Fr
+    G1, G2 = bls.G1.generator(), bls.G2.generator()
+    hr = random.Random(SEED + 200)
+    paths = {}
+
+    def inv(v):
+        return pow(v, -1, R)
+
+    # ---- params and key from known logs; 1 + POK_N - POK_PROTOCOL proofs
+    # by the protocol's algebra (the last under another secret key)
+    t0 = time.perf_counter()
+    lg, l0, l2, x, x_other = (hr.randrange(1, R) for _ in range(5))
+    lh = [hr.randrange(1, R) for _ in range(POK_MSGS)]
+    hidden = range(POK_REVEALED, POK_MSGS)
+    rows = []
+    for k in range(1 + POK_N - POK_PROTOCOL):
+        m = [hr.randrange(R) for _ in range(POK_MSGS)]
+        e, s_, r2 = (hr.randrange(R) for _ in range(3))
+        r1, b1, b2, bd, bs = (hr.randrange(1, R) for _ in range(5))
+        bl = [hr.randrange(R) for _ in hidden]
+        lb = (lg + l0 * s_ + sum(h * v for h, v in zip(lh, m))) % R
+        key = x_other if k == POK_N - POK_PROTOCOL else x
+        la = lb * inv(e + key) % R
+        ap, ld = la * r1 % R, (r1 * lb - l0 * r2) % R
+        logs = [ap, r1 * (lb - la * e) % R, ld, (ap * b1 + l0 * b2) % R,
+                (sum(lh[i] * v for i, v in zip(hidden, bl)) + ld * bd
+                 + l0 * bs) % R]
+        rows.append((m, e, s_, r1, r2, b1, b2, bd, bs, bl, logs))
+    pts = known_log_points(G1, [lg, l0] + lh
+                           + [v for row in rows for v in row[-1]], dev)
+    params = SignatureParamsG1(g1=pts[0], g2=G2.mul_raw(l2).normalize(),
+                               h_0=pts[1], h=pts[2:2 + POK_MSGS])
+    pk = PublicKeyG2(w=G2.mul_raw(l2 * x % R).normalize())
+    sk = SecretKey(Fr(x))
+    log_of = {}
+    algebra = []                     # (proof, revealed, challenge)
+    for k, (m, e, s_, r1, r2, b1, b2, bd, bs, bl, logs) in enumerate(rows):
+        five = pts[2 + POK_MSGS + 5 * k:2 + POK_MSGS + 5 * (k + 1)]
+        log_of.update(((p.X, p.Y), lv) for p, lv in zip(five[:2], logs[:2]))
+        revealed = {i: Fr(m[i]) for i in range(POK_REVEALED)}
+        w = ByteWriter()
+        compute_challenge_contribution(*five, revealed, params, w)
+        c = int(compute_random_oracle_challenge(Fr, w.bytes()))
+        r3 = inv(r1)
+        sp = (s_ - r2 * r3) % R
+        resp2 = [(v + m[i] * c) % R for i, v in zip(hidden, bl)] \
+            + [(bd - r3 * c) % R, (bs + sp * c) % R]
+        proof = PoKOfSignatureG1Proof(
+            A_prime=five[0], A_bar=five[1], d=five[2],
+            sc_resp_1=PokPedersenCommitment(five[3], Fr((b1 - e * c) % R),
+                                            Fr((b2 + r2 * c) % R)),
+            T2=five[4], sc_resp_2=SchnorrResponse([Fr(v) for v in resp2]))
+        algebra.append((proof, revealed, Fr(c)))
+    other_key = algebra.pop()
+    t_build = time.perf_counter() - t0
+
+    # ---- POK_PROTOCOL proofs through the port's own protocol
+    prng = random.Random(SEED + 201)
+    made, signed, secs = [], [], {"sign_s": [], "prove_s": [],
+                                  "host_verify_s": []}
+    for _ in range(POK_PROTOCOL):
+        msgs = [Fr.rand(prng) for _ in range(POK_MSGS)]
+        t = time.perf_counter()
+        sig = SignatureG1.new(prng, msgs, sk, params)
+        secs["sign_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        mabs = [MessageOrBlinding.reveal_message(v) if i < POK_REVEALED
+                else MessageOrBlinding.blind_randomly(v)
+                for i, v in enumerate(msgs)]
+        prot = PoKOfSignatureG1Protocol.init(prng, sig, params, mabs)
+        revealed = {i: msgs[i] for i in range(POK_REVEALED)}
+        w = ByteWriter()
+        prot.challenge_contribution(revealed, params, w)
+        ch = compute_random_oracle_challenge(Fr, w.bytes())
+        proof = prot.gen_proof(ch)
+        secs["prove_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        proof.verify(revealed, ch, pk, params)
+        secs["host_verify_s"].append(time.perf_counter() - t)
+        made.append((proof, revealed, ch))
+        signed.append((sig, msgs))
+    for proof, revealed, ch in algebra[:2]:
+        proof.verify(revealed, ch, pk, params)
+    valid = made + algebra
+    spoiled_resp, spoiled_key = list(valid), list(valid)
+    k = POK_N // 3
+    pr, rev, ch = valid[k]
+    resp = list(pr.sc_resp_2.responses)
+    resp[0] = resp[0] + Fr(1)
+    spoiled_resp[k] = (PoKOfSignatureG1Proof(
+        pr.A_prime, pr.A_bar, pr.d, pr.sc_resp_1, pr.T2,
+        SchnorrResponse(resp)), rev, ch)
+    spoiled_key[2 * POK_N // 3] = other_key
+
+    # ---- the batch verify: both MSMs held to their known logs in the
+    # cold run (the protocol-made proofs' terms on the host); the warm run
+    # split into device MSMs, pairing and host work
+    widths, safe_widths = [], []
+    real_msm, real_vmsm, real_pair = (batch.msm_device_scheduled,
+                                      batch._msm, batch._multi_pairing)
+    spent = {"device_msm_s": 0.0, "pairing_s": 0.0, "pairings": 0,
+             "lanes": 0}
+
+    def checked_msm(curve, points, scalars, device):
+        tm = {}
+        out = real_msm(curve, points, scalars, device=device, timings=tm)
+        widths.extend(tm["level_pairs"])
+        safe_widths.extend(rerun_widths(tm))
+        want, extra = 0, bls.G1.infinity()
+        for s_, p in zip(scalars, points):
+            if (p.X, p.Y) in log_of:
+                want += s_ * log_of[(p.X, p.Y)]
+            else:
+                extra = extra + p.mul_raw(s_)
+        if out != G1.mul_raw(want % R) + extra:
+            raise AssertionError("bbs pok batch verify: an MSM differs from "
+                                 "its known logs")
+        return out
+
+    def timed_msm(points, scalars, device):
+        t = time.perf_counter()
+        out = real_vmsm(points, scalars, device)
+        spent["device_msm_s"] += time.perf_counter() - t
+        return out
+
+    def timed_pair(pairs, device):
+        t = time.perf_counter()
+        out = real_pair(pairs, device)
+        spent["pairing_s"] += time.perf_counter() - t
+        spent["pairings"] += 1
+        spent["lanes"] = max(spent["lanes"], len(pairs))
+        return out
+
+    def verify(items, seed):
+        proofs, revealed, chs = (list(v) for v in zip(*items))
+        return batch.batch_verify_proofs(proofs, revealed, chs, pk, params,
+                                         random.Random(seed), device=dev)
+
+    env = os.environ.get(PAIRING_ENV)
+    os.environ[PAIRING_ENV] = "device"
+    try:
+        batch.msm_device_scheduled = checked_msm
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok_cold, launches = drive(counted,
+                                      lambda: verify(valid, SEED + 202))
+            t_cold = time.perf_counter() - t
+        finally:
+            batch.msm_device_scheduled = real_msm
+        batch._msm, batch._multi_pairing = timed_msm, timed_pair
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok_warm = verify(valid, SEED + 203)
+            t_warm = time.perf_counter() - t
+            split = dict(spent)
+            spent["pairings"] = 0
+            ok_resp = verify(spoiled_resp, SEED + 204)
+            pairings_resp = spent["pairings"]
+            ok_key = verify(spoiled_key, SEED + 205)
+            pairings_key = spent["pairings"] - pairings_resp
+        finally:
+            batch._msm, batch._multi_pairing = real_vmsm, real_pair
+    finally:
+        if env is None:
+            os.environ.pop(PAIRING_ENV)
+        else:
+            os.environ[PAIRING_ENV] = env
+    if not (ok_cold and ok_warm) or ok_resp or ok_key \
+            or (pairings_resp, pairings_key) != (0, 1):
+        raise AssertionError(
+            f"bbs pok batch verify: valid {ok_cold}/{ok_warm}, spoiled "
+            f"response {ok_resp} ({pairings_resp} pairings), other key "
+            f"{ok_key} ({pairings_key} pairings)")
+    require("bbs_pok_batch_verify_256", launches, set(PAIRING_KERNELS)
+            | level_kernels(widths, safe_widths, msm_v2.CHUNK_MIN_PAIRS))
+    paths["bbs_pok_batch_verify_256"] = launches
+    host_s = t_warm - split["device_msm_s"] - split["pairing_s"]
+    phase("bbs_pok_batch_verify_256", proofs=POK_N, messages=POK_MSGS,
+          revealed=POK_REVEALED, bbs_plus_pok_batch_verify_256_wall_s=t_warm,
+          cold_s=t_cold, host_checker_s=host_s,
+          device_msm_s=split["device_msm_s"], pairing_s=split["pairing_s"],
+          proofs_per_s=POK_N / t_warm, build_s=t_build,
+          **{k: statistics.mean(v) for k, v in secs.items()},
+          msm_level_pairs=widths, rerun_level_pairs=safe_widths,
+          launches={k: v for k, v in launches.items() if v}, valid=True,
+          spoiled_response_rejected=True, other_key_rejected=True,
+          correct=True)
+
+    # ---- bbs_pok_checker_16: PoKs, signatures and BBS23 PoKs through one
+    # lazy checker, its Miller product on the device
+    params23 = bbs23.SignatureParams23G1(g1=params.g1, g2=params.g2,
+                                         h=params.h)
+    pk23 = bbs23.PublicKey23G2(w=pk.w)
+    poks23 = []
+    for _ in range(CHECKER_23):
+        msgs = [Fr.rand(prng) for _ in range(POK_MSGS)]
+        sig = bbs23.Signature23G1.new(prng, msgs, sk, params23)
+        prot = bbs23.PoKOfSignature23G1Protocol.init(
+            prng, sig, params23, msgs, set(range(POK_REVEALED)))
+        revealed = {i: msgs[i] for i in range(POK_REVEALED)}
+        w = ByteWriter()
+        prot.challenge_contribution(revealed, params23, w)
+        ch = compute_random_oracle_challenge(Fr, w.bytes())
+        poks23.append((prot.gen_proof(ch), revealed, ch))
+    weight = Fr(hr.randrange(1, R))
+    env = os.environ.pop(PAIRING_ENV, None)
+
+    def checker(spoil: bool):
+        c = RandomizedPairingChecker(weight, lazy=True, device=dev)
+        for proof, revealed, ch in valid[:CHECKER_POKS]:
+            proof.verify_with_randomized_pairing_checker(revealed, ch, pk,
+                                                         params, c)
+        for k, (sig, msgs) in enumerate(signed[:CHECKER_SIGS]):
+            if spoil and k == 1:
+                sig = SignatureG1(A=sig.A, e=sig.e + Fr(1), s=sig.s)
+            sig.verify_with_pairing_checker(msgs, pk, params, c)
+        for proof, revealed, ch in poks23:
+            if not proof.verify(revealed, ch, pk23, params23,
+                                pairing_checker=c):
+                raise AssertionError("bbs_pok_checker_16: a BBS23 PoK's "
+                                     "Schnorr legs failed")
+        return c
+
+    try:
+        t = time.perf_counter()
+        good = checker(False)
+        t_add = time.perf_counter() - t
+        t = time.perf_counter()
+        ok, chk_launches = drive(counted, good.verify)
+        t_chk = time.perf_counter() - t
+        rejected = not checker(True).verify()
+    finally:
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    npairs = 2 * (CHECKER_POKS + CHECKER_SIGS + CHECKER_23)
+    if len(good.pending) != npairs or not ok or not rejected:
+        raise AssertionError(f"bbs_pok_checker_16: {len(good.pending)} "
+                             f"pairs, valid {ok}, spoiled rejected "
+                             f"{rejected}")
+    require("bbs_pok_checker_16", chk_launches, CHECKER_KERNELS)
+    paths["bbs_pok_checker_16"] = chk_launches
+    phase("bbs_pok_checker_16", poks=CHECKER_POKS, signatures=CHECKER_SIGS,
+          bbs23_poks=CHECKER_23, deferred_pairs=len(good.pending),
+          host_adds_s=t_add, verify_s=t_chk, valid=ok,
+          spoiled_rejected=rejected,
+          launches={k: chk_launches[k] for k in PAIRING_KERNELS},
+          correct=True)
+    return paths, widths, {"bbs_pok_batch_verify_256": split["lanes"],
+                           "bbs_pok_checker_16": len(good.pending)}
 
 
 NELEM = 1 << 14                     # benches/bench_accumulator.py NELEM
@@ -2432,6 +2768,11 @@ def main() -> int:
     paths.update((k, (v, bbs_widths if k.startswith("bbs") else []))
                  for k, v in pair_paths.items())
     t0 = time.time()
+    pok_paths, pok_widths, pok_lanes = bbs_pok_phases(counted, dev)
+    paths.update((k, (v, pok_widths if k.startswith("bbs_pok_batch") else []))
+                 for k, v in pok_paths.items())
+    phase("bbs_pok_phases", seconds=round(time.time() - t0, 3))
+    t0 = time.time()
     acc_paths, profile_update = accumulator_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in acc_paths.items())
     phase("accumulator_phases", seconds=round(time.time() - t0, 3))
@@ -2708,6 +3049,14 @@ def main() -> int:
         phase("check_chunked_level_fast" if fast else "check_chunked_level",
               pairs=[w_chunk, w_chunk + 5], path=path,
               infinite_operand_in_every_warp=True, bit_exact=True)
+    # the PoK batch verify's two 256-point MSMs: every fast level width
+    # they ran (chunked from the threshold up, affine below it; the
+    # phase found none to rerun), a row at each
+    pok_path = "bbs_pok_batch_verify_256"
+    for w in sorted(set(pok_widths)):
+        (check_chunked if w >= thr else check_pre_post)(w, pok_path, True)
+    phase("check_level_fast", path=pok_path,
+          pairs=sorted(set(pok_widths)), bit_exact=True)
 
     # the fast down pass at each level width of the 2^20 MSM: where its
     # per-MSM time and its gap to the bound live
@@ -2818,12 +3167,18 @@ def main() -> int:
                     norm_ms, (F,) + J, [12, n]))
     # ragged widths about the kernel's chunk k and block T, a batch of
     # infinities, and infinities at the first and the last point of every
-    # thread's chunk with one block's chunks all infinite
+    # thread's chunk with one block's chunks all infinite.  A ragged width
+    # is a prefix of J, so its plain outputs are the prefix of the full
+    # width's (a lane's affine coordinates are unique, whatever the batch:
+    # `_inverse_plain`); the two infinite cases run the plain version.
     zs = normalize_cases(J[2], pk.NORMALIZE_CHUNK, pk.NORMALIZE_THREADS)
     for where, z in zs.items():
-        ins = tuple(t[:, :z.shape[1]].contiguous() for t in J[:2]) + (z,)
-        agree("jacobian_normalize", pk.jacobian_normalize(F, *ins),
-              pk.jacobian_normalize_plain(F, *ins), where)
+        M = z.shape[1]
+        ins = tuple(t[:, :M].contiguous() for t in J[:2]) + (z,)
+        plain = tuple(t[:, :M] for t in pn) if where == f"M={M}" \
+            else pk.jacobian_normalize_plain(F, *ins)
+        agree("jacobian_normalize", pk.jacobian_normalize(F, *ins), plain,
+              where)
     phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
           chunk=pk.NORMALIZE_CHUNK, threads=pk.NORMALIZE_THREADS,
           shape="B (one chain a block)",
@@ -2915,15 +3270,18 @@ def main() -> int:
     phase("fq2_sqr_widths",
           elements_device_ms_bound_ms_ratio_timer=json.dumps(sq_widths))
 
-    # ---- the pairing path's narrow batches (a 65-lane multi-pairing):
-    # Fq2 products 15 a lane (the line product, the row), 12 a lane (the
-    # Fq12 square) and 18 at one lane (the final exponentiation's Fq12
-    # product); squares 4 a lane (the doubling step, the row), 2 a lane
-    # and 9 at one lane (the cyclotomic square); mont_mul 4 base products
-    # a lane (the lines' scaling, the row) and 2; mont_pow's Fq inverse at
-    # one element.  Random elements with the edges 0, 1 and p - 1 first.
-    lanes = PAIRS + 1
+    # ---- the pairing paths' narrow batches at n lanes (65 in the
+    # multi-pairing, 2 in the PoK batch verify's 2-pairing, 44 in the PoK
+    # checker's Miller product): Fq2 products 15 a lane (the line
+    # product, the row), 12 a lane (the Fq12 square) and 18 at one lane
+    # (the final exponentiation's Fq12 product); squares 4 a lane (the
+    # doubling step, the row), 2 a lane and 9 at one lane (the
+    # cyclotomic square); mont_mul 4 base products a lane (the lines'
+    # scaling, the row) and 2; mont_pow's Fq inverse at one element.
+    # Random elements with the edges 0, 1 and p - 1 first; each path's
+    # rows at its widest batch of each kernel.
     hr = random.Random(SEED + 110)
+    Fq_ = F2.base
 
     def fq2_rand(M: int) -> torch.Tensor:
         t = F2.pack([bls.Fq2(hr.randrange(P), hr.randrange(P))
@@ -2932,38 +3290,46 @@ def main() -> int:
         t[:, :k] = fq2_edges[:, :k]
         return t
 
-    for M in (15 * lanes, 12 * lanes, 18):
-        a, b = fq2_rand(M), fq2_rand(M).flip(1)
-        pm, pm_ms = timed_call(lambda: fk.fq2_mul_plain(F2.base, a, b))
-        err = agree("fq2_mul", (fk.fq2_mul(F2.base, a, b),), (pm,),
-                    f"at the pairing's M={M}")
-        if M == 15 * lanes:
-            rows.append(row(
-                "fq2_mul", csrc + "fq2_mul.cu", ref + "1066", "pairing_64",
-                err, cuda_ms(lambda: fk.fq2_mul(F2.base, a, b)), pm_ms,
-                (F2.base, a, b), [24, M]))
-    for M in (4 * lanes, 2 * lanes, 9):
-        a = fq2_rand(M)
-        ps, ps_ms = timed_call(lambda: fk.fq2_sqr_plain(F2.base, a))
-        err = agree("fq2_sqr", (fk.fq2_sqr(F2.base, a),), (ps,),
-                    f"at the pairing's M={M}")
-        if M == 4 * lanes:
-            rows.append(row(
-                "fq2_sqr", csrc + "fq2_mul.cu", ref + "908", "pairing_64",
-                err, cuda_ms(lambda: fk.fq2_sqr(F2.base, a)), ps_ms,
-                (F2.base, a), [24, M]))
-    Fq_ = F2.base
-    for M in (4 * lanes, 2):
-        a, b = fq2_rand(M)[:FQ_LIMBS], fq2_rand(M)[FQ_LIMBS:]
-        pm, pm_ms = timed_call(lambda: fk.mont_mul_plain(a, b, Fq_.mod))
-        err = agree("mont_mul", (fk.mont_mul(a, b, Fq_.mod),), (pm,),
-                    f"at the pairing's M={M}")
-        if M == 4 * lanes:
-            rows.append(row(
-                "mont_mul", csrc + "mont_mul.cu",
-                "crypto_tpu/ops/pallas/field_kernels.py:386", "pairing_64",
-                err, cuda_ms(lambda: fk.mont_mul(a, b, Fq_.mod)), pm_ms,
-                (a, b, Fq_.mod), [FQ_LIMBS, M]))
+    def check_pairing_kernels(lanes: int, path: str) -> None:
+        for M in (15 * lanes, 12 * lanes, 18):
+            a, b = fq2_rand(M), fq2_rand(M).flip(1)
+            pm, pm_ms = timed_call(lambda: fk.fq2_mul_plain(Fq_, a, b))
+            err = agree("fq2_mul", (fk.fq2_mul(Fq_, a, b),), (pm,),
+                        f"on {path} at M={M}")
+            if M == 15 * lanes:
+                rows.append(row(
+                    "fq2_mul", csrc + "fq2_mul.cu", ref + "1066", path, err,
+                    cuda_ms(lambda: fk.fq2_mul(Fq_, a, b)), pm_ms,
+                    (Fq_, a, b), [24, M]))
+        for M in (4 * lanes, 2 * lanes, 9):
+            a = fq2_rand(M)
+            ps, ps_ms = timed_call(lambda: fk.fq2_sqr_plain(Fq_, a))
+            err = agree("fq2_sqr", (fk.fq2_sqr(Fq_, a),), (ps,),
+                        f"on {path} at M={M}")
+            if M == 4 * lanes:
+                rows.append(row(
+                    "fq2_sqr", csrc + "fq2_mul.cu", ref + "908", path, err,
+                    cuda_ms(lambda: fk.fq2_sqr(Fq_, a)), ps_ms, (Fq_, a),
+                    [24, M]))
+        for M in (4 * lanes, 2):
+            a, b = fq2_rand(M)[:FQ_LIMBS], fq2_rand(M)[FQ_LIMBS:]
+            pm, pm_ms = timed_call(lambda: fk.mont_mul_plain(a, b, Fq_.mod))
+            err = agree("mont_mul", (fk.mont_mul(a, b, Fq_.mod),), (pm,),
+                        f"on {path} at M={M}")
+            if M == 4 * lanes:
+                rows.append(row(
+                    "mont_mul", csrc + "mont_mul.cu",
+                    "crypto_tpu/ops/pallas/field_kernels.py:386", path, err,
+                    cuda_ms(lambda: fk.mont_mul(a, b, Fq_.mod)), pm_ms,
+                    (a, b, Fq_.mod), [FQ_LIMBS, M]))
+        phase("check_pairing_kernels", path=path, lanes=lanes,
+              fq2_mul=[15 * lanes, 12 * lanes, 18],
+              fq2_sqr=[4 * lanes, 2 * lanes, 9], mont_mul=[4 * lanes, 2],
+              bit_exact=True)
+
+    check_pairing_kernels(PAIRS + 1, "pairing_64")
+    for path, lanes in pok_lanes.items():
+        check_pairing_kernels(lanes, path)
     a = Fq_.pack([hr.randrange(1, P)])
     pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(a, P - 2, Fq_.mod))
     err = agree("mont_pow", (fk.mont_pow(a, P - 2, Fq_.mod),), (pw,),
@@ -2973,10 +3339,7 @@ def main() -> int:
         "crypto_tpu/ops/pallas/field_kernels.py:386", "pairing_64", err,
         cuda_ms(lambda: fk.mont_pow(a, P - 2, Fq_.mod)), pw_ms,
         (a, P - 2, Fq_.mod), [FQ_LIMBS, 1]))
-    phase("check_pairing_kernels", lanes=lanes,
-          fq2_mul=[15 * lanes, 12 * lanes, 18],
-          fq2_sqr=[4 * lanes, 2 * lanes, 9], mont_mul=[4 * lanes, 2],
-          mont_pow=[1], bit_exact=True)
+    phase("check_pairing_inverse", mont_pow=[1], bit_exact=True)
 
     # ---- the Fq2 level at the G2 MSM's narrowest level, a ragged count
     # and the G2 edge MSMs' widest level
@@ -3099,8 +3462,8 @@ def main() -> int:
             return msm_v2.msm_device_scheduled(curve, pts, scalars, c=16,
                                                safe=safe)
 
-        _, bounds = record_work(counted, msm)
-        device = device_profile("profile" + tag, msm)
+        device, bounds = record_work(
+            counted, lambda: device_profile("profile" + tag, msm))
         phase("per_msm" + tag, launches_device_ms_bound_ms=json.dumps(
             {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 4)]
              for k, (cnt, b) in bounds.items() if cnt}))
@@ -3113,8 +3476,9 @@ def main() -> int:
     def pairing():
         return tp.multi_pairing(profile_pairs)
 
-    _, bounds = record_work(counted, pairing)
-    device = device_profile("profile_pairing_64", pairing, cpu=False)
+    device, bounds = record_work(
+        counted, lambda: device_profile("profile_pairing_64", pairing,
+                                        cpu=False))
     phase("per_pairing_64", launches_device_ms_bound_ms=json.dumps(
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))
@@ -3125,17 +3489,17 @@ def main() -> int:
     def bn_pairing():
         return tp_bn.multi_pairing(bn_profile_pairs)
 
-    _, bounds = record_work(counted, bn_pairing)
-    device = device_profile("profile_bn254_pairing_64", bn_pairing,
-                            cpu=False)
+    device, bounds = record_work(
+        counted, lambda: device_profile("profile_bn254_pairing_64",
+                                        bn_pairing, cpu=False))
     phase("per_bn254_pairing_64", launches_device_ms_bound_ms=json.dumps(
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))
 
     # ---- one more witness update (a): the same for the accumulator
-    _, bounds = record_work(counted, profile_update)
-    device = device_profile("profile_accumulator_update", profile_update,
-                            cpu=False)
+    device, bounds = record_work(
+        counted, lambda: device_profile("profile_accumulator_update",
+                                        profile_update, cpu=False))
     phase("per_accumulator_update", launches_device_ms_bound_ms=json.dumps(
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))

@@ -1,23 +1,28 @@
-"""Batch verification of BBS+ signatures on the device: the port's copy of
-`crypto_tpu/bbs_plus/batch.py` `batch_verify_signatures`.
+"""Batch verification of BBS+ signatures and PoK proofs on the device:
+the port's copy of `crypto_tpu/bbs_plus/batch.py`.
 
 A random linear combination (reference
 `utils/src/randomized_pairing_check.rs`'s accumulation, specialised to
-BBS+) verifies N signatures under one public key with two G1 MSMs of N
-points, one small MSM over the signature params and one 2-pairing
-product:
+BBS+) verifies N items under one public key:
 
-    sig_i valid  <=>  e(A_i, pk + e_i g2) == e(b_i, g2)
-    batch:  e(sum_i r^i A_i, pk) * e(sum_i r^i e_i A_i - sum_i r^i b_i, g2) == 1
-    with sum_i r^i b_i = sum_j P_j (sum_i r^i c_ij), one params MSM.
+* signatures (`batch_verify_signatures`): two G1 MSMs of N points, one
+  small MSM over the signature params and one 2-pairing product:
 
-The two N-point MSMs run on the device from `DEVICE_MSM_THRESHOLD`
-points on (`ops/msm_v2.py`), the 2-pairing product on the device when
+      sig_i valid  <=>  e(A_i, pk + e_i g2) == e(b_i, g2)
+      batch:  e(sum_i r^i A_i, pk) * e(sum_i r^i e_i A_i - sum_i r^i b_i, g2) == 1
+      with sum_i r^i b_i = sum_j P_j (sum_i r^i c_ij), one params MSM.
+
+* PoK proofs (`batch_verify_proofs`): each proof's two Schnorr legs go
+  into one `RandomizedMultChecker` (one host MSM over the distinct
+  points), and the pairing legs collapse the same way:
+  e(sum r^i A'_i, pk) * e(-sum r^i Abar_i, g2) == 1.
+
+The N-point MSMs run on the device from `DEVICE_MSM_THRESHOLD` points on
+(`ops/msm_v2.py`), the 2-pairing product on the device when
 `CRYPTO_TPU_PAIRING_BACKEND=device` (`curves/tpairing.py`), else on the
-host.  Signatures, keys and params are read by attribute only
-(`sig.A/.e/.s`, `pk.w`, `params.g1/.h_0/.h/.g2/.supported_message_count`),
-so no BBS+ protocol module is needed.  It runs on `device`, CUDA unless
-the caller names the CPU, and raises without a card.
+host.  Signatures, proofs, keys and params are read by attribute.  Both
+run on `device`, CUDA unless the caller names the CPU, and raise without
+a card.
 """
 
 from __future__ import annotations
@@ -29,14 +34,12 @@ from .. import resolve_device
 from ..curves import bls12_381 as bls
 from ..curves.tpairing import tpairing_for
 from ..ops.msm_v2 import msm_device_scheduled
+from ..utils.checkers import RandomizedMultChecker
 from ..utils.msm import msm as msm_host
+from .signature import BBSPlusError
 
 Fr = bls.Fr
 DEVICE_MSM_THRESHOLD = 256
-
-
-class BBSPlusError(Exception):
-    pass
 
 
 def _msm(points, scalars, device):
@@ -83,6 +86,33 @@ def batch_verify_signatures(sigs: list, messages_list: list, pk, params,
              dev)
     lhs = (T - b_comb).normalize()
     out = _multi_pairing([(U.normalize(), pk.w), (lhs, params.g2)], dev)
+    return out.is_one()
+
+
+def batch_verify_proofs(proofs: list, revealed_list: list, challenges: list,
+                        pk, params, rng=None, device="cuda") -> bool:
+    """Verify N PoKOfSignatureG1 proofs: Schnorr legs via ONE randomized
+    MSM, pairing legs via ONE combined 2-pairing product.  As in the
+    reference, `proofs`, `revealed_list` and `challenges` are zipped
+    without a length check: proofs beyond the shorter lists skip their
+    Schnorr legs, and only their pairing legs are checked."""
+    dev = resolve_device(device)
+    if not proofs:
+        return True
+    rng = rng or _random.Random()
+    rmc = RandomizedMultChecker(Fr.rand_nonzero(rng))
+    for proof, revealed, ch in zip(proofs, revealed_list, challenges):
+        if proof.A_prime.is_infinity():
+            return False
+        proof.verify_schnorr_with_randomized_mult_checker(
+            revealed, ch, params, rmc)
+    if not rmc.verify():
+        return False
+    weights = [Fr.rand_nonzero(rng) for _ in proofs]
+    U = _msm([pr.A_prime for pr in proofs], weights, dev)
+    V = _msm([pr.A_bar for pr in proofs], weights, dev)
+    out = _multi_pairing([(U.normalize(), pk.w),
+                          ((-V).normalize(), params.g2)], dev)
     return out.is_one()
 
 

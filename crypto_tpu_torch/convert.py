@@ -17,18 +17,28 @@ Host objects cross by their attributes alone: a point's `.X`, `.Y`, `.Z`
 as integers (`carry_point` builds the same point on a curve of the other
 package; `carry_pairs` for (G1, G2) pairs), a host Fq12 element as its
 nested ints (`carry_fp12`), a LegoGroth16 proving key field by field
-onto the port's curve module of its curve (`proving_key_to_port`) and a
-proof as the integers that rebuild it (`proof_ints`).
+onto the port's curve module of its curve (`proving_key_to_port`), a
+proof as the integers that rebuild it (`proof_ints`), and the BBS+, BBS23
+and Schnorr objects (params, keys, signatures, PoK proofs with their
+`PokPedersenCommitment` and `SchnorrResponse` parts, Schnorr proofs) as
+the port's classes of the same names (`protocol_to_port`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .bbs_plus import bbs23
+from .bbs_plus import proof as bbs_proof
+from .bbs_plus import setup as bbs_setup
+from .bbs_plus import signature as bbs_signature
 from .curves import bls12_381 as bls
 from .legogroth16 import snark
+from .schnorr import discrete_log, generalized
 
 JAX_LIMB_BITS = 15
 
@@ -224,3 +234,35 @@ def proof_ints(proof) -> dict:
     rebuilds it in the other package (`point_from_ints` on that package's
     G1, and G2 for "b")."""
     return {k: point_ints(getattr(proof, k)) for k in ("a", "b", "c", "d")}
+
+
+_PROTOCOL_MODULES = (bbs_setup, bbs_signature, bbs_proof, bbs23,
+                     discrete_log, generalized)
+_PORT_FIELDS = {bls.Fr.p: bls.Fr, bls.Fq.p: bls.Fq}
+
+
+def protocol_to_port(obj):
+    """A BBS+, BBS23 or Schnorr object of the reference (params, keys,
+    signatures, proofs, protocols) as the port's object of the class of the
+    same name, field by field: points through `carry_point` onto the port's
+    BLS12-381, field elements by value, lists, tuples and dicts item by
+    item; ints, bools and None as they are."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        name = type(obj).__name__
+        cls = next((getattr(m, name) for m in _PROTOCOL_MODULES
+                    if hasattr(m, name)), None)
+        if cls is None:
+            raise TypeError(f"the port has no protocol class {name}")
+        return cls(**{f.name: protocol_to_port(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)})
+    if hasattr(obj, "curve") and hasattr(obj, "Z"):
+        return carry_point(obj, _port_curve(obj, bls))
+    if hasattr(obj, "f") and hasattr(obj, "v"):
+        return _PORT_FIELDS[obj.f.p](int(obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(protocol_to_port(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: protocol_to_port(v) for k, v in obj.items()}
+    if obj is None or isinstance(obj, (bool, int)):
+        return obj
+    raise TypeError(f"cannot carry a {type(obj).__name__} to the port")

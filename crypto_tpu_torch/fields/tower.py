@@ -12,7 +12,8 @@ arithmetic interface as `host.Fp`, so the host curve and pairing code is
 generic over the coefficient field.  This is the port's ground truth; the
 batched path lives in `crypto_tpu_torch.fields.ttower`.  The Fq2 square
 root and sign (`Fp2.sqrt`, `is_gt_half`) serve hashing to G2
-(`crypto_tpu_torch/hashing.py`).
+(`crypto_tpu_torch/hashing.py`); `Fp2.to_bytes_le` and
+`QuadExtField.from_bytes_le` (arkworks' c0 || c1) serve `serialize.py`.
 """
 
 from __future__ import annotations
@@ -55,6 +56,15 @@ class QuadExtField:
 
     def from_base(self, c0: Fp):
         return self(c0, self.base(0))
+
+    def from_bytes_le(self, b: bytes) -> "Fp2":
+        """The reader of `Fp2.to_bytes_le`: c0 || c1, each little-endian
+        at the base field's width and below p."""
+        nb = self.base.nbytes
+        if len(b) != 2 * nb:
+            raise ValueError(f"{self.name}: bad element length")
+        return self(self.base.from_bytes_le(b[:nb]),
+                    self.base.from_bytes_le(b[nb:]))
 
     @property
     def p(self):  # characteristic
@@ -200,6 +210,10 @@ class Fp2:
             t = t * c
             r = r * b
         return r
+
+    # arkworks serialization: c0 bytes || c1 bytes (little-endian each)
+    def to_bytes_le(self) -> bytes:
+        return self.c0.to_bytes_le() + self.c1.to_bytes_le()
 
     def is_gt_half(self) -> bool:
         """Lexicographic 'is positive' for sign flags: compare (c1, c0)."""

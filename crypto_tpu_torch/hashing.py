@@ -1,7 +1,7 @@
 """Hash-to-field and hash-to-group by try-and-increment.
 
-The port's own copy of the try-and-increment helpers of
-`crypto_tpu/hashing.py` (reference `utils/src/hashing_utils.rs`):
+The port's own copy of `crypto_tpu/hashing.py` (reference
+`utils/src/hashing_utils.rs`, `utils/src/misc.rs:75-110`):
 
 * `field_elem_from_try_and_incr`: digest the input, interpret the digest as
   a little-endian integer with wide modular reduction (arkworks
@@ -9,9 +9,12 @@ The port's own copy of the try-and-increment helpers of
 * `group_elem_from_try_and_incr`: digest -> candidate x (+ y-sign flag from
   the top bit of the last digest byte), retry with
   `msg || b"-attempt-" || LE64(j)` until on-curve, clear the cofactor.
+* `compute_random_oracle_challenge`: a Fiat-Shamir challenge from the
+  contribution bytes (`schnorr_pok/src/pok_generalized_pedersen.rs:218`).
+* `n_group_elements`: the counter-based generators of every signature's
+  params (`utils/src/misc.rs:88-110`); `hash_to_field_many`.
 
-Default digest is Blake2b-512 like the reference.  Host Python ints only;
-the accumulator's setup (`accumulator/setup.py`) uses them.
+Default digest is Blake2b-512 like the reference.  Host Python ints only.
 """
 
 from __future__ import annotations
@@ -27,6 +30,14 @@ DigestFn = Callable[[bytes], bytes]
 
 def blake2b512(data: bytes) -> bytes:
     return hashlib.blake2b(data, digest_size=64).digest()
+
+
+def sha256(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()
+
+
+def shake256(data: bytes, n: int) -> bytes:
+    return hashlib.shake_256(data).digest(n)
 
 
 def concat_slices(*parts: bytes) -> bytes:
@@ -57,6 +68,11 @@ def field_elem_from_try_and_incr(F: Field, data: bytes,
     h = digest(data)
     elem, _ = field_from_random_bytes_wide(F, h)
     return elem
+
+
+def compute_random_oracle_challenge(F: Field, challenge_bytes: bytes,
+                                    digest: DigestFn = blake2b512) -> Fp:
+    return field_elem_from_try_and_incr(F, challenge_bytes, digest)
 
 
 # ---------------------------------------------------------------------------
@@ -95,3 +111,26 @@ def group_elem_from_try_and_incr(curve: SWCurve, data: bytes,
             return p.mul_raw(curve.cofactor)
         h = digest(concat_slices(data, b"-attempt-", j.to_bytes(8, "little")))
         j += 1
+
+
+def n_group_elements(curve: SWCurve, start: int, end: int, label: bytes,
+                     digest: DigestFn = blake2b512) -> list[Point]:
+    """Points hashed from `label || LE32(counter)` for counter in [start,end).
+    Matches `n_affine_group_elements` (`utils/src/misc.rs:102-110`)."""
+    return [
+        group_elem_from_try_and_incr(
+            curve, concat_slices(label, i.to_bytes(4, "little")), digest)
+        for i in range(start, end)
+    ]
+
+
+def hash_to_field_many(F: Field, dst_unused: bytes, seed: bytes, count: int,
+                       digest: DigestFn = blake2b512) -> list[Fp]:
+    """Prefix-stable many-element hash-to-field: element i derived from
+    `seed || LE32(i)` (`utils/src/hashing_utils.rs:63-73` shape, with the
+    try-and-increment map rather than the HKDF expander)."""
+    return [
+        field_elem_from_try_and_incr(
+            F, concat_slices(seed, i.to_bytes(4, "little")), digest)
+        for i in range(count)
+    ]

@@ -35,8 +35,12 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 44
-    assert "crypto_tpu_torch.curves.bn254" in out.stdout
+    assert n >= 51
+    for name in ("curves.bn254", "serialize", "hashing",
+                 "schnorr.discrete_log", "schnorr.generalized",
+                 "bbs_plus.setup", "bbs_plus.signature", "bbs_plus.proof",
+                 "bbs_plus.batch", "bbs_plus.bbs23"):
+        assert f"crypto_tpu_torch.{name}" in out.stdout
 
 
 def _msm():
@@ -236,6 +240,12 @@ def _batch_verify_signatures():
     batch_verify_signatures([], [], None, SimpleNamespace())
 
 
+def _batch_verify_proofs():
+    from types import SimpleNamespace
+    from crypto_tpu_torch.bbs_plus.batch import batch_verify_proofs
+    batch_verify_proofs([], [], [], None, SimpleNamespace())
+
+
 def _accum_key():
     from crypto_tpu_torch.accumulator.setup import AccumSecretKey
     from crypto_tpu_torch.curves import bls12_381 as tb
@@ -347,6 +357,7 @@ def _accum_coeffs():
                                    _tfield12_for, _tpairing_for, _tpairing,
                                    _jax_to_port_fq12, _pairing_checker,
                                    _batch_verify_signatures,
+                                   _batch_verify_proofs,
                                    _accum_enabled, _accum_update_device,
                                    _accum_update_membership,
                                    _accum_update_non_membership,
