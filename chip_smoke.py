@@ -10,9 +10,9 @@ before it and read just after:
 * bench points: 2^20 distinct BLS12-381 G1 points with known discrete
   logs, built by the full-add and normalize kernels (`make_bench_points`);
 * the 2^20 MSM (c = 16, full-range 255-bit scalars) through
-  `msm_device_scheduled` on its default doubling-free levels, five timed
+  `msm_device_scheduled` on its default doubling-free levels, two timed
   runs, each checked against the known discrete logs, none rerun (then,
-  outside the counted paths, three runs each of `safe=True` and the
+  outside the counted paths, two runs each of `safe=True` and the
   default in turns);
 * the rerun path: the same MSM with one base duplicated and the digits set
   so that the pair collides in one window's bucket; the flagged windows
@@ -23,7 +23,7 @@ before it and read just after:
 * the Jacobian add, mixed add and double of `make_add_fns` at 2^20 rows;
 * G2 bench points: 2^20 distinct BLS12-381 G2 points with known discrete
   logs, built by the total `TCurve` add and `to_affine` over Fq2;
-* the 2^20 G2 MSM (c = 16, full-range scalars), three timed runs, each
+* the 2^20 G2 MSM (c = 16, full-range scalars), two timed runs, each
   checked against the known discrete logs, on the reference's Fq2
   configuration: the Fq2 pre/post at every level, the Fq2 mul in the
   inversions and the tail, the Fq2 square in the tail, and no G1 level
@@ -39,13 +39,13 @@ before it and read just after:
 * the LegoGroth16 north-star workload (`benches/bench_northstar.py`):
   the setup of a 2^16 - 4 constraint chain circuit with one committed
   witness from explicit trapdoors (fixed-base tables and products on the
-  card, host normalisation, timed apart), one warm-up and two timed
+  card, normalisation on the card, timed apart), one warm-up and one timed
   proves (witness map and each query MSM timed), each proof checked in
   the exponent against its discrete logs and the verification equation,
   and every device MSM against its known logs; one more prove profiled;
 * the pairing at `benches/bench_pairing.py`'s size: a 64-pair
   multi-pairing (plus one pair with G1 at infinity) through `TPairing`,
-  once cold and twice timed on fresh pairs from known logs, each
+  once cold and once timed on fresh pairs from known logs, each
   product against its log; the first set's per-pair Miller values
   against the host Miller loop and its product against the host
   multi-pairing; e(aP, bQ) == e(abP, Q) and e(aP, Q) e(-aP, Q) == 1; a
@@ -64,6 +64,18 @@ before it and read just after:
   key, which passes the mult checker and fails the pairing); one lazy
   checker on the card with 16 PoKs, 4 signatures and 2 BBS23 PoKs (44
   deferred pairs), valid and with one signature spoiled;
+* BASELINE config 4, SAVER at 8-bit chunks (`saver_config4`): a BBS+
+  signature over 8 messages, the SAVER CRS and keys, every message
+  encrypted with a proof and both ciphertext checks passed, every
+  ciphertext decrypted on the card through the batched multi-pairing
+  (each timed and equal to its message), two decryptions verified, a
+  changed chunk and a wrong message rejected, one decryption on the host
+  route; then SnarkPack on the router's own choice: the 8 SAVER proofs
+  aggregated without D and verified with prepared inputs, a changed
+  ciphertext and a wrong label rejected (`saver_aggregate_8`), and 8
+  bound-check LegoGroth16 proofs aggregated with D, wrong inputs rejected
+  (`legogroth16_aggregate_8`); every kernel they launched is held to its
+  plain version at every width they gave it;
 * the VB accumulator at `benches/bench_accumulator.py`'s size: params
   hashed from a label, 2^14 elements added, the first 8,192 members'
   witnesses on the device fixed-base path, then three updates of all
@@ -71,17 +83,17 @@ before it and read just after:
   (256 additions, cold and warm; 256 removals; 128 of each), each split
   by phase and held to V_new / (y + alpha) from the fixed-base table, its
   d factors to host integers, 16 members to the host branch and two by
-  pairing; one more update profiled;
+  pairing;
 * BN254 at the reference's sizes, every kernel at its 8-limb
   instantiation: 2^20 G1 bench points with known logs (the total
-  `TCurve` ops), three timed 2^20 MSMs at c = 16 on the fast levels, one
+  `TCurve` ops), two timed 2^20 MSMs at c = 16 on the fast levels, one
   `safe=True`, the rerun path (one duplicated base: exactly the spoiled
   windows rerun) and the G1 and G2 edge MSMs; the LegoGroth16 setup,
-  warm-up, two timed and one profiled prove of the 2^16 - 4 constraint
+  warm-up, one timed and one profiled prove of the 2^12 - 4 constraint
   chain circuit over BN254 Fr (each checked in the exponent), and the
   port's verifier on a proof (valid, spoiled input and C rejected, D
   opened, both rerandomisations verified); the 64-pair `TPairingBN`
-  multi-pairing, cold and twice timed, against e(G1, G2)^(sum a_i b_i)
+  multi-pairing, cold and once timed, against e(G1, G2)^(sum a_i b_i)
   from the host pairing; the BN254 paths together must launch every
   8-limb instantiation and no point kernel.  The BLS12-381 prove phase
   also runs the port's verifier (`legogroth16_verify`).
@@ -135,8 +147,8 @@ import torch
 
 N_LOG = 20
 SEED = 20251016
-MSM_RUNS = 5                        # timed 2^20 MSMs, fresh scalars each
-G2_MSM_RUNS = 3                     # timed 2^20 G2 MSMs, fresh scalars each
+MSM_RUNS = 2                        # timed 2^20 MSMs, fresh scalars each
+G2_MSM_RUNS = 2                     # timed 2^20 G2 MSMs, fresh scalars each
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 # 32-bit integer multiply-adds: 64 per SM per clock on compute capability
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
@@ -429,32 +441,19 @@ DATA_ARG = {"gather_rows_t": 1, "affine_level_post": 6,
             "affine_level_post_fq2": 6, "chunked_level_down": 9}
 
 
-def record_work(counted, fn):
+def with_shims(counted, on_launch, fn):
     """fn() with every counted wrapper replaced, in each module of the
-    port that holds it, by a shim that sums `work` over the calls that
-    launched; returns fn()'s result and {name: [launches, summed bound
-    ms]}.  The wrappers' own counts go to the shims meanwhile.  A shim
-    runs nothing on the card: a launch whose work depends on data keeps
-    that one argument (the rest as shapes on the meta device) and its
-    work is summed once fn() has returned, so a profile in fn() sees
-    the wrappers' own launches only."""
-    totals = {f.__name__: [0, 0.0] for f in counted}
-    shims, pending = {}, []
+    port that holds it, by a shim that calls on_launch(name, args) after
+    each call that launched.  A wrapper counts its launches into the name
+    it is called by, the shim, meanwhile; the counts go back to the
+    wrappers after."""
+    shims = {}
     for f in counted:
         def shim(*args, _f=f):
             before = shims[_f].launches
             out = _f(*args)
             if shims[_f].launches > before:
-                name = _f.__name__
-                totals[name][0] += 1
-                if name in DATA_ARG:
-                    k = DATA_ARG[name]
-                    pending.append((name, tuple(
-                        torch.empty(a.shape, device="meta")
-                        if i != k and isinstance(a, torch.Tensor) else a
-                        for i, a in enumerate(args))))
-                else:
-                    totals[name][1] += bound_ms(*work(name, args))[0]
+                on_launch(_f.__name__, args)
             return out
         shim.launches = 0
         shim.__name__ = f.__name__
@@ -468,11 +467,41 @@ def record_work(counted, fn):
                 patched.append((mod, k, v))
                 setattr(mod, k, shims[v])
     try:
-        out = fn()
-        torch.cuda.synchronize()
+        return fn()
     finally:
         for mod, k, v in patched:
             setattr(mod, k, v)
+        for f, shim in shims.items():
+            f.launches += shim.launches
+
+
+def record_work(counted, fn):
+    """fn() with every counted wrapper shimmed (`with_shims`) to sum `work`
+    over the calls that launched; returns fn()'s result and {name:
+    [launches, summed bound ms]}.  A shim runs nothing on the card: a
+    launch whose work depends on data keeps that one argument (the rest as
+    shapes on the meta device) and its work is summed once fn() has
+    returned, so a profile in fn() sees the wrappers' own launches only."""
+    totals = {f.__name__: [0, 0.0] for f in counted}
+    pending = []
+
+    def on_launch(name, args):
+        totals[name][0] += 1
+        if name in DATA_ARG:
+            k = DATA_ARG[name]
+            pending.append((name, tuple(
+                torch.empty(a.shape, device="meta")
+                if i != k and isinstance(a, torch.Tensor) else a
+                for i, a in enumerate(args))))
+        else:
+            totals[name][1] += bound_ms(*work(name, args))[0]
+
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    out = with_shims(counted, on_launch, run)
     for name, args in pending:
         totals[name][1] += bound_ms(*work(name, args))[0]
     return out, totals
@@ -556,7 +585,8 @@ def device_profile(name: str, fn, cpu: bool = True) -> dict:
 
 QAP_LOG = 20                        # the G2 cell's circuit: 2^20 variables
 LEGO_LOG = 16                       # BASELINE.json: the prove at 2^16
-PROVE_RUNS = 2                      # timed proves after one warm-up
+BN254_LEGO_LOG = 12                 # BN254's prove, cut from 2^16 for time
+PROVE_RUNS = 1                      # timed proves after one warm-up
 # what a LegoGroth16 prove launches: the NTTs' mont_mul; the G1 query
 # MSMs' fast chunked levels, gather, slot tables and Fermat roots; the
 # b_g2 MSM's Fq2 level, mul and square.  The setup's fixed-base tables
@@ -685,11 +715,12 @@ def qap_at(cs, lag: list, p: int) -> tuple:
     return out
 
 
-def legogroth16_phases(counted, dev, mod=None, tag: str = "") -> dict:
+def legogroth16_phases(counted, dev, mod=None, tag: str = "",
+                       log_n: int = LEGO_LOG) -> dict:
     """The north-star workload (`benches/bench_northstar.py`) over the
     port's curve module `mod` (BLS12-381 by default; BN254 with tag
-    "bn254_"): `chain_circuit` at 2^16 - 4 constraints, one committed
-    witness.  The setup from explicit trapdoors, then one warm-up prove
+    "bn254_"): `chain_circuit` at 2^log_n - 4 constraints (2^16 - 4 by
+    default; BN254's runs at `BN254_LEGO_LOG`), one committed witness.  The setup from explicit trapdoors, then one warm-up prove
     and `PROVE_RUNS` timed ones, each checked in the exponent: every proof
     element equals its discrete log (from the trapdoors, the replayed
     rng's tau, r, s and v, and the assignment) times the generator, the
@@ -697,8 +728,10 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "") -> dict:
     (inputs + D) + delta C, and every device MSM equals the sum of its
     scalars times its points' known logs.  Then the port's verifier on
     the last proof (`verify_phase`).  Returns ({path: launches}, the
-    profiled prove's `device_ms_by_entry`)."""
+    profiled prove's `device_ms_by_entry`, the last checked prove's
+    b_g2 query MSM as {"points": TPoints, "scalars", "out"})."""
     from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves.tcurve import TPoints
     from crypto_tpu_torch.legogroth16 import snark
     from crypto_tpu_torch.ops import fixed_base
     from crypto_tpu_torch.ops.ntt import domain_for
@@ -706,8 +739,8 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "") -> dict:
     mod = mod or bls
     F, R = mod.Fr, mod.R
     G1, G2 = mod.G1.generator(), mod.G2.generator()
-    nc = (1 << LEGO_LOG) - 4
-    N = 1 << LEGO_LOG
+    nc = (1 << log_n) - 4
+    N = 1 << log_n
     hr = random.Random(SEED + 90)
     alpha, beta, gamma, delta, eta = (hr.randrange(1, R) for _ in range(5))
     setup_seed = SEED + 91
@@ -898,6 +931,15 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "") -> dict:
                   **split, correct=True)
         t_all = time.perf_counter() - t0
         msm_sizes = {m[0]: len(m[1]) for m in record["msms"]}
+        # the last checked prove's b_g2 MSM: its packed points, scalars
+        # and result, for the kernel checks at the prove's own widths
+        _, g2_sc, g2_off, g2_out = next(m for m in record["msms"]
+                                        if m[0] == "b_g2_query")
+        g2_pts = next(v for k, v in pk.device_cache.items()
+                      if k[0] == "b_g2_query")
+        g2_msm = dict(points=TPoints(*(t[:, g2_off:g2_off + len(g2_sc)]
+                                       .contiguous() for t in g2_pts)),
+                      scalars=g2_sc, out=g2_out)
         prove_dev = device_profile(f"profile_{tag}prove",
                                    lambda: create(SEED + 94 + PROVE_RUNS),
                                    cpu=False)
@@ -920,7 +962,7 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "") -> dict:
     verify_launches = verify_phase(counted, mod, pk, pub, *last, tag)
     return {f"{tag}legogroth16_setup": setup_launches,
             f"{tag}legogroth16_prove": launches,
-            f"{tag}legogroth16_verify": verify_launches}, prove_dev
+            f"{tag}legogroth16_verify": verify_launches}, prove_dev, g2_msm
 
 
 def verify_phase(counted, mod, pk, pub, proof, v, committed,
@@ -989,7 +1031,7 @@ def verify_phase(counted, mod, pk, pub, proof, v, committed,
     return launches
 
 PAIRS = 64                          # benches/bench_pairing.py NPAIR
-PAIRING_RUNS = 2                    # timed multi-pairings, fresh pairs each
+PAIRING_RUNS = 1                    # timed multi-pairings, fresh pairs each
 NSIG = 1024                         # bench_pairing.py NSIG, over 4 messages
 SIG_MSGS = 4
 PAIRING_ENV = "CRYPTO_TPU_PAIRING_BACKEND"
@@ -1526,6 +1568,455 @@ def bbs_pok_phases(counted, dev) -> tuple:
                            "bbs_pok_checker_16": len(good.pending)}
 
 
+SAVER_CB = 8                        # BASELINE config 4: 8-bit chunks (32)
+SAVER_MSGS = 8                      # ... of 8 BBS+-signed messages
+SAVER_VERIFY_DECRYPTION = 2         # decryptions whose proof is verified
+AGG_N = 8                           # proofs a SnarkPack aggregate folds
+ROUTE_KERNELS = ("mont_mul", "mont_pow", "fq2_mul", "fq2_sqr")
+
+
+def record_shapes(counted, fn):
+    """fn() with every counted wrapper shimmed (`with_shims`) to note the
+    field, exponent and width of every call that launched; returns fn()'s
+    result and {name: {(field prime, exponent): set of widths}}.  A counted
+    kernel other than the pairing's four (`mont_mul` also runs the
+    witness map's NTTs) that launches fails the run: the new paths'
+    checks cover these four."""
+    seen = {f.__name__: {} for f in counted}
+
+    def on_launch(name, args):
+        if name in ("fq2_mul", "fq2_sqr"):
+            key, width = (args[0].mod.p, None), args[1].shape[1]
+        elif name == "mont_pow":
+            key, width = (args[2].p, args[1]), args[0].shape[1]
+        elif name == "mont_mul":
+            key, width = (args[2].p, None), args[0].shape[1]
+        else:
+            key, width = (None, None), None
+        seen[name].setdefault(key, set()).add(width)
+
+    out = with_shims(counted, on_launch, fn)
+    other = sorted(k for k, v in seen.items() if v and k not in ROUTE_KERNELS)
+    if other:
+        raise AssertionError(f"the SAVER and aggregation paths launched "
+                             f"{other}, which their checks do not cover")
+    return out, {k: v for k, v in seen.items() if v}
+
+
+def saver_aggregate_phases(counted, dev) -> tuple:
+    """BASELINE config 4 and SnarkPack on the card, each phase with the
+    launch counts reset before it and read after:
+
+    * `saver_config4`: a BBS+ signature over `SAVER_MSGS` messages; a SAVER
+      CRS at `SAVER_CB`-bit chunks (32 chunks), keys, `encrypt_with_proof`
+      of every signed message (the port's prover: the witness map's NTTs
+      on the card), both ciphertext checks of each, `decrypt` of each on
+      the card through the batched multi-pairing (every chunk's product
+      and base in one call, timed, each message equal to the signed
+      one), `verify_decryption` of `SAVER_VERIFY_DECRYPTION`, a changed
+      chunk and a wrong message rejected, and one decryption on the host
+      route for comparison;
+    * `saver_aggregate_8`: the 8 SAVER proofs aggregated by SnarkPack
+      without D (as the proof system aggregates Groth16 proofs), the
+      prover split into its pairing calls, MSMs and host work; verified
+      with `prepared_inputs` from the ciphertexts; a changed ciphertext
+      and a wrong transcript label rejected;
+    * `legogroth16_aggregate_8`: 8 bound-check LegoGroth16 proofs,
+      aggregated with D folded and verified, both under
+      `CRYPTO_TPU_PAIRING_BACKEND=device`: the prover's commitments and
+      each GIPA round's products go to the card as batched calls, the
+      verifier's checker too; wrong public inputs rejected.
+
+    The first two phases take the router's own choice.  At n = 8 it keeps
+    the prover's calls on the host (a batched call costs more than their
+    host loop), so `saver_aggregate_8`'s device route is the verifier's
+    checker (its Miller product of more than 8 pairs on the card; the
+    final exponentiation stays on the host, as in the reference, so
+    `mont_pow` does not launch there).
+
+    Each phase requires a call of `TPairing.multi_pairings` (the batched
+    device route; its four kernels) or, for `saver_aggregate_8`, of
+    `TPairing.miller_product` (the checker's; its three);
+    `legogroth16_aggregate_8` requires a batched call.  Returns ({path:
+    launches}, {path: the widths each kernel ran at})."""
+    import os
+
+    from crypto_tpu_torch.bbs_plus.setup import KeypairG2, SignatureParamsG1
+    from crypto_tpu_torch.bbs_plus.signature import SignatureG1
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves import tpairing
+    from crypto_tpu_torch.legogroth16 import aggregation as agg
+    from crypto_tpu_torch.legogroth16 import bound_check, snark
+    from crypto_tpu_torch.saver import core as saver
+    from crypto_tpu_torch.transcript.transcript import Transcript
+    Fr = bls.Fr
+    hr = random.Random(SEED + 300)
+    paths, shapes = {}, {}
+    batches = []                       # (path, groups k, lanes k m)
+    real_batch = tpairing.TPairing.multi_pairings
+    real_miller = tpairing.TPairing.miller_product
+    path_now = [None]
+
+    def spy(self, groups):
+        m = max(1, max(len(g) for g in groups))
+        batches.append((path_now[0], len(groups), m * len(groups)))
+        return real_batch(self, groups)
+
+    def miller_spy(self, pairs):
+        batches.append((path_now[0], 0, len(pairs)))
+        return real_miller(self, pairs)
+
+    env = os.environ.pop(PAIRING_ENV, None)
+    tpairing.TPairing.multi_pairings = spy
+    tpairing.TPairing.miller_product = miller_spy
+    try:
+        def run(path, fn, need_batch=False):
+            path_now[0] = path
+            (out, seen), launches = drive(
+                counted, lambda: record_shapes(counted, fn))
+            batched = any(b[0] == path and b[1] for b in batches)
+            require(path, launches, ROUTE_KERNELS if batched
+                    else CHECKER_KERNELS)
+            if not any(b[0] == path for b in batches):
+                raise AssertionError(f"{path}: no pairing took the device "
+                                     f"route")
+            if need_batch and not batched:
+                raise AssertionError(f"{path}: no batched multi-pairing "
+                                     f"call")
+            paths[path] = launches
+            shapes[path] = seen
+            return out
+
+        # ---- saver_config4 ---------------------------------------------
+        def config4():
+            t = {}
+            t0 = time.perf_counter()
+            params = SignatureParamsG1.generate_using_rng(hr, SAVER_MSGS)
+            kp = KeypairG2.generate(hr, params)
+            msgs = [Fr.rand(hr) for _ in range(SAVER_MSGS)]
+            sig = SignatureG1.new(hr, msgs, kp.secret_key, params)
+            sig.verify(msgs, kp.public_key, params)
+            t["sign_verify_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gens = saver.EncryptionGens.new(b"chip-smoke saver config 4")
+            spk = saver.generate_srs(SAVER_CB, gens, hr, device=dev)
+            g_i = saver.get_gs_for_encryption(spk.pk.vk)
+            t["srs_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sk, ek, dk = saver.keygen(hr, SAVER_CB, gens, g_i,
+                                      spk.pk.delta_g1, spk.gamma_g1)
+            t["keygen_s"] = time.perf_counter() - t0
+            cts, t["encrypt_with_proof_s"] = [], []
+            for m in msgs:
+                t0 = time.perf_counter()
+                cts.append(saver.encrypt_with_proof(hr, m, ek, spk, SAVER_CB,
+                                                    device=dev))
+                t["encrypt_with_proof_s"].append(time.perf_counter() - t0)
+            pvk = snark.PreparedVerifyingKey.from_vk(spk.pk.vk)
+            t0 = time.perf_counter()
+            for ct, _, proof in cts:
+                if not (saver.verify_ciphertext_commitment(ct, ek, gens,
+                                                           device=dev)
+                        and saver.verify_ciphertext_proof(ct, proof, pvk,
+                                                          device=dev)):
+                    raise AssertionError("saver_config4: a ciphertext "
+                                         "check failed")
+            t["ciphertext_checks_s"] = time.perf_counter() - t0
+            decs, t["decrypt_s"] = [], []
+            for (ct, _, _), m in zip(cts, msgs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dec = saver.decrypt(ct, sk, dk, g_i, SAVER_CB, device=dev)
+                t["decrypt_s"].append(time.perf_counter() - t0)
+                if dec[0] != m or dec[1] != ct.X_r.mul_raw(int(sk.rho)):
+                    raise AssertionError("saver_config4: a decryption "
+                                         "differs from the signed message")
+                decs.append(dec)
+            t0 = time.perf_counter()
+            for (ct, _, _), (m, nu) in list(zip(cts, decs))[
+                    :SAVER_VERIFY_DECRYPTION]:
+                if not saver.verify_decryption(ct, m, nu, dk, g_i, gens,
+                                               SAVER_CB, device=dev):
+                    raise AssertionError("saver_config4: a decryption's "
+                                         "verification failed")
+            t["verify_decryption_s"] = (time.perf_counter() - t0) \
+                / SAVER_VERIFY_DECRYPTION
+            ct, _, proof = cts[0]
+            bad = saver.Ciphertext(ct.X_r, [(ct.enc_chunks[0]
+                                             + g_i[0]).normalize()]
+                                   + ct.enc_chunks[1:], ct.commitment)
+            if saver.verify_ciphertext_proof(bad, proof, pvk, device=dev) \
+                    or saver.verify_decryption(ct, decs[0][0] + Fr(1),
+                                               decs[0][1], dk, g_i, gens,
+                                               SAVER_CB, device=dev):
+                raise AssertionError("saver_config4: a changed chunk or a "
+                                     "wrong message was accepted")
+            os.environ[PAIRING_ENV] = "host"
+            try:
+                t0 = time.perf_counter()
+                host = saver.decrypt(ct, sk, dk, g_i, SAVER_CB, device=dev)
+                t["decrypt_host_route_s"] = time.perf_counter() - t0
+            finally:
+                os.environ.pop(PAIRING_ENV)
+            if host != decs[0]:
+                raise AssertionError("saver_config4: the host route's "
+                                     "decryption differs")
+            return t, spk, cts
+
+        t, spk, cts = run("saver_config4", config4)
+        calls = [b for b in batches if b[0] == "saver_config4"]
+        phase("saver_config4", messages=SAVER_MSGS, chunk_bits=SAVER_CB,
+              chunks=saver.chunks_count(SAVER_CB),
+              saver_decrypt_wall_s=statistics.median(t["decrypt_s"]),
+              **{k: v for k, v in t.items()},
+              device_calls_groups_lanes=[b[1:] for b in calls],
+              pairing_batch_threshold=tpairing.PAIRING_BATCH_THRESHOLD,
+              launches={k: v for k, v in paths["saver_config4"].items()
+                        if v},
+              decrypted=True, spoiled_rejected=True, correct=True)
+
+        # ---- saver_aggregate_8 on the router's own choice: at n = 8 it
+        # keeps every prover call on the host (each call's weight stays
+        # under the threshold), and the device route is the verifier's
+        # checker
+        t0 = time.perf_counter()
+        srs = agg.GenericSRS.setup(hr, AGG_N)
+        p_srs, v_srs = srs.specialize(AGG_N)
+        t_srs = time.perf_counter() - t0
+        vk = spk.pk.vk
+
+        def prepared(ct):
+            d = ct.X_r
+            for c in ct.enc_chunks:
+                d = d + c
+            return (d + vk.gamma_abc_g1[0]).normalize()
+
+        def saver_agg():
+            proofs = [snark.Proof(p.a, p.b, p.c, None) for _, _, p in cts]
+            tm = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = agg.aggregate_proofs(p_srs, Transcript(b"saver-aggregate"),
+                                     proofs, device=dev, timings=tm)
+            tm["prove_s"] = time.perf_counter() - t0
+            prep = [prepared(ct) for ct, _, _ in cts]
+
+            def verify(prep, label=b"saver-aggregate"):
+                return agg.verify_aggregate_proof(
+                    v_srs, vk, [[] for _ in prep], a, hr, Transcript(label),
+                    prepared_inputs=prep, device=dev)
+
+            t0 = time.perf_counter()
+            ok = verify(prep)
+            tm["verify_s"] = time.perf_counter() - t0
+            k = len(cts) // 2
+            ct = cts[k][0]
+            bad = list(prep)
+            bad[k] = prepared(saver.Ciphertext(
+                ct.X_r, ct.enc_chunks[:-1] + [(ct.enc_chunks[-1]
+                                               + vk.gamma_abc_g1[-1])
+                                              .normalize()], ct.commitment))
+            if not ok or verify(bad) or verify(prep, b"another label"):
+                raise AssertionError(f"saver_aggregate_8: valid {ok}, or a "
+                                     f"spoiled aggregate accepted")
+            return tm
+
+        tm = run("saver_aggregate_8", saver_agg)
+        phase("saver_aggregate_8", proofs=AGG_N, srs_s=t_srs,
+              saver_aggregate_8_prove_wall_s=tm["prove_s"],
+              pairing_s=tm["pairing_s"], msm_s=tm["msm_s"],
+              host_s=tm["prove_s"] - tm["pairing_s"] - tm["msm_s"],
+              pairing_calls_groups_pairs_route=tm["pairing_calls"],
+              verify_s=tm["verify_s"],
+              launches={k: v for k, v in paths["saver_aggregate_8"].items()
+                        if v},
+              valid=True, spoiled_rejected=True, correct=True)
+
+        # ---- legogroth16_aggregate_8 -----------------------------------
+        def lego_agg():
+            tm = {}
+            t0 = time.perf_counter()
+            pk = bound_check.generate_snark_srs_bound_check(hr, device=dev)
+            tm["setup_s"] = time.perf_counter() - t0
+            lo, hi = 18, 1 << 40
+            t0 = time.perf_counter()
+            proofs = [bound_check.prove_bound_check(
+                pk, hr.randrange(lo, hi), lo, hi, hr, device=dev)[0]
+                for _ in range(AGG_N)]
+            tm["prove_s"] = (time.perf_counter() - t0) / AGG_N
+            pub = [[Fr(lo), Fr(hi)] for _ in proofs]
+
+            def verify(pub):
+                return agg.verify_aggregate_proof(
+                    v_srs, pk.vk, pub, a, hr, Transcript(b"lego-aggregate"),
+                    device=dev)
+
+            os.environ[PAIRING_ENV] = "device"
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = agg.aggregate_proofs(p_srs,
+                                         Transcript(b"lego-aggregate"),
+                                         proofs, device=dev, timings=tm)
+                tm["aggregate_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ok = verify(pub)
+                tm["verify_s"] = time.perf_counter() - t0
+                bad = [list(p) for p in pub]
+                bad[-1][0] = bad[-1][0] + Fr(1)
+                spoiled = verify(bad)
+            finally:
+                os.environ.pop(PAIRING_ENV)
+            if not ok or spoiled:
+                raise AssertionError(f"legogroth16_aggregate_8: valid {ok}, "
+                                     f"or wrong public inputs accepted")
+            return tm
+
+        tm = run("legogroth16_aggregate_8", lego_agg, need_batch=True)
+        calls = [b for b in batches if b[0] == "legogroth16_aggregate_8"]
+        phase("legogroth16_aggregate_8", proofs=AGG_N,
+              pairing_backend="device",
+              device_calls_groups_lanes=[b[1:] for b in calls],
+              bound_check_setup_s=tm["setup_s"],
+              bound_check_prove_s=tm["prove_s"],
+              legogroth16_aggregate_8_prove_wall_s=tm["aggregate_s"],
+              pairing_s=tm["pairing_s"], msm_s=tm["msm_s"],
+              host_s=tm["aggregate_s"] - tm["pairing_s"] - tm["msm_s"],
+              pairing_calls_groups_pairs_route=tm["pairing_calls"],
+              verify_s=tm["verify_s"],
+              launches={k: v for k, v in
+                        paths["legogroth16_aggregate_8"].items() if v},
+              valid=True, spoiled_rejected=True, correct=True)
+    finally:
+        tpairing.TPairing.multi_pairings = real_batch
+        tpairing.TPairing.miller_product = real_miller
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    return paths, shapes
+
+
+def route_kernel_checks(row, agree, shapes, dev) -> list:
+    """Every kernel the SAVER and aggregation paths launched, held bit for
+    bit against its plain version at every width those paths gave it (as
+    `record_shapes` saw them): random elements with the edges 0, 1 and
+    p - 1 first, the kernel at each width on its own slice, the plain
+    version once over all of a kernel's widths (it is lane by lane).
+    `mont_pow`'s plain version runs 608 dependent products whatever the
+    width, so the three paths' widths share one plain call.  Returns the
+    kernels-line rows, one a path and kernel at its widest width."""
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.fields.tfield import tfield_for
+    from crypto_tpu_torch.fields.ttower import tquad_for
+    from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    csrc = "crypto_tpu_torch/csrc/"
+    mref = "crypto_tpu/ops/pallas/field_kernels.py:386"
+    fref = "crypto_tpu/ops/pallas/curve_kernels.py:"
+    hr = random.Random(SEED + 310)
+    fields = {bls.Fq.p: bls.Fq, bls.Fr.p: bls.Fr}
+    F2 = tquad_for(bls.Fq2, dev)
+    rows, checked = [], []
+
+    def elems(p: int, M: int) -> torch.Tensor:
+        Fx = tfield_for(fields[p], dev)
+        return Fx.pack([0, 1, p - 1][:M] + [hr.randrange(p)
+                                           for _ in range(M - 3)])
+
+    def fq2s(M: int) -> torch.Tensor:
+        return torch.cat([elems(bls.Fq.p, M), elems(bls.Fq.p, M).flip(1)])
+
+    def slices(widths):
+        out, at = [], 0
+        for w in widths:
+            out.append(slice(at, at + w))
+            at += w
+        return out
+
+    pow_args = []
+    for path, seen in shapes.items():
+        for name, by_key in seen.items():
+            for n_key, ((p, e), ws) in enumerate(sorted(
+                    by_key.items(), key=lambda kv: -max(kv[1]))):
+                ws = sorted(ws)
+                total = sum(ws)
+                if name == "mont_pow":
+                    pow_args.append((path, p, e, ws, elems(p, total)))
+                    continue
+                if name == "mont_mul":
+                    L = tfield_for(fields[p], dev).L
+                    a, b = elems(p, total), elems(p, total).flip(1)
+                    mod = tfield_for(fields[p], dev).mod
+                    kern = (lambda s: fk.mont_mul(a[:, s].contiguous(),
+                                                  b[:, s].contiguous(), mod))
+                    plain = (lambda s: fk.mont_mul_plain(
+                        a[:, s].contiguous(), b[:, s].contiguous(), mod))
+                    args = lambda s: (a[:, s].contiguous(),
+                                      b[:, s].contiguous(), mod)
+                    src, rep = csrc + "mont_mul.cu", mref
+                elif name == "fq2_mul":
+                    L = 2 * F2.L
+                    a, b = fq2s(total), fq2s(total).flip(1)
+                    kern = (lambda s: fk.fq2_mul(F2.base, a[:, s].contiguous(),
+                                                 b[:, s].contiguous()))
+                    plain = (lambda s: fk.fq2_mul_plain(
+                        F2.base, a[:, s].contiguous(), b[:, s].contiguous()))
+                    args = lambda s: (F2.base, a[:, s].contiguous(),
+                                      b[:, s].contiguous())
+                    src, rep = csrc + "fq2_mul.cu", fref + "1066"
+                else:
+                    L = 2 * F2.L
+                    a = fq2s(total)
+                    kern = (lambda s: fk.fq2_sqr(F2.base,
+                                                 a[:, s].contiguous()))
+                    plain = (lambda s: fk.fq2_sqr_plain(F2.base,
+                                                        a[:, s].contiguous()))
+                    args = lambda s: (F2.base, a[:, s].contiguous())
+                    src, rep = csrc + "fq2_mul.cu", fref + "908"
+                whole = plain(slice(0, total))
+                for w, s in zip(ws, slices(ws)):
+                    agree(name, (kern(s),), (whole[:, s],),
+                          f"on {path} at M={w}")
+                checked.append([path, name, fields[p].name, ws])
+                if n_key:
+                    continue
+                widest = slices(ws)[-1]
+                pm, pm_ms = timed_call(lambda: plain(widest))
+                err = agree(name, (kern(widest),), (pm,),
+                            f"on {path} at M={ws[-1]}")
+                rows.append(row(name, src, rep, path, err,
+                                cuda_ms(lambda: kern(widest)), pm_ms,
+                                args(widest), [L, ws[-1]]))
+    # mont_pow: every path's widths in one plain call, the row at the
+    # widest width of all
+    if pow_args:
+        p, e = pow_args[0][1], pow_args[0][2]
+        if any((q, f) != (p, e) for _, q, f, _, _ in pow_args):
+            raise AssertionError(f"mont_pow ran at more than one field or "
+                                 f"exponent on the new paths: {pow_args}")
+        mod = tfield_for(fields[p], dev).mod
+        x = torch.cat([t for *_, t in pow_args], 1)
+        whole = fk.mont_pow_plain(x, e, mod)
+        at, widest = 0, None
+        for path, _, _, ws, t in pow_args:
+            for w, s in zip(ws, slices(ws)):
+                agree("mont_pow", (fk.mont_pow(t[:, s].contiguous(), e, mod),),
+                      (whole[:, at + s.start:at + s.stop],),
+                      f"on {path} at M={w}")
+            if widest is None or ws[-1] > widest[1]:
+                widest = (path, ws[-1], t[:, slices(ws)[-1]].contiguous())
+            checked.append([path, "mont_pow", fields[p].name, ws])
+            at += t.shape[1]
+        path, w, t = widest
+        pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(t, e, mod))
+        err = agree("mont_pow", (fk.mont_pow(t, e, mod),), (pw,),
+                    f"on {path} at M={w}")
+        rows.append(row("mont_pow", csrc + "mont_mul.cu", mref, path, err,
+                        cuda_ms(lambda: fk.mont_pow(t, e, mod)), pw_ms,
+                        (t, e, mod), [t.shape[0], w]))
+    phase("check_saver_aggregation_kernels",
+          path_kernel_field_widths=json.dumps(checked), bit_exact=True)
+    return rows
+
+
 NELEM = 1 << 14                     # benches/bench_accumulator.py NELEM
 NMEMBERS = NELEM // 2               # the members whose witnesses update
 NBATCH = 256                        # the bench's additions
@@ -1547,8 +2038,7 @@ def accumulator_phases(counted, dev) -> tuple:
     held to an independent result: every witness to V_new / (y + alpha)
     by a host batch inverse and the device fixed-base table, every d
     factor to host integers, 16 members to the port's host branch, two
-    members by pairing.  Returns ({path: launches}, a function that runs
-    update (a) once more, for the profile)."""
+    members by pairing.  Returns {path: launches}."""
     import os
 
     from crypto_tpu_torch.accumulator import device_update, witness
@@ -1714,18 +2204,10 @@ def accumulator_phases(counted, dev) -> tuple:
         checks = check(tag, adds, rems, new_acc, new_wits, seen["d"])
         report(tag, secs_, seen, launches, checks)
         paths[f"accumulator_update_{tag}"] = launches
-
-    adds_a = cases["a"][0]
-
-    def profile_update():
-        return witness.update_membership_batch_with_sk(
-            adds_a, [], members, wits, V0, sk, device=dev)
-
-    return paths, profile_update
+    return paths
 
 
-BN254_MSM_RUNS = 3                  # timed 2^20 BN254 G1 MSMs
-BN254_PROBE_LOG = 16                # the prove's G2 query MSM: ~2^16 points
+BN254_MSM_RUNS = 2                  # timed 2^20 BN254 G1 MSMs
 # the L = 8 instantiations the BN254 paths must launch between them: every
 # level kernel of both formulas, the Fq2 level, product and square, the
 # gather and its tables (8 words a row on G1, 16 on G2), mont_mul and
@@ -2030,8 +2512,6 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
     at the BN254 paths' own shapes, with ragged widths, dead lanes and
     infinite operands, as the L = 12 checks are; returns the kernels-line
     rows (`row`) of each at its path's shape."""
-    from crypto_tpu_torch.bench_points import make_bench_points, \
-        make_bench_scalars
     from crypto_tpu_torch.curves import bn254 as bn
     from crypto_tpu_torch.curves.tcurve import tcurve_for
     from crypto_tpu_torch.fields.tfield import tfield_for
@@ -2050,22 +2530,27 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
     hr = random.Random(SEED + 401)
     P = bn.P
 
-    # the prove's G2 query MSM shape: 2^16 G2 points at c = 8, from known
-    # logs, for the Fq2 level's and the G2 gather's shapes (a probe,
-    # outside the counted paths)
-    n2 = 1 << BN254_PROBE_LOG
-    pts2, dlog2 = make_bench_points(tc2, n2)
-    sc2, sb2 = make_bench_scalars(bn.R, n2, SEED + 402)
+    # the prove's own b_g2 MSM (`legogroth16_phases` at BN254_LEGO_LOG),
+    # rerun outside the counted paths on its points and scalars: its
+    # window size, level widths and slot counts are the prove's, for the
+    # Fq2 level's, the Fq2 product's and the G2 gather's shapes
+    g2 = data["prove_g2_msm"]
+    pts2 = g2["points"]
+    n2 = pts2.X.shape[1]
+    c2 = msm_v2._auto_c_v2(n2)
     t2 = {}
-    res2 = msm_v2.msm_device_scheduled(bn.G2, pts2, sb2, c=8, timings=t2)
-    want2 = sum(s * dlog2(i) for i, s in enumerate(sc2)) % bn.R
-    if res2 != bn.G2.generator().mul_raw(want2):
-        raise AssertionError("bn254 G2 probe MSM disagrees with its logs")
+    res2 = msm_v2.msm_device_scheduled(bn.G2, pts2, g2["scalars"],
+                                       timings=t2)
+    if res2 != g2["out"]:
+        raise AssertionError("bn254 rerun of the prove's b_g2 MSM "
+                             "disagrees with the prove's")
 
     def lvl(M, pts, Fx):
-        n = pts.X.shape[1]
-        i1 = torch.randint(0, n, (M,), generator=gen, device=dev)
-        i2 = torch.randint(0, n, (M,), generator=gen, device=dev)
+        # operands among the finite points (a query may hold infinity)
+        live = torch.nonzero(~Fx.is_zero(pts.Z)).flatten()
+        n = live.numel()
+        i1 = live[torch.randint(0, n, (M,), generator=gen, device=dev)]
+        i2 = live[torch.randint(0, n, (M,), generator=gen, device=dev)]
         lane = torch.arange(M, device=dev)
         i2 = torch.where(lane % 7 < 2, i1, i2)
         x1, y1, x2, y2 = pts.X[:, i1], pts.Y[:, i1], pts.X[:, i2], \
@@ -2099,14 +2584,26 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
             add_row("mont_mul", csrc + "mont_mul.cu", mref, path, err,
                     lambda: fk.mont_mul(ra, rb, Fx.mod), plain_ms,
                     (ra, rb, Fx.mod), [8, M])
+    # mont_pow: the plain version once over every width's inputs side by
+    # side (it is lane by lane), and alone at the row's shape
+    xs = []
     for M, zero, path in ((1, False, "bn254_msm_2^20"), (1, True, None),
                           (16, False, None), (1 << 16, False, None)):
         x = F.pack([0 if zero else hr.randrange(1, P) for _ in range(M)])
         x[:, 3::5] = 0
-        pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(x, P - 2, F.mod))
-        err = agree("mont_pow", (fk.mont_pow(x, P - 2, F.mod),), (pw,),
-                    f"on bn254.Fq at M={M}")
+        xs.append((M, path, x))
+    whole = fk.mont_pow_plain(torch.cat([x for *_, x in xs], 1), P - 2,
+                              F.mod)
+    at = 0
+    for M, path, x in xs:
+        err = agree("mont_pow", (fk.mont_pow(x, P - 2, F.mod),),
+                    (whole[:, at:at + M],), f"on bn254.Fq at M={M}")
+        at += M
         if path:
+            pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(x, P - 2,
+                                                             F.mod))
+            err = agree("mont_pow", (fk.mont_pow(x, P - 2, F.mod),), (pw,),
+                        f"on bn254.Fq at M={M}")
             add_row("mont_pow", csrc + "mont_mul.cu", mref, path, err,
                     lambda: fk.mont_pow(x, P - 2, F.mod), pw_ms,
                     (x, P - 2, F.mod), [8, M])
@@ -2213,8 +2710,8 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
     phase("check_chunked_level_bn254", infinite_operand_in_every_warp=True,
           bit_exact=True)
 
-    # ---- the Fq2 level at the prove's G2 query MSM's narrowest level
-    # (the probe), ragged, the G2 edge MSMs' widest and 96 pairs whose
+    # ---- the Fq2 level at the prove's b_g2 MSM's narrowest level (its
+    # rerun), ragged, the G2 edge MSMs' widest and 96 pairs whose
     # first warp mixes doublings, P + (-P) and infinite operands
     g2_widths = t2["level_pairs"]
     w_lvl = min(g2_widths)
@@ -2247,10 +2744,10 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
                     (F2,) + args, [16, M])
     phase("check_affine_level_fq2_bn254", pairs=[w_lvl, w_lvl + 5,
                                                  max(data["g2_edge_widths"]),
-                                                 96], g2_probe_level_pairs=
+                                                 96], g2_prove_level_pairs=
           g2_widths, bit_exact=True)
 
-    # ---- the Fq2 product and square: at the probe's first product-tree
+    # ---- the Fq2 product and square: at the prove's first product-tree
     # width and the pairing's line products (15 a lane) and squares (4 a
     # lane), random coordinates with the edges 0, 1, u, (p-1)(1 + u) and
     # the canonical limbs that bound the lazy reduction
@@ -2291,7 +2788,7 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
           bit_exact=True)
 
     # ---- the slot tables and the gather at 8 words a row (the 2^20 G1
-    # MSM's layout) and 16 (the probe's): each point once a window at
+    # MSM's layout) and 16 (the prove's b_g2 MSM's): each point once a window at
     # random slots, the rest empty, then a ragged count with indices past
     # the table and below -1 and an all-dead tile; the library call is
     # index_select on the clamped index with a zero fill
@@ -2299,7 +2796,7 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
     for tag, Fx, pts, slots, W, path in (
             ("g1", F, points, data["slots"], (bn.Fr.bits + 16) // 16,
              "bn254_msm_2^20"),
-            ("g2", F2, pts2, t2["slots"], (bn.Fr.bits + 8) // 8,
+            ("g2", F2, pts2, t2["slots"], (bn.Fr.bits + c2) // c2,
              "bn254_legogroth16_prove")):
         n = pts.X.shape[1]
         y = pts.Y.clone()
@@ -2474,11 +2971,11 @@ def main() -> int:
           correct=True)
 
     # ---- the 2^20 MSM on the total-formula levels (safe=True) against the
-    # default, in turns on one scalar set (safe, fast, fast, safe, ...)
+    # default, in turns on one scalar set (safe, fast, fast, safe)
     sc, sb = make_bench_scalars(bls.R, n, SEED + 40)
     expect = G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R)
     msm_turns = {True: [], False: []}
-    for safe in (True, False, False, True, True, False):
+    for safe in (True, False, False, True):
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = msm_v2.msm_device_scheduled(bls.G1, points, sb, c=16,
@@ -2709,10 +3206,9 @@ def main() -> int:
 
     # ---- the G2 MSM with its squares through the square kernel (the
     # default) against the Karatsuba product kernel, in turns on one
-    # scalar set (product, square, square, product, product, square)
+    # scalar set (product, square, square, product)
     sq_turns = {"product": [], "square": []}
-    for kind in ("product", "square", "square", "product", "product",
-                 "square"):
+    for kind in ("product", "square", "square", "product"):
         if kind == "product":
             F2.square = lambda a: F2.mul(a, a)
         tt = {}
@@ -2762,7 +3258,7 @@ def main() -> int:
     # ---- the QAP witness map at 2^20, and the LegoGroth16 setup and
     # proves at 2^16 constraints
     paths["qap_h_2^20"] = (qap_h_phase(counted, dev), [])
-    lego, prove_dev = legogroth16_phases(counted, dev)
+    lego, prove_dev, _ = legogroth16_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in lego.items())
     pair_paths, bbs_widths, profile_pairs = pairing_phases(counted, dev)
     paths.update((k, (v, bbs_widths if k.startswith("bbs") else []))
@@ -2773,7 +3269,11 @@ def main() -> int:
                  for k, v in pok_paths.items())
     phase("bbs_pok_phases", seconds=round(time.time() - t0, 3))
     t0 = time.time()
-    acc_paths, profile_update = accumulator_phases(counted, dev)
+    saver_paths, saver_shapes = saver_aggregate_phases(counted, dev)
+    paths.update((k, (v, [])) for k, v in saver_paths.items())
+    phase("saver_aggregate_phases", seconds=round(time.time() - t0, 3))
+    t0 = time.time()
+    acc_paths = accumulator_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in acc_paths.items())
     phase("accumulator_phases", seconds=round(time.time() - t0, 3))
 
@@ -2782,9 +3282,10 @@ def main() -> int:
     t0 = time.time()
     bn_paths, bn_data = bn254_msm_phases(counted, dev)
     paths.update(bn_paths)
-    bn_lego, _ = legogroth16_phases(counted, dev, bn, "bn254_")
+    bn_lego, _, bn_data["prove_g2_msm"] = legogroth16_phases(
+        counted, dev, bn, "bn254_", BN254_LEGO_LOG)
     paths.update((k, (v, [])) for k, v in bn_lego.items())
-    bn_pairing, bn_profile_pairs = bn254_pairing_phase(counted, dev)
+    bn_pairing, _ = bn254_pairing_phase(counted, dev)
     paths["bn254_pairing_64"] = (bn_pairing, [])
     bn_union = {f.__name__: sum(v[0][f.__name__] for k, v in paths.items()
                                 if k.startswith("bn254_")) for f in counted}
@@ -2865,23 +3366,36 @@ def main() -> int:
     # mont_pow's Fermat root at 1 element (each batch_inv_t root), 16 (the
     # tail's to_affine), 2^16 and, on Fq, the witness update's to_affine
     # (8,192), with zeros (0 -> 0), Fq and Fr, against its plain version
-    # on the card
+    # on the card.  The plain version goes lane by lane through 608
+    # dependent products whatever the width, so it runs once over all the
+    # widths' inputs side by side, and again alone at each row's shape
     for fld in (bls.Fq, bls.Fr):
         Fx = tfield_for(fld, dev)
         e = fld.p - 2
         hr = random.Random(SEED + 3)
         update = ((NMEMBERS, False),) if fld is bls.Fq else ()
+        xs = []
         for M, zero in ((1, False), (1, True), (16, False),
                         (1 << 16, False)) + update:
             x = Fx.pack([0 if zero else hr.randrange(1, fld.p)
                          for _ in range(M)])
             x[:, 3::5] = 0
-            plain, plain_ms = timed_call(lambda: fk.mont_pow_plain(x, e,
-                                                                   Fx.mod))
-            err = agree("mont_pow", (fk.mont_pow(x, e, Fx.mod),), (plain,),
-                        f"on {fld.name} at M={M}")
+            xs.append((M, zero, x))
+        whole = fk.mont_pow_plain(torch.cat([x for *_, x in xs], 1), e,
+                                  Fx.mod)
+        at = 0
+        for M, zero, x in xs:
+            err = agree("mont_pow", (fk.mont_pow(x, e, Fx.mod),),
+                        (whole[:, at:at + M],), f"on {fld.name} at M={M}")
+            at += M
             if fld is bls.Fq and (M, zero) in ((1, False),
                                                (NMEMBERS, False)):
+                plain, plain_ms = timed_call(
+                    lambda: fk.mont_pow_plain(x, e, Fx.mod))
+                err = agree("mont_pow", (fk.mont_pow(x, e, Fx.mod),),
+                            (plain,), f"on {fld.name} at M={M}")
+                if M == 1:
+                    root_1 = (x, plain, plain_ms)
                 rows.append(row(
                     "mont_pow", csrc + "mont_mul.cu",
                     "crypto_tpu/ops/pallas/field_kernels.py:386",
@@ -2906,9 +3420,11 @@ def main() -> int:
 
     hr = random.Random(SEED + 4)
     root = {}
-    for M in (1, 16):
-        a = Fq_.pack([hr.randrange(1, bls.P) for _ in range(M)])
-        want = fk.mont_pow_plain(a, e, Fq_.mod)
+    ins = Fq_.pack([hr.randrange(1, bls.P) for _ in range(17)])
+    wants = fk.mont_pow_plain(ins, e, Fq_.mod)       # lane by lane
+    for M, at in ((1, 0), (16, 1)):
+        a = ins[:, at:at + M].contiguous()
+        want = wants[:, at:at + M]
         for kind in ("chain", "mont_pow", "mont_pow", "chain"):
             fn = (lambda: chain(a)) if kind == "chain" else \
                 (lambda: fk.mont_pow(a, e, Fq_.mod))
@@ -3330,8 +3846,10 @@ def main() -> int:
     check_pairing_kernels(PAIRS + 1, "pairing_64")
     for path, lanes in pok_lanes.items():
         check_pairing_kernels(lanes, path)
-    a = Fq_.pack([hr.randrange(1, P)])
-    pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(a, P - 2, Fq_.mod))
+    rows.extend(route_kernel_checks(row, agree, saver_shapes, dev))
+    # the pairing's Fq inverse: one element, as `check_mont_pow`'s root at
+    # M = 1, whose input, plain output and plain time it takes
+    a, pw, pw_ms = root_1
     err = agree("mont_pow", (fk.mont_pow(a, P - 2, Fq_.mod),), (pw,),
                 "at the pairing's inverse")
     rows.append(row(
@@ -3480,27 +3998,6 @@ def main() -> int:
         counted, lambda: device_profile("profile_pairing_64", pairing,
                                         cpu=False))
     phase("per_pairing_64", launches_device_ms_bound_ms=json.dumps(
-        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
-         for k, (cnt, b) in bounds.items() if cnt}))
-
-    # ---- one more BN254 64-pair multi-pairing: the same
-    tp_bn = tpairing_for("bn254", dev)
-
-    def bn_pairing():
-        return tp_bn.multi_pairing(bn_profile_pairs)
-
-    device, bounds = record_work(
-        counted, lambda: device_profile("profile_bn254_pairing_64",
-                                        bn_pairing, cpu=False))
-    phase("per_bn254_pairing_64", launches_device_ms_bound_ms=json.dumps(
-        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
-         for k, (cnt, b) in bounds.items() if cnt}))
-
-    # ---- one more witness update (a): the same for the accumulator
-    device, bounds = record_work(
-        counted, lambda: device_profile("profile_accumulator_update",
-                                        profile_update, cpu=False))
-    phase("per_accumulator_update", launches_device_ms_bound_ms=json.dumps(
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))
 

@@ -17,29 +17,30 @@ BBS+) verifies N items under one public key:
   points), and the pairing legs collapse the same way:
   e(sum r^i A'_i, pk) * e(-sum r^i Abar_i, g2) == 1.
 
-The N-point MSMs run on the device from `DEVICE_MSM_THRESHOLD` points on
-(`ops/msm_v2.py`), the 2-pairing product on the device when
-`CRYPTO_TPU_PAIRING_BACKEND=device` (`curves/tpairing.py`), else on the
-host.  Signatures, proofs, keys and params are read by attribute.  Both
+The N-point MSMs run on the device from `utils/msm.py`'s
+`DEVICE_MSM_THRESHOLD` points on (`ops/msm_v2.py`), the 2-pairing product through
+`curves/tpairing.py` `multi_pairings_routed`: on the host (a 2-pair
+product is far below the router's threshold), so on the device only when
+`CRYPTO_TPU_PAIRING_BACKEND` names another backend than "host" (the
+chip's phases set "device").  Signatures, proofs, keys and params are read by attribute.  Both
 run on `device`, CUDA unless the caller names the CPU, and raise without
 a card.
 """
 
 from __future__ import annotations
 
-import os
 import random as _random
 
 from .. import resolve_device
 from ..curves import bls12_381 as bls
-from ..curves.tpairing import tpairing_for
+from ..curves.tpairing import multi_pairings_routed
 from ..ops.msm_v2 import msm_device_scheduled
 from ..utils.checkers import RandomizedMultChecker
+from ..utils.msm import DEVICE_MSM_THRESHOLD
 from ..utils.msm import msm as msm_host
 from .signature import BBSPlusError
 
 Fr = bls.Fr
-DEVICE_MSM_THRESHOLD = 256
 
 
 def _msm(points, scalars, device):
@@ -117,6 +118,4 @@ def batch_verify_proofs(proofs: list, revealed_list: list, challenges: list,
 
 
 def _multi_pairing(pairs, device):
-    if os.environ.get("CRYPTO_TPU_PAIRING_BACKEND") == "device":
-        return tpairing_for("bls12_381", device).multi_pairing(pairs)
-    return bls.multi_pairing(pairs)
+    return multi_pairings_routed([pairs], device)[0]

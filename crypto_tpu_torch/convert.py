@@ -18,27 +18,26 @@ as integers (`carry_point` builds the same point on a curve of the other
 package; `carry_pairs` for (G1, G2) pairs), a host Fq12 element as its
 nested ints (`carry_fp12`), a LegoGroth16 proving key field by field
 onto the port's curve module of its curve (`proving_key_to_port`), a
-proof as the integers that rebuild it (`proof_ints`), and the BBS+, BBS23
-and Schnorr objects (params, keys, signatures, PoK proofs with their
-`PokPedersenCommitment` and `SchnorrResponse` parts, Schnorr proofs) as
-the port's classes of the same names (`protocol_to_port`).
+proof as the integers that rebuild it (`proof_ints`), and the protocol
+objects (the BBS+, BBS23 and Schnorr params, keys, signatures and proofs;
+LegoGroth16 keys and proofs; SAVER's generators, keys and ciphertexts;
+SnarkPack's SRSs and `AggregateProof`; cp_link's `LinkKeys`) as the
+port's classes of the same names in the port's modules of the same names
+(`protocol_to_port`).  `canonical` reads an object of either package as
+plain nested tuples of ints, so two objects compare element by element.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .bbs_plus import bbs23
-from .bbs_plus import proof as bbs_proof
-from .bbs_plus import setup as bbs_setup
-from .bbs_plus import signature as bbs_signature
 from .curves import bls12_381 as bls
 from .legogroth16 import snark
-from .schnorr import discrete_log, generalized
 
 JAX_LIMB_BITS = 15
 
@@ -236,27 +235,44 @@ def proof_ints(proof) -> dict:
     return {k: point_ints(getattr(proof, k)) for k in ("a", "b", "c", "d")}
 
 
-_PROTOCOL_MODULES = (bbs_setup, bbs_signature, bbs_proof, bbs23,
-                     discrete_log, generalized)
 _PORT_FIELDS = {bls.Fr.p: bls.Fr, bls.Fq.p: bls.Fq}
+_REFERENCE = "crypto_tpu."
+
+
+def _port_class(obj):
+    """The port's class of the same name as `obj`'s, in the port's module
+    of the same name (`crypto_tpu.saver.core` -> `crypto_tpu_torch.saver.
+    core`)."""
+    mod, name = type(obj).__module__, type(obj).__name__
+    if not mod.startswith(_REFERENCE):
+        raise TypeError(f"{name} is not a class of the reference package")
+    port = importlib.import_module(
+        "crypto_tpu_torch." + mod[len(_REFERENCE):])
+    cls = getattr(port, name, None)
+    if cls is None:
+        raise TypeError(f"the port has no protocol class {name}")
+    return cls
+
+
+def _is_fp12(obj) -> bool:
+    return hasattr(obj, "c1") and hasattr(getattr(obj, "c0", None), "c2")
 
 
 def protocol_to_port(obj):
-    """A BBS+, BBS23 or Schnorr object of the reference (params, keys,
-    signatures, proofs, protocols) as the port's object of the class of the
-    same name, field by field: points through `carry_point` onto the port's
-    BLS12-381, field elements by value, lists, tuples and dicts item by
-    item; ints, bools and None as they are."""
+    """A protocol object of the reference (params, keys, signatures,
+    proofs, protocols, ciphertexts, SRSs) as the port's object of the class
+    of the same name, field by field: points through `carry_point` onto the
+    port's BLS12-381, GT elements through `carry_fp12`, field elements by
+    value, lists, tuples and dicts item by item; ints, bools and None as
+    they are."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        name = type(obj).__name__
-        cls = next((getattr(m, name) for m in _PROTOCOL_MODULES
-                    if hasattr(m, name)), None)
-        if cls is None:
-            raise TypeError(f"the port has no protocol class {name}")
-        return cls(**{f.name: protocol_to_port(getattr(obj, f.name))
-                      for f in dataclasses.fields(obj)})
+        return _port_class(obj)(**{
+            f.name: protocol_to_port(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
     if hasattr(obj, "curve") and hasattr(obj, "Z"):
         return carry_point(obj, _port_curve(obj, bls))
+    if _is_fp12(obj):
+        return carry_fp12(obj, bls.Fq12)
     if hasattr(obj, "f") and hasattr(obj, "v"):
         return _PORT_FIELDS[obj.f.p](int(obj))
     if isinstance(obj, (list, tuple)):
@@ -266,3 +282,30 @@ def protocol_to_port(obj):
     if obj is None or isinstance(obj, (bool, int)):
         return obj
     raise TypeError(f"cannot carry a {type(obj).__name__} to the port")
+
+
+def canonical(obj):
+    """An object of either package as plain nested tuples: a dataclass as
+    its class name and fields, a point as its affine coordinate ints (or
+    "inf"), a GT element as `fp12_ints`, a field element as its int, lists
+    and tuples item by item.  Equal objects of the two packages give equal
+    values."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,) + tuple(
+            (f.name, canonical(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj))
+    if hasattr(obj, "curve") and hasattr(obj, "Z"):
+        if obj.is_infinity():
+            return "inf"
+        return tuple(_coord_ints(c) for c in obj.to_affine())
+    if _is_fp12(obj):
+        return fp12_ints(obj)
+    if hasattr(obj, "f") and hasattr(obj, "v"):
+        return int(obj)
+    if isinstance(obj, (list, tuple)):
+        return tuple(canonical(x) for x in obj)
+    if isinstance(obj, dict):
+        return tuple(sorted((k, canonical(v)) for k, v in obj.items()))
+    if obj is None or isinstance(obj, (bool, int, bytes)):
+        return obj
+    raise TypeError(f"no canonical form for a {type(obj).__name__}")

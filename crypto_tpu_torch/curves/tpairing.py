@@ -11,6 +11,13 @@ the last axis: the Miller loop is a static loop over the bits of |x| (63
 doubling steps, the addition steps where a bit is set, no selects), each
 step over all pairs at once, every pair's value kept apart; `product`
 multiplies them up a log-depth tree, then one final exponentiation.
+`multi_pairings` takes k independent lists of pairs as one batch (one
+Miller loop over all their pairs, a tree product along each list, one
+final exponentiation over the k products), so the host dispatch of a
+pairing is paid once for all of them; `multi_pairings_routed` sends a
+call to the host pairing instead when its weight (its pairs, and
+`HOST_GROUP_PAIRS` for each product's final exponentiation) stays below
+`PAIRING_BATCH_THRESHOLD`.
 Pairs with a point at infinity are inactive lanes whose lines are masked
 to (1, 0, 0), so they contribute the identity.
 
@@ -27,6 +34,8 @@ Every entry point runs on `device`: CUDA unless the caller names the CPU
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -181,8 +190,8 @@ class TPairing:
         return F12.conjugate(f)                          # x < 0
 
     def product(self, fs: torch.Tensor) -> torch.Tensor:
-        """The product of a (12L, n) batch, n >= 1, up a log-depth tree
-        (the odd element carried to the next level)."""
+        """The product along axis 1 of a (12L, n, ...) batch, n >= 1, up a
+        log-depth tree (the odd element carried to the next level)."""
         n = fs.shape[1]
         while n > 1:
             half = n // 2
@@ -223,21 +232,44 @@ class TPairing:
     # host pairs in, host Fp12 out
     # ------------------------------------------------------------------
 
+    def _pack_groups(self, groups):
+        """k lists of host pairs as one batch of m k lanes, m the longest
+        list's length: lane j k + g holds pair j of group g, and a shorter
+        group's missing pairs are inactive lanes (a pair at infinity)."""
+        k, m = len(groups), max(1, max(len(g) for g in groups))
+        idle = (self.mod.G1.infinity(), self.mod.G2.infinity())
+        return self.pack_pairs([groups[g][j] if j < len(groups[g]) else idle
+                                for j in range(m) for g in range(k)]), m, k
+
+    def miller_products(self, groups) -> torch.Tensor:
+        """The product of each group's Miller values, (12L, k), no final
+        exponentiation: one Miller loop over all the groups' pairs, viewed
+        as (12L, m, k) and multiplied up a tree along m."""
+        packed, m, k = self._pack_groups(groups)
+        return self.product(self.miller_loop_batch(*packed).unflatten(1,
+                                                                       (m, k)))
+
+    def multi_pairings(self, groups) -> list:
+        """[prod e(P_i, Q_i) over each list of host pairs], host Fp12
+        values, each equal to the host `multi_pairing` of its list: one
+        batched Miller loop over every pair and one final exponentiation
+        over the k products."""
+        if not any(groups):
+            return [self.mod.Fq12.one() for _ in groups]
+        f = self.final_exponentiation(self.miller_products(groups))
+        return list(self.t12.unpack_host(f))
+
     def miller_product(self, pairs):
         """The product of the pairs' Miller values as a host Fp12, no final
         exponentiation: what `RandomizedPairingChecker` accumulates."""
         if not pairs:
             return self.mod.Fq12.one()
-        f = self.product(self.miller_loop_batch(*self.pack_pairs(pairs)))
-        return self.t12.unpack_host(f)
+        return self.t12.unpack_host(self.miller_products([pairs])[:, 0])
 
     def multi_pairing(self, pairs):
         """prod e(P_i, Q_i) over host pairs, as a host Fp12, equal to the
-        host `multi_pairing`."""
-        if not pairs:
-            return self.mod.Fq12.one()
-        f = self.product(self.miller_loop_batch(*self.pack_pairs(pairs)))
-        return self.t12.unpack_host(self.final_exponentiation(f))
+        host `multi_pairing`: `multi_pairings` of one group."""
+        return self.multi_pairings([pairs])[0]
 
     def pairing(self, p: Point, q: Point):
         return self.multi_pairing([(p, q)])
@@ -381,3 +413,42 @@ def tpairing_for(mod_name: str = "bls12_381", device="cuda") -> TPairing:
         _CACHE[key] = TPairing(bls12_381, dev) if mod_name == "bls12_381" \
             else TPairingBN(bn254, dev)
     return _CACHE[key]
+
+
+# Where `multi_pairings_routed` sends a call.  On the card's host the host
+# loop costs 0.020-0.031 s a pair (its Miller loop) and 0.085-0.113 s a
+# group (its final exponentiation), so a group weighs HOST_GROUP_PAIRS
+# pairs; one batched device call costs 4.4-4.7 s whatever its shape (it
+# is bound by host dispatch).  From PAIRING_BATCH_THRESHOLD weighted
+# pairs on the device is the faster: the weight of 32 groups of two
+# pairs, where two runs of `python3 -m crypto_tpu_torch.time_pairing_route`
+# found the two routes level (PERF.md).
+HOST_GROUP_PAIRS = 4
+PAIRING_BATCH_THRESHOLD = 192
+
+
+def pairing_route(npairs: int, ngroups: int = 1) -> str:
+    """"host" or "device": where `multi_pairings_routed` sends a call of
+    `ngroups` products over `npairs` pairs in all.
+    `CRYPTO_TPU_PAIRING_BACKEND=host` keeps every call on the host, any
+    other value sends every call to the device, as in `utils/checkers.py`;
+    unset, the device takes the calls whose weight, npairs +
+    `HOST_GROUP_PAIRS` ngroups, reaches `PAIRING_BATCH_THRESHOLD`."""
+    backend = os.environ.get("CRYPTO_TPU_PAIRING_BACKEND")
+    if backend == "host" or (backend is None and npairs + HOST_GROUP_PAIRS
+                             * ngroups < PAIRING_BATCH_THRESHOLD):
+        return "host"
+    return "device"
+
+
+def multi_pairings_routed(groups, device="cuda") -> list:
+    """[prod e(P_i, Q_i) over each list of BLS12-381 host pairs] as host
+    Fp12 values, by `pairing_route`: through `TPairing.multi_pairings` on
+    `device` (CUDA unless the caller names the CPU; raises without a
+    card), or the host `multi_pairing` of each list."""
+    from . import bls12_381
+    dev = resolve_device(device)
+    groups = [list(g) for g in groups]
+    if pairing_route(sum(map(len, groups)), len(groups)) == "host":
+        return [bls12_381.multi_pairing(g) for g in groups]
+    return tpairing_for("bls12_381", dev).multi_pairings(groups)

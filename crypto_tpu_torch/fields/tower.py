@@ -13,7 +13,8 @@ generic over the coefficient field.  This is the port's ground truth; the
 batched path lives in `crypto_tpu_torch.fields.ttower`.  The Fq2 square
 root and sign (`Fp2.sqrt`, `is_gt_half`) serve hashing to G2
 (`crypto_tpu_torch/hashing.py`); `Fp2.to_bytes_le` and
-`QuadExtField.from_bytes_le` (arkworks' c0 || c1) serve `serialize.py`.
+`QuadExtField.from_bytes_le` (arkworks' c0 || c1) serve `serialize.py`,
+`Fp12.to_bytes_le` the transcript (`transcript/transcript.py`).
 """
 
 from __future__ import annotations
@@ -471,3 +472,12 @@ class Fp12:
 
     def __repr__(self):
         return f"Fp12({self.c0}, {self.c1})"
+
+    def to_bytes_le(self) -> bytes:
+        """The six Fq2 coefficients' `to_bytes_le`, c0's then c1's: the
+        bytes a transcript takes of a GT element."""
+        out = b""
+        for c6 in (self.c0, self.c1):
+            for c2 in (c6.c0, c6.c1, c6.c2):
+                out += c2.to_bytes_le()
+        return out

@@ -34,7 +34,8 @@ The device work: the NTTs (`ops/ntt.py`), the query MSMs from
 `DEVICE_MSM_THRESHOLD` points on (`ops/msm_v2.py`, each query packed once
 and kept on the device in `ProvingKey.device_cache`) and the CRS's
 fixed-base products from `DEVICE_FIXED_BASE_THRESHOLD` scalars on
-(`ops/fixed_base.py`).  Below the thresholds the host does the work.
+(`ops/fixed_base.py`), normalised there by one batched inversion a query
+before they come to the host.  Below the thresholds the host does the work.
 Every entry point of the generator and the prover runs on `device`,
 CUDA unless the caller names the CPU, and raises without a card; the
 verifier and the rerandomisations are host code, as in the reference.
@@ -115,17 +116,35 @@ def _msm_query(pk: "ProvingKey", name: str, scalars, offset: int = 0,
 
 def _fixed_base_many(base: Point, scalars, device="cuda") -> list:
     """[base * s for s in scalars]: from `DEVICE_FIXED_BASE_THRESHOLD`
-    scalars on through the base's device window table."""
+    scalars on through the base's device window table, normalised there
+    (`_affine_host`)."""
     dev = resolve_device(device)
     if len(scalars) >= DEVICE_FIXED_BASE_THRESHOLD:
-        return table_for(base.curve, base, device=dev).mul_many_host(
-            [int(s) for s in scalars])
+        table = table_for(base.curve, base, device=dev)
+        return _affine_host(table.tc, table.mul_many([int(s)
+                                                      for s in scalars]))
     return multiply_field_elems_with_same_group_elem(base, scalars, dev)
 
 
+def _affine_host(tc, pts: TPoints) -> list:
+    """Device points as host points with Z = 1 (infinity as infinity): the
+    normalisation on the device (`TCurve.to_affine`, one batched Fermat
+    inversion), then one unpack of x and y.  The same points as the host
+    `normalize` of each."""
+    a = tc.to_affine(pts)
+    xs, ys = (np.atleast_1d(tc.F.unpack_host(t)).reshape(-1)
+              for t in (a.X, a.Y))
+    inf = a.inf.reshape(-1).tolist()
+    curve = tc.curve
+    one = curve.K.one()
+    return [curve.infinity() if i else Point(x, y, one, curve)
+            for x, y, i in zip(xs, ys, inf)]
+
+
 def _normalized(points) -> list:
-    """The points with Z = 1 (or infinity), on the host."""
-    return [q.normalize() for q in points]
+    """The points with Z = 1 (or infinity), on the host; points that
+    already have Z = 1 (`_affine_host`'s) are taken as they are."""
+    return [q if q.Z.is_one() else q.normalize() for q in points]
 
 
 @dataclass

@@ -1,10 +1,50 @@
-"""Host polynomial helpers: the port's own copy of the parts of
-`crypto_tpu/utils/ff.py` (reference `utils/src/ff.rs`,
-`utils/src/poly.rs`) that the accumulator uses."""
+"""Host field-vector and polynomial helpers: the port's own copy of the
+parts of `crypto_tpu/utils/ff.py` (reference `utils/src/ff.rs`,
+`utils/src/poly.rs`) that the accumulator, SAVER and the aggregation
+use."""
 
 from __future__ import annotations
 
 from ..fields.host import Fp
+
+
+def inner_product(a, b) -> Fp:
+    assert len(a) == len(b) and len(a) > 0
+    acc = a[0] * b[0]
+    for x, y in zip(a[1:], b[1:]):
+        acc = acc + x * y
+    return acc
+
+
+def powers(x: Fp, n: int):
+    """[1, x, x^2, ..., x^(n-1)]"""
+    out = [x.f.one()]
+    for _ in range(n - 1):
+        out.append(out[-1] * x)
+    return out
+
+
+def powers_starting_from(start: Fp, x: Fp, n: int):
+    """[start, start x, ..., start x^(n-1)]"""
+    out = [start]
+    for _ in range(n - 1):
+        out.append(out[-1] * x)
+    return out
+
+
+def scale(vec, s: Fp):
+    return [v * s for v in vec]
+
+
+def add_vecs(a, b):
+    return [x + y for x, y in zip(a, b)]
+
+
+def sum_vec(vec):
+    acc = vec[0]
+    for v in vec[1:]:
+        acc = acc + v
+    return acc
 
 
 def poly_eval(coeffs, x: Fp) -> Fp:

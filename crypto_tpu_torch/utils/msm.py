@@ -5,7 +5,9 @@ These serve protocol-sized inputs (tens to hundreds of points) on the
 host.  Above `DEVICE_FIXED_BASE_THRESHOLD` scalars,
 `multiply_field_elems_with_same_group_elem` runs on the device table of
 `ops/fixed_base.py`; large variable-base MSMs go to
-`ops/msm_v2.msm_device_scheduled` at their call sites.
+`ops/msm_v2.msm_device_scheduled` at their call sites: those over host
+points (the BBS+ batch verifier's, SnarkPack's) from
+`DEVICE_MSM_THRESHOLD` points on.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ import math
 from .. import resolve_device
 from ..curves.sw import Point
 from ..ops.fixed_base import table_for
+
+# from this many host points on, an MSM goes to the device
+DEVICE_MSM_THRESHOLD = 256
 
 
 def msm(points: list, scalars) -> Point:

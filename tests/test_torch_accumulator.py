@@ -36,6 +36,9 @@ from crypto_tpu_torch.accumulator.persistence import InMemoryState as TState
 from crypto_tpu_torch.convert import carry_point, point_ints
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.utils import ff as tff
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ENV = ("CRYPTO_TPU_FORCE_DEVICE_ACCUM", "CRYPTO_TPU_NO_DEVICE_ACCUM")
 

@@ -30,6 +30,9 @@ from crypto_tpu_torch.accumulator.setup import AccumSecretKey as TSecretKey
 from crypto_tpu_torch.convert import carry_point, point_ints
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.fields.tfield import tfield_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 FORCE, NO = "CRYPTO_TPU_FORCE_DEVICE_ACCUM", "CRYPTO_TPU_NO_DEVICE_ACCUM"
 R = tb.R

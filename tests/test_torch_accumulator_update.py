@@ -20,6 +20,9 @@ from crypto_tpu_torch.accumulator import device_update as tdu
 from crypto_tpu_torch.convert import point_ints
 from crypto_tpu_torch.curves import bls12_381 as tb
 from test_torch_accumulator_device import port_args, update_inputs
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 @pytest.mark.parametrize("n_add,n_rem", [(4, 0), (0, 3)],

@@ -35,6 +35,9 @@ from crypto_tpu_torch.bbs_plus import setup as tsetup
 from crypto_tpu_torch.convert import protocol_to_port
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.utils import checkers as tcheckers
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ENV = "CRYPTO_TPU_PAIRING_BACKEND"
 REF = SimpleNamespace(b=jb, m=j23, setup=jsetup, ser=js, h=jh)

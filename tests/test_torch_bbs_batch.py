@@ -40,6 +40,10 @@ from crypto_tpu.serialize import ByteWriter
 from crypto_tpu_torch.bbs_plus import batch as tbatch
 from crypto_tpu_torch.convert import carry_point, protocol_to_port
 from crypto_tpu_torch.curves import bls12_381 as tb
+from crypto_tpu_torch.curves import tpairing
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ENV = "CRYPTO_TPU_PAIRING_BACKEND"
 N, MSGS = 6, 4
@@ -102,17 +106,18 @@ def test_batch_verify_host_pairing_vs_reference(signed, what, monkeypatch):
 @pytest.mark.parametrize("what", ["valid", "e"])
 def test_batch_verify_device_pairing_vs_reference(signed, what,
                                                   monkeypatch):
-    """The 2-pairing product through `TPairing` on the CPU."""
+    """The 2-pairing product through `TPairing` on the CPU (the port's
+    router, `multi_pairings_routed`, sends it there under "device")."""
     monkeypatch.setenv(ENV, "device")
     monkeypatch.setattr(jbatch, "_multi_pairing", jb.multi_pairing)
     calls = []
-    real = tbatch.tpairing_for
+    real = tpairing.tpairing_for
 
     def counted(name, device):
         calls.append(device)
         return real(name, device)
 
-    monkeypatch.setattr(tbatch, "tpairing_for", counted)
+    monkeypatch.setattr(tpairing, "tpairing_for", counted)
     ref, port = _both(*_spoil(signed, what))
     assert ref is port is (what == "valid")
     assert len(calls) == 1 and calls[0].type == "cpu"

@@ -42,6 +42,9 @@ from crypto_tpu_torch.bbs_plus import signature as tsig
 from crypto_tpu_torch.convert import protocol_to_port
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.utils import checkers as tcheckers
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "parity_vectors.json")

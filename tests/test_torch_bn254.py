@@ -29,6 +29,9 @@ from crypto_tpu_torch.fields.ttower import tcubic_for, tfield12_for, \
     tquad_for
 from crypto_tpu_torch.ops.fixed_base import table_for
 from crypto_tpu_torch.ops.ntt import domain_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 P, R = tbn.P, tbn.R
 FIELDS = {"Fq": (jbn.Fq, tbn.Fq), "Fr": (jbn.Fr, tbn.Fr)}

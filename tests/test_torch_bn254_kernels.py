@@ -30,6 +30,9 @@ from crypto_tpu_torch.fields.ttower import tquad_for
 from crypto_tpu_torch.ops import msm_v2
 from crypto_tpu_torch.ops.kernels import curve_kernels as ck
 from crypto_tpu_torch.ops.kernels import field_kernels as fk
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F = tfield_for(tbn.Fq, "cpu")

@@ -26,6 +26,9 @@ from crypto_tpu.ops import msm_v2 as jm
 from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bn254 as tbn
 from crypto_tpu_torch.ops import msm_v2 as tm
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 N, C, NBITS = 16, 8, 16
 

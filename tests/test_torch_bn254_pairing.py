@@ -26,6 +26,9 @@ from crypto_tpu_torch.curves import bls12_381 as tbl
 from crypto_tpu_torch.curves import bn254 as tbn
 from crypto_tpu_torch.curves.tpairing import TPairing, TPairingBN, \
     tpairing_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TP = tpairing_for("bn254", "cpu")
 

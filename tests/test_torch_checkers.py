@@ -19,6 +19,9 @@ from crypto_tpu.utils import checkers as jc
 from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.utils import checkers as tc
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 R = tb.R
 ENV = "CRYPTO_TPU_PAIRING_BACKEND"

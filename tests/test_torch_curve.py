@@ -18,6 +18,9 @@ from crypto_tpu.curves.jcurve import JPoints, jcurve_for
 from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.curves.tcurve import TPoints, tcurve_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 rng = random.Random(41)
 JC = jcurve_for(jb.G1)

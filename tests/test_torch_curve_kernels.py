@@ -24,6 +24,9 @@ from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.fields.tfield import tfield_for
 from crypto_tpu_torch.ops import msm_v2
 from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 rng = random.Random(23)
 JF = jfield_for(jb.Fq)

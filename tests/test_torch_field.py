@@ -18,6 +18,9 @@ from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.fields.tfield import tfield_for
 from crypto_tpu_torch.ops.kernels.field_kernels import mont_mul
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 FIELDS = {"Fq": (jb.Fq, tb.Fq), "Fr": (jb.Fr, tb.Fr)}
 

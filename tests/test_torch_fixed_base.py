@@ -24,6 +24,9 @@ from crypto_tpu_torch.curves.tcurve import TPoints, tcurve_for
 from crypto_tpu_torch.ops import fixed_base
 from crypto_tpu_torch.ops.fixed_base import FixedBaseTable, table_for
 from crypto_tpu_torch.utils import msm as umsm
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 R = tb.R
 rng = random.Random(91)

@@ -17,6 +17,9 @@ import pytest
 import torch
 
 from crypto_tpu_torch.ops.kernels import field_kernels as fk
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, M, C = 300, 2048, 26

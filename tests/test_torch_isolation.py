@@ -10,6 +10,9 @@ from pathlib import Path
 
 import pytest
 import torch
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -35,11 +38,15 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 51
+    assert n >= 63
     for name in ("curves.bn254", "serialize", "hashing",
                  "schnorr.discrete_log", "schnorr.generalized",
                  "bbs_plus.setup", "bbs_plus.signature", "bbs_plus.proof",
-                 "bbs_plus.batch", "bbs_plus.bbs23"):
+                 "bbs_plus.batch", "bbs_plus.bbs23", "transcript.keccak",
+                 "transcript.strobe", "transcript.merlin",
+                 "transcript.transcript", "utils.elgamal", "saver.core",
+                 "saver.lego", "legogroth16.aggregation", "legogroth16.link",
+                 "legogroth16.bound_check"):
         assert f"crypto_tpu_torch.{name}" in out.stdout
 
 
@@ -345,6 +352,57 @@ def _accum_coeffs():
     batch_utils.poly_v_D_coeffs([tb.Fr(3)], tb.Fr(5))
 
 
+def _multi_pairings_routed():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.curves.tpairing import multi_pairings_routed
+    multi_pairings_routed([[(tb.G1.generator(), tb.G2.generator())]])
+
+
+def _saver_generate_srs():
+    import random
+    from crypto_tpu_torch.saver import core
+    core.generate_srs(8, None, random.Random(1))
+
+
+def _saver_decrypt():
+    from types import SimpleNamespace
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.saver import core
+    G1, G2 = tb.G1.generator(), tb.G2.generator()
+    core.decrypt(core.Ciphertext(G1, [G1], G1), core.SaverSecretKey(tb.Fr(2)),
+                 core.DecryptionKey(G2, [G2], [G2]), [G1], 8)
+
+
+def _saver_lego_generate_srs():
+    import random
+    from crypto_tpu_torch.saver import lego
+    lego.generate_srs(8, None, random.Random(1))
+
+
+def _aggregate_proofs():
+    from crypto_tpu_torch.legogroth16 import aggregation
+    from crypto_tpu_torch.transcript.transcript import Transcript
+    aggregation.aggregate_proofs(None, Transcript(b"t"), [])
+
+
+def _verify_aggregate_proof():
+    from crypto_tpu_torch.legogroth16 import aggregation
+    aggregation.verify_aggregate_proof(None, None, [], None, None, None)
+
+
+def _bound_check_srs():
+    import random
+    from crypto_tpu_torch.legogroth16 import bound_check
+    bound_check.generate_snark_srs_bound_check(random.Random(1))
+
+
+def _cp_link_proof():
+    import random
+    from crypto_tpu_torch.legogroth16 import link
+    link.create_proof_incl_cp_link(_square_circuit, _lego_pk(), None,
+                                   random.Random(1))
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -365,7 +423,13 @@ def _accum_coeffs():
                                    _accum_coeffs, _msm_bn254, _msm_bn254_g2,
                                    _tpairing_for_bn254, _tpairing_bn,
                                    _tcubic_for_bn254,
-                                   _generate_random_parameters_bn254],
+                                   _generate_random_parameters_bn254,
+                                   _multi_pairings_routed,
+                                   _saver_generate_srs, _saver_decrypt,
+                                   _saver_lego_generate_srs,
+                                   _aggregate_proofs,
+                                   _verify_aggregate_proof,
+                                   _bound_check_srs, _cp_link_proof],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""

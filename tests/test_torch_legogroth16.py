@@ -23,6 +23,9 @@ from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.legogroth16 import snark as tsnark
 from crypto_tpu_torch.ops.ntt import domain_for
 from crypto_tpu_torch.r1cs import cs as tcs
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 NC = 12
 R = tb.R

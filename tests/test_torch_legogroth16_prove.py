@@ -29,6 +29,9 @@ from crypto_tpu_torch.curves.tcurve import tcurve_for
 from crypto_tpu_torch.legogroth16 import snark as tsnark
 from crypto_tpu_torch.r1cs import cs as tcs
 from test_torch_legogroth16 import NC, TRAPDOORS, X0, chain_circuit
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def public_input(F) -> list:

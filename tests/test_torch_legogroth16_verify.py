@@ -37,6 +37,9 @@ from crypto_tpu_torch.legogroth16 import snark as tsnark
 from crypto_tpu_torch.r1cs import cs as tcs
 from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
 from test_torch_legogroth16 import NC, TRAPDOORS, X0, chain_circuit
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 CURVES = {"bls12_381": (rb, tb), "bn254": (rbn, tbn)}
 

@@ -16,6 +16,9 @@ from crypto_tpu.curves import bls12_381 as jb
 from crypto_tpu.ops import msm_v2 as jm
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.ops import msm_v2 as tm
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 rng = random.Random(61)
 

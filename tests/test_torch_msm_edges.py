@@ -14,6 +14,9 @@ import torch
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.ops import msm_v2 as tm
 from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 rng = random.Random(71)
 G = tb.G1.generator()

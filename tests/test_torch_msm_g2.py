@@ -22,6 +22,9 @@ from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.ops import msm_v2 as tm
 from crypto_tpu_torch.ops.kernels import curve_kernels as ck
 from crypto_tpu_torch.ops.kernels import field_kernels as fk
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 N, C, NBITS = 16, 8, 16
 G1_LEVEL = ("affine_level_pre", "affine_level_post", "chunked_level_prefix",

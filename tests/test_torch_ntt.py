@@ -24,6 +24,9 @@ from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.legogroth16.snark import qap_h
 from crypto_tpu_torch.ops.ntt import NTTDomain, _bit_reverse_perm, \
     domain_for, poly_mul_ntt
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R = tb.R

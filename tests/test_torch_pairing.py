@@ -18,6 +18,9 @@ from crypto_tpu.curves import bls12_381 as jb
 from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.curves.tpairing import TPairing, tpairing_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 TP = tpairing_for("bls12_381", "cpu")
 

@@ -16,6 +16,9 @@ from crypto_tpu.curves.jpairing import jpairing_for
 from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.curves.tpairing import tpairing_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 
 def test_multi_pairing_vs_jpairing():

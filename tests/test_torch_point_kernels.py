@@ -30,6 +30,9 @@ from crypto_tpu_torch.curves.tcurve import TPoints, tcurve_for
 from crypto_tpu_torch.fields.tfield import tfield_for
 from crypto_tpu_torch.ops.kernels import build
 from crypto_tpu_torch.ops.kernels import point_kernels as pk
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC = tcurve_for(tb.G1, "cpu")

@@ -36,6 +36,9 @@ from crypto_tpu_torch.ops.kernels.field_kernels import (POW_WORDS,
                                                         mont_mul_plain,
                                                         mont_pow,
                                                         mont_pow_plain)
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 FIELDS = {"Fq": (jb.Fq, tb.Fq), "Fr": (jb.Fr, tb.Fr),
           "bn254.Fq": (jbn.Fq, tbn.Fq)}

@@ -19,6 +19,9 @@ from crypto_tpu.curves.jcurve import jcurve_for
 from crypto_tpu_torch.convert import carry_point
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.curves.tcurve import tcurve_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 NBITS = 16
 

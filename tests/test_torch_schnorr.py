@@ -36,6 +36,9 @@ from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.schnorr import discrete_log as tdl
 from crypto_tpu_torch.schnorr import generalized as tgen
 from crypto_tpu_torch.utils.checkers import RandomizedMultChecker
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "parity_vectors.json")

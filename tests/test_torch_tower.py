@@ -18,6 +18,9 @@ from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.curves.tcurve import tcurve_for
 from crypto_tpu_torch.fields.ttower import TQuadField, tquad_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 P = tb.P
 F = tquad_for(tb.Fq2, "cpu")

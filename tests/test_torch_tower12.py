@@ -19,6 +19,9 @@ from crypto_tpu_torch import convert
 from crypto_tpu_torch.curves import bls12_381 as tb
 from crypto_tpu_torch.fields.ttower import tcubic_for, tfield12_for, \
     tquad_for
+from crypto_tpu_torch.testing import cap_threads
+
+cap_threads()
 
 P = tb.P
 N = 4
