@@ -12,8 +12,8 @@ before it and read just after:
 * the 2^20 MSM (c = 16, full-range 255-bit scalars) through
   `msm_device_scheduled` on its default doubling-free levels, two timed
   runs, each checked against the known discrete logs, none rerun (then,
-  outside the counted paths, two runs each of `safe=True` and the
-  default in turns);
+  outside the counted paths, one run each of `safe=True` and the
+  default);
 * the rerun path: the same MSM with one base duplicated and the digits set
   so that the pair collides in one window's bucket; the flagged windows
   must be exactly those that share a spoiled chunk, and they are rerun
@@ -66,8 +66,8 @@ before it and read just after:
   deferred pairs), valid and with one signature spoiled;
 * BASELINE config 4, SAVER at 8-bit chunks (`saver_config4`): a BBS+
   signature over 8 messages, the SAVER CRS and keys, every message
-  encrypted with a proof and both ciphertext checks passed, every
-  ciphertext decrypted on the card through the batched multi-pairing
+  encrypted with a proof and both ciphertext checks passed, three
+  ciphertexts decrypted on the card through the batched multi-pairing
   (each timed and equal to its message), two decryptions verified, a
   changed chunk and a wrong message rejected, one decryption on the host
   route; then SnarkPack on the router's own choice: the 8 SAVER proofs
@@ -84,19 +84,36 @@ before it and read just after:
   by phase and held to V_new / (y + alpha) from the fixed-base table, its
   d factors to host integers, 16 members to the host branch and two by
   pairing;
+* the composite proof system (`proof_system_composite`): one `ProofSpec`
+  over a BBS+ credential of 32 messages (4 revealed), VB membership
+  (CDH) of its user id in the 2^14-element accumulator above, the
+  original VB membership statement on the same accumulator, a Pedersen
+  commitment to the user id, SAVER encryption of it at 8-bit chunks
+  under `saver_config4`'s CRS and keys, and a LegoGroth16 bound check of
+  the age in [18, 128) under `legogroth16_aggregate_8`'s key, the user id
+  linked across five statements; `Proof.new` timed, `Proof.verify` with
+  no checker, with the lazy `RandomizedPairingChecker` (its deferred
+  pairs in one device Miller product: mont_mul, fq2_mul and fq2_sqr must
+  launch) and with the eager one, each timed; a wrong nonce, a broken
+  witness equality, a changed SAVER ciphertext and an out-of-range age
+  rejected; the auditor's decryption on the card equal to the user id;
+  every kernel it launched held to its plain version at every width it
+  gave it;
 * BN254 at the reference's sizes, every kernel at its 8-limb
-  instantiation: 2^20 G1 bench points with known logs (the total
-  `TCurve` ops), two timed 2^20 MSMs at c = 16 on the fast levels, one
+  instantiation: 2^20 G1 bench points with known logs (two full adds
+  and a normalize, `make_add_fns` and `make_normalize_fn` at 8 limbs),
+  two timed 2^20 MSMs at c = 16 on the fast levels, one
   `safe=True`, the rerun path (one duplicated base: exactly the spoiled
   windows rerun) and the G1 and G2 edge MSMs; the LegoGroth16 setup,
   warm-up, one timed and one profiled prove of the 2^12 - 4 constraint
   chain circuit over BN254 Fr (each checked in the exponent), and the
   port's verifier on a proof (valid, spoiled input and C rejected, D
   opened, both rerandomisations verified); the 64-pair `TPairingBN`
-  multi-pairing, cold and once timed, against e(G1, G2)^(sum a_i b_i)
-  from the host pairing; the BN254 paths together must launch every
-  8-limb instantiation and no point kernel.  The BLS12-381 prove phase
-  also runs the port's verifier (`legogroth16_verify`).
+  multi-pairing, once, timed, against e(G1, G2)^(sum a_i b_i) from the
+  host pairing; the BN254 paths together must launch every 8-limb
+  instantiation, and only the bench points a point kernel.  The
+  BLS12-381 prove phase also runs the port's verifier
+  (`legogroth16_verify`).
 
 Every MSM builds its two point-major slot tables with the table kernel,
 once, and lays out its bucket slots from them through the row gather
@@ -117,13 +134,14 @@ mont_pow also at the witness update's to_affine; every 8-limb
 instantiation at the BN254 paths' shapes, the same way), times the fast
 down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
-call down to 16 elements, profiles one more 2^20 G1 MSM on each
-formula and one more G2 MSM for the device's busy share and each
+call down to 16 elements, profiles one more 2^20 G1 MSM on the fast
+levels, one more G2 MSM and one more BN254 G1 MSM for the device's busy
+share and each
 kernel's device time against its summed bound (the bound summed by
 shims over the same profiled run, its data-dependent part after the
 profile closes), and ranks the affine
-level's kernels (total and fast) on the edge MSMs and the prove by their
-device time a launch against a latency floor.  It fails if a kernel of
+level's kernels (total and fast) on the prove by their device time a
+launch against a latency floor.  It fails if a kernel of
 a path was not launched on it.  One line per phase, each ending with
 its time since the start (`at_s`); before the last line
 the card's name and power limit and a JSON object of the kernels'
@@ -355,6 +373,72 @@ def normalize_cases(z, k: int, T: int) -> dict:
     ends = (step == 0) | (step == last) | (lane // span == 3)
     zs["chunk ends infinite"] = torch.where(ends[None], 0, z[:, :M])
     return zs
+
+
+def jacobian_inputs(F, pairs, z) -> tuple:
+    """(X1, Y1, Z1) Jacobian with the random Z `z`, (x2, y2, Z2) affine,
+    and the affine (x1, y1, x2, y2), over `pairs` = (x1, y1, m1, x2, y2,
+    m2) of level inputs (P + P gives the degenerate flag), with Z = 0
+    where a mask says infinity."""
+    x1, y1, m1, x2, y2, m2 = pairs
+    M = x1.shape[1]
+    zz = F.mul(z, z)
+    one, zero = F.ones((M,)), F.zeros((M,))
+    J = (F.mul(x1, zz), F.mul(y1, F.mul(zz, z)),
+         torch.where((m1 != 0)[None], zero, z))
+    Q = (x2, y2, torch.where((m2 != 0)[None], zero, one))
+    return J, Q, (x1, y1, x2, y2)
+
+
+def check_full_add_warps(F, J, Q, agree) -> float:
+    """The full add on warps of one kind each, in turn: P1 infinite, P2
+    infinite, both, P + P, P + (-P), then J and Q's own mixed lanes; held
+    to the plain version, the flag and P + (-P)'s infinity checked;
+    returns the kernel's ms."""
+    from crypto_tpu_torch.ops.kernels import point_kernels as pk
+    (X1, Y1, Z1), (X2, Y2, Z2) = J, Q
+    n = X1.shape[1]
+    kind = torch.arange(n, device=X1.device) // 32 % 6
+    zero, one = F.zeros((n,)), F.ones((n,))
+    Zf = torch.where(F.is_zero(Z1)[None], one, Z1)          # finite Z1
+    same = ((kind == 3) | (kind == 4))[None]
+    Z1w = torch.where(((kind == 0) | (kind == 2))[None], zero, Zf)
+    Z1w = torch.where((kind == 5)[None], Z1, Z1w)
+    Z2w = torch.where(((kind == 1) | (kind == 2))[None], zero,
+                      torch.where(same, Zf, one))
+    Z2w = torch.where((kind == 5)[None], Z2, Z2w)
+    X2w = torch.where(same, X1, X2)
+    Y2w = torch.where((kind == 3)[None], Y1,
+                      torch.where((kind == 4)[None], F.neg(Y1), Y2))
+    w_args = (X1, Y1, Z1w, X2w, Y2w, Z2w)
+    pw = pk.jacobian_add_plain(F, *w_args)
+    agree("jacobian_add", pk.jacobian_add(F, *w_args), pw,
+          f"on warps of one kind at L={F.L}")
+    if not (bool(pw[3][kind == 3].all()) and not bool(pw[3][kind < 3].any())
+            and bool(F.is_zero(pw[2])[kind == 4].all())):
+        raise AssertionError("full-add warp inputs: P + P without the flag "
+                             "or P + (-P) not at infinity")
+    return cuda_ms(lambda: pk.jacobian_add(F, *w_args))
+
+
+def check_normalize_cases(F, J, pn, agree) -> list:
+    """The normalize at ragged widths about the kernel's chunk k and block
+    T, on a batch of infinities, and with infinities at the first and the
+    last point of every thread's chunk and one block's chunks all
+    infinite (`normalize_cases`).  A ragged width is a prefix of J, so its
+    plain outputs are the prefix of `pn`, the full width's (a lane's
+    affine coordinates are unique, whatever the batch: `_inverse_plain`);
+    the two infinite cases run the plain version.  Returns the cases."""
+    from crypto_tpu_torch.ops.kernels import point_kernels as pk
+    zs = normalize_cases(J[2], pk.NORMALIZE_CHUNK, pk.NORMALIZE_THREADS)
+    for where, z in zs.items():
+        M = z.shape[1]
+        ins = tuple(t[:, :M].contiguous() for t in J[:2]) + (z,)
+        plain = tuple(t[:, :M] for t in pn) if where == f"M={M}" \
+            else pk.jacobian_normalize_plain(F, *ins)
+        agree("jacobian_normalize", pk.jacobian_normalize(F, *ins), plain,
+              f"{where} at L={F.L}")
+    return list(zs)
 
 
 def max_err(a, b) -> int:
@@ -1570,6 +1654,7 @@ def bbs_pok_phases(counted, dev) -> tuple:
 
 SAVER_CB = 8                        # BASELINE config 4: 8-bit chunks (32)
 SAVER_MSGS = 8                      # ... of 8 BBS+-signed messages
+SAVER_DECRYPTS = 3                  # messages decrypted on the card, timed
 SAVER_VERIFY_DECRYPTION = 2         # decryptions whose proof is verified
 AGG_N = 8                           # proofs a SnarkPack aggregate folds
 ROUTE_KERNELS = ("mont_mul", "mont_pow", "fq2_mul", "fq2_sqr")
@@ -1610,10 +1695,11 @@ def saver_aggregate_phases(counted, dev) -> tuple:
     * `saver_config4`: a BBS+ signature over `SAVER_MSGS` messages; a SAVER
       CRS at `SAVER_CB`-bit chunks (32 chunks), keys, `encrypt_with_proof`
       of every signed message (the port's prover: the witness map's NTTs
-      on the card), both ciphertext checks of each, `decrypt` of each on
-      the card through the batched multi-pairing (every chunk's product
-      and base in one call, timed, each message equal to the signed
-      one), `verify_decryption` of `SAVER_VERIFY_DECRYPTION`, a changed
+      on the card), both ciphertext checks of each, `decrypt` of the
+      first `SAVER_DECRYPTS` on the card through the batched
+      multi-pairing (every chunk's product and base in one call, timed,
+      each message equal to the signed one), `verify_decryption` of
+      `SAVER_VERIFY_DECRYPTION`, a changed
       chunk and a wrong message rejected, and one decryption on the host
       route for comparison;
     * `saver_aggregate_8`: the 8 SAVER proofs aggregated by SnarkPack
@@ -1638,7 +1724,9 @@ def saver_aggregate_phases(counted, dev) -> tuple:
     device route; its four kernels) or, for `saver_aggregate_8`, of
     `TPairing.miller_product` (the checker's; its three);
     `legogroth16_aggregate_8` requires a batched call.  Returns ({path:
-    launches}, {path: the widths each kernel ran at})."""
+    launches}, {path: the widths each kernel ran at}, the SAVER CRS,
+    generators and keys and the bound-check key, for
+    `proof_system_phase`)."""
     import os
 
     from crypto_tpu_torch.bbs_plus.setup import KeypairG2, SignatureParamsG1
@@ -1651,7 +1739,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
     from crypto_tpu_torch.transcript.transcript import Transcript
     Fr = bls.Fr
     hr = random.Random(SEED + 300)
-    paths, shapes = {}, {}
+    paths, shapes, keep = {}, {}, {}
     batches = []                       # (path, groups k, lanes k m)
     real_batch = tpairing.TPairing.multi_pairings
     real_miller = tpairing.TPairing.miller_product
@@ -1723,7 +1811,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
                                          "check failed")
             t["ciphertext_checks_s"] = time.perf_counter() - t0
             decs, t["decrypt_s"] = [], []
-            for (ct, _, _), m in zip(cts, msgs):
+            for (ct, _, _), m in list(zip(cts, msgs))[:SAVER_DECRYPTS]:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 dec = saver.decrypt(ct, sk, dk, g_i, SAVER_CB, device=dev)
@@ -1761,6 +1849,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
             if host != decs[0]:
                 raise AssertionError("saver_config4: the host route's "
                                      "decryption differs")
+            keep.update(gens=gens, spk=spk, g_i=g_i, sk=sk, ek=ek, dk=dk)
             return t, spk, cts
 
         t, spk, cts = run("saver_config4", config4)
@@ -1838,6 +1927,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
             t0 = time.perf_counter()
             pk = bound_check.generate_snark_srs_bound_check(hr, device=dev)
             tm["setup_s"] = time.perf_counter() - t0
+            keep["bound_pk"] = pk
             lo, hi = 18, 1 << 40
             t0 = time.perf_counter()
             proofs = [bound_check.prove_bound_check(
@@ -1892,7 +1982,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
         tpairing.TPairing.miller_product = real_miller
         if env is not None:
             os.environ[PAIRING_ENV] = env
-    return paths, shapes
+    return paths, shapes, keep
 
 
 def route_kernel_checks(row, agree, shapes, dev) -> list:
@@ -2038,7 +2128,9 @@ def accumulator_phases(counted, dev) -> tuple:
     held to an independent result: every witness to V_new / (y + alpha)
     by a host batch inverse and the device fixed-base table, every d
     factor to host integers, 16 members to the port's host branch, two
-    members by pairing.  Returns {path: launches}."""
+    members by pairing.  Returns ({path: launches}, the params, the keys,
+    the accumulator before the updates and its first member and witness,
+    for `proof_system_phase`)."""
     import os
 
     from crypto_tpu_torch.accumulator import device_update, witness
@@ -2204,27 +2296,252 @@ def accumulator_phases(counted, dev) -> tuple:
         checks = check(tag, adds, rems, new_acc, new_wits, seen["d"])
         report(tag, secs_, seen, launches, checks)
         paths[f"accumulator_update_{tag}"] = launches
-    return paths
+    return paths, dict(params=params, kp=kp, value=V0, member=members[0],
+                       witness=wits[0])
+
+
+PS_MSGS = 32                        # BASELINE config 2's credential: 32
+PS_REVEALED = 4                     # messages, 4 of them revealed
+PS_AGE = (18, 128)                  # the bound check's [min, max)
+PS_NONCE = b"chip-smoke composite nonce"
+
+
+def proof_system_phase(counted, dev, saver_keep, acc_keep) -> tuple:
+    """The composite proof system on the card (`proof_system_composite`):
+    one `ProofSpec` of six statements, a BBS+ credential over `PS_MSGS`
+    messages (`PS_REVEALED` revealed; message 0 the user id, message 1 the
+    age), VB membership (CDH) of the user id in the accumulator of
+    `accumulator_phases` (its value before the updates, its first member
+    and witness), the original VB membership statement on the same, a
+    Pedersen commitment to the user id, SAVER encryption of it at
+    `SAVER_CB`-bit chunks under `saver_config4`'s CRS and keys, and a
+    LegoGroth16 bound check of the age in `PS_AGE` under
+    `legogroth16_aggregate_8`'s key; the user id linked across the first
+    five statements, the age across the credential and the bound check.
+
+    Each path below runs with the launch counts reset before it and read
+    after, and `record_shapes` noting every width: `Proof.new`
+    (`proof_system_prove`: the SNARK provers' witness maps on the card;
+    their MSMs on the card only from `legogroth16/snark.py`'s threshold,
+    and whether one did is reported), `Proof.verify` with no checker,
+    with the lazy `RandomizedPairingChecker` (`proof_system_verify_lazy`:
+    more than the checker's `DEVICE_THRESHOLD` deferred pairs, so one
+    device Miller product, and mont_mul, fq2_mul and fq2_sqr must launch)
+    and with the eager one, each timed; the auditor's decryption of the
+    statement's ciphertext on the card (`proof_system_decrypt`, one
+    batched multi-pairing), equal to the user id.  A wrong nonce, a
+    broken witness equality (a Pedersen commitment to another value), a
+    changed SAVER ciphertext and an age out of range at prove time are
+    rejected.  The pairing backend variable is unset: the router and the
+    checker take their own choice.  Returns ({path: launches}, {path: the
+    widths each kernel ran at})."""
+    import copy
+    import os
+
+    from crypto_tpu_torch.accumulator import proofs_original as po
+    from crypto_tpu_torch.bbs_plus.setup import KeypairG2, SignatureParamsG1
+    from crypto_tpu_torch.bbs_plus.signature import SignatureG1
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves import tpairing
+    from crypto_tpu_torch.legogroth16 import snark
+    from crypto_tpu_torch.proof_system import statements as st
+    from crypto_tpu_torch.proof_system import statements_accum_original \
+        as sao
+    from crypto_tpu_torch.proof_system import statements_snark as ss
+    from crypto_tpu_torch.proof_system.base import ProofSpec, \
+        ProofSystemError
+    from crypto_tpu_torch.proof_system.proof import Proof, VerifierConfig
+    from crypto_tpu_torch.saver import core as saver
+    from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
+    Fr = bls.Fr
+    hr = random.Random(SEED + 500)
+    k = saver_keep
+    params, kp = acc_keep["params"], acc_keep["kp"]
+    uid, V, wit = acc_keep["member"], acc_keep["value"], acc_keep["witness"]
+    t = {}
+    t0 = time.perf_counter()
+    sig_params = SignatureParamsG1.generate_using_rng(hr, PS_MSGS)
+    issuer = KeypairG2.generate(hr, sig_params)
+    age = Fr(hr.randrange(*PS_AGE))
+    msgs = [uid, age] + [Fr.rand(hr) for _ in range(PS_MSGS - 2)]
+    sig = SignatureG1.new(hr, msgs, issuer.secret_key, sig_params)
+    comm_G, comm_H, ped_G, ped_H = (bls.G1.rand(hr).normalize()
+                                    for _ in range(4))
+    blinding = Fr.rand(hr)
+    prk = po.MembershipProvingKey.new(b"chip-smoke composite")
+    revealed = {i: msgs[i] for i in range(PS_MSGS - PS_REVEALED, PS_MSGS)}
+    t["setup_s"] = time.perf_counter() - t0
+
+    def spec_of(value=uid, snarks=True):
+        """The spec, its Pedersen commitment to `value`; without `snarks`
+        the first four statements only."""
+        spec = ProofSpec(context=b"chip-smoke composite")
+        s_bbs = spec.add_statement(st.PoKBBSSignatureG1(
+            params=sig_params, public_key=issuer.public_key,
+            revealed_messages=revealed))
+        linked = [(s_bbs, 0), (spec.add_statement(
+            st.VBAccumulatorMembershipCDH(
+                accumulator_value=V, params=params,
+                public_key=kp.public_key)), 0),
+            (spec.add_statement(sao.VBAccumulatorMembership(
+                accumulator_value=V, params=params,
+                public_key=kp.public_key, proving_key=prk)), 0),
+            (spec.add_statement(st.PedersenCommitmentStmt(
+                bases=[ped_G, ped_H], commitment=(
+                    ped_G * int(value)
+                    + ped_H * int(blinding)).normalize())), 0)]
+        if snarks:
+            linked.append((spec.add_statement(ss.SaverStatement(
+                chunk_bit_size=SAVER_CB, enc_gens=k["gens"], ek=k["ek"],
+                snark_pk=k["spk"], comm_G=comm_G, comm_H=comm_H)), 0))
+            s_age = spec.add_statement(ss.BoundCheckLegoGroth16(
+                min_val=PS_AGE[0], max_val=PS_AGE[1],
+                snark_pk=k["bound_pk"]))
+            spec.add_witness_equality([(s_bbs, 1), (s_age, 0)])
+        spec.add_witness_equality(linked)
+        return spec
+
+    def wits_of(value=uid, snarks=True):
+        return [st.BBSWitness(signature=sig, messages=msgs),
+                st.AccumMembershipWit(element=uid, witness=wit),
+                st.AccumMembershipWit(element=uid, witness=wit),
+                [value, blinding]] + ([uid, age] if snarks else [])
+
+    spec = spec_of()
+    paths, shapes = {}, {}
+    miller, device_msms = [], []
+    real_miller = tpairing.TPairing.miller_product
+    real_msm = snark.msm_device_scheduled
+
+    def miller_spy(self, pairs):
+        miller.append((path_now[0], len(pairs)))
+        return real_miller(self, pairs)
+
+    def msm_spy(curve, points, scalars, **kw):
+        device_msms.append((path_now[0], len(scalars)))
+        return real_msm(curve, points, scalars, **kw)
+
+    path_now = [None]
+
+    def run(path, fn, need=()):
+        path_now[0] = path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, seen), launches = drive(
+            counted, lambda: record_shapes(counted, fn))
+        torch.cuda.synchronize()
+        t[path + "_s"] = time.perf_counter() - t0
+        require(path, launches, need)
+        paths[path] = launches
+        shapes[path] = seen
+        return out
+
+    env = os.environ.pop(PAIRING_ENV, None)
+    tpairing.TPairing.miller_product = miller_spy
+    snark.msm_device_scheduled = msm_spy
+    try:
+        proof = run("proof_system_prove", lambda: Proof.new(
+            hr, spec, wits_of(), nonce=PS_NONCE, device=dev), ("mont_mul",))
+        for mode, cfg, need in (("none", None, ()),
+                                ("lazy", VerifierConfig(True),
+                                 CHECKER_KERNELS),
+                                ("eager", VerifierConfig(False), ())):
+            if not run(f"proof_system_verify_{mode}", lambda: proof.verify(
+                    hr, spec, nonce=PS_NONCE, config=cfg, device=dev), need):
+                raise AssertionError(f"proof_system_composite: verify "
+                                     f"({mode}) refused the proof")
+        lazy = [n for p, n in miller if p == "proof_system_verify_lazy"]
+        if len(lazy) != 1 or lazy[0] < RandomizedPairingChecker \
+                .DEVICE_THRESHOLD:
+            raise AssertionError(f"proof_system_composite: the lazy "
+                                 f"checker's device Miller products {lazy}")
+        if any(p != "proof_system_verify_lazy" for p, _ in miller):
+            raise AssertionError(f"proof_system_composite: a device Miller "
+                                 f"product off the lazy verify: {miller}")
+        ct = proof.statement_proofs[4].ciphertext
+        dec, nu = run("proof_system_decrypt", lambda: saver.decrypt(
+            ct, k["sk"], k["dk"], k["g_i"], SAVER_CB, device=dev),
+            ROUTE_KERNELS)
+        if dec != uid or nu != ct.X_r.mul_raw(int(k["sk"].rho)):
+            raise AssertionError("proof_system_composite: the auditor's "
+                                 "decryption differs from the user id")
+
+        # ---- rejections, outside the counted paths
+        t0 = time.perf_counter()
+        refused = {}
+
+        def refuses(name, fn, err=ProofSystemError, match=""):
+            try:
+                fn()
+            except err as e:
+                refused[name] = match in str(e)
+                return
+            refused[name] = False
+
+        refuses("wrong_nonce", lambda: proof.verify(
+            hr, spec, nonce=b"another nonce", device=dev))
+        other = Fr.rand(hr)
+        small = spec_of(other, snarks=False)
+        refuses("broken_equality", lambda: Proof.new(
+            hr, small, wits_of(other, snarks=False), nonce=PS_NONCE,
+            device=dev).verify(hr, small, nonce=PS_NONCE, device=dev),
+            match="equality")
+        bad = copy.deepcopy(proof)
+        bct = bad.statement_proofs[4].ciphertext
+        bct.enc_chunks[0] = (bct.enc_chunks[0] + k["g_i"][0]).normalize()
+        refuses("changed_ciphertext", lambda: bad.verify(
+            hr, spec, nonce=PS_NONCE, device=dev))
+        ages = ProofSpec()
+        ages.add_statement(ss.BoundCheckLegoGroth16(
+            min_val=PS_AGE[0], max_val=PS_AGE[1], snark_pk=k["bound_pk"]))
+        refuses("age_out_of_range", lambda: Proof.new(
+            hr, ages, [Fr(PS_AGE[0] - 1)], nonce=PS_NONCE, device=dev),
+            snark.LegoGroth16Error)
+        t["rejections_s"] = time.perf_counter() - t0
+        if not all(refused.values()):
+            raise AssertionError(f"proof_system_composite: not refused: "
+                                 f"{refused}")
+    finally:
+        tpairing.TPairing.miller_product = real_miller
+        snark.msm_device_scheduled = real_msm
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    phase("proof_system_composite", statements=len(spec.statements),
+          messages=PS_MSGS, revealed=PS_REVEALED, chunk_bits=SAVER_CB,
+          accumulator_elements=NELEM, age_bounds=list(PS_AGE),
+          prove_s=t["proof_system_prove_s"],
+          verify_s={m: t[f"proof_system_verify_{m}_s"]
+                    for m in ("none", "lazy", "eager")},
+          decrypt_s=t["proof_system_decrypt_s"], setup_s=t["setup_s"],
+          rejections_s=t["rejections_s"], deferred_pairs=lazy[0],
+          checker_device_threshold=RandomizedPairingChecker.DEVICE_THRESHOLD,
+          prover_msm_on_card=bool(device_msms),
+          prover_device_msm_sizes=[n for _, n in device_msms],
+          launches={p: {n: c for n, c in v.items() if c}
+                    for p, v in paths.items()},
+          decrypted=True, refused=refused, correct=True)
+    return paths, shapes
 
 
 BN254_MSM_RUNS = 2                  # timed 2^20 BN254 G1 MSMs
 # the L = 8 instantiations the BN254 paths must launch between them: every
 # level kernel of both formulas, the Fq2 level, product and square, the
 # gather and its tables (8 words a row on G1, 16 on G2), mont_mul and
-# mont_pow; the point kernels take BLS12-381 Fq only
+# mont_pow, and the bench points' full add and normalize
 BN254_KERNELS = ("mont_mul", "mont_pow", "affine_level_pre",
                  "affine_level_post", "chunked_level_prefix",
                  "chunked_level_down", "affine_level_pre_fast",
                  "affine_level_post_fast", "chunked_level_prefix_fast",
                  "chunked_level_down_fast", "fq2_mul", "fq2_sqr",
                  "affine_level_pre_fq2", "affine_level_post_fq2",
-                 "gather_rows_t", "slot_tables")
+                 "gather_rows_t", "slot_tables", "jacobian_add",
+                 "jacobian_normalize")
 
 
 def bn254_msm_phases(counted, dev) -> tuple:
     """BN254 G1 at the reference's full size: 2^20 bench points with known
-    discrete logs (built by the total `TCurve` ops: the point kernels
-    take BLS12-381 Fq only), `BN254_MSM_RUNS` timed MSMs at c = 16 on the
+    discrete logs (two full adds and a normalize at 8 limbs, as on
+    BLS12-381), `BN254_MSM_RUNS` timed MSMs at c = 16 on the
     fast levels, each equal to its known-dlog sum with no rerun, one
     `safe=True` MSM, the rerun path (one duplicated base colliding in one
     window: exactly the spoiled windows rerun), and the edge MSMs of G1
@@ -2242,15 +2559,15 @@ def bn254_msm_phases(counted, dev) -> tuple:
     G = bn.G1.generator()
     paths = {}
 
-    # ---- bench points: 2^20 distinct points on the total TCurve ops
+    # ---- bench points: 2^20 distinct points, full add + normalize
     t0 = time.time()
     (points, dlog), bp = drive(counted, lambda: make_bench_points(tc, n))
     torch.cuda.synchronize()
     t_points = time.time() - t0
-    require("bn254 bench points", bp, ("mont_mul", "mont_pow"))
-    if any(bp[k] for k in POINT_KERNELS):
-        raise AssertionError(f"bn254 bench points launched a point kernel: "
-                             f"{bp}")
+    require("bn254 bench points", bp, ("jacobian_add", "jacobian_normalize"))
+    if (bp["jacobian_add"], bp["jacobian_normalize"]) != (2, 1):
+        raise AssertionError(f"bn254 bench points: expected 2 full adds "
+                             f"and 1 normalize, got {bp}")
     logs = [dlog(i) for i in range(n)]
     sample = list(range(0, n, n // 64))
     got = tc.unpack(TPoints(*(t[:, sample] for t in points)))
@@ -2259,7 +2576,8 @@ def bn254_msm_phases(counted, dev) -> tuple:
                              "discrete logs")
     paths["bn254_bench_points_2^20"] = (bp, [])
     phase("bn254_bench_points", n=n, seconds=round(t_points, 3),
-          mont_mul_launches=bp["mont_mul"], mont_pow_launches=bp["mont_pow"],
+          full_add_launches=bp["jacobian_add"],
+          normalize_launches=bp["jacobian_normalize"],
           sample_checked=len(sample), correct=True)
 
     # ---- the 2^20 MSM, c = 16, fast levels
@@ -2430,12 +2748,11 @@ def bn254_msm_phases(counted, dev) -> tuple:
 
 def bn254_pairing_phase(counted, dev) -> tuple:
     """`TPairingBN` at `bench_pairing.py`'s size: 64 BN254 pairs from known
-    logs plus one with G1 at infinity, once cold and `PAIRING_RUNS` times
-    timed on fresh pairs, each product equal to e(G1, G2)^(sum a_i b_i)
-    from the port's host `bn254` pairing; the first set's per-pair Miller
-    values against the host Miller loop and its product against the host
-    multi-pairing; e(aP, bQ) == e(abP, Q).  Returns (launches, the pair
-    set to profile)."""
+    logs plus one with G1 at infinity, one multi-pairing on the card,
+    timed (the process's first BN254 pairing) and counted, equal to
+    e(G1, G2)^(sum a_i b_i) and to the port's host `bn254` multi-pairing,
+    its per-pair Miller values against the host Miller loop; e(aP, bQ) ==
+    e(abP, Q).  Returns (launches, the pair set to profile)."""
     from crypto_tpu_torch.curves import bn254 as bn
     from crypto_tpu_torch.curves.tpairing import tpairing_for
     R = bn.R
@@ -2443,51 +2760,30 @@ def bn254_pairing_phase(counted, dev) -> tuple:
     tp = tpairing_for("bn254", dev)
     hr = random.Random(SEED + 300)
     t0 = time.perf_counter()
-    nsets = 2 + PAIRING_RUNS
-    la = [hr.randrange(1, R) for _ in range(nsets * PAIRS)]
-    lb = [hr.randrange(1, R) for _ in range(nsets * PAIRS)]
+    la = [hr.randrange(1, R) for _ in range(PAIRS)]
+    lb = [hr.randrange(1, R) for _ in range(PAIRS)]
     A, B = known_log_points(G1, la, dev), known_log_points(G2, lb, dev)
-    sets = []
-    for k in range(nsets):
-        sl = slice(k * PAIRS, (k + 1) * PAIRS)
-        sets.append((list(zip(A[sl], B[sl])) + [(bn.G1.infinity(),
-                                                 B[k * PAIRS])],
-                     sum(x * y for x, y in zip(la[sl], lb[sl])) % R))
+    pairs = list(zip(A, B)) + [(bn.G1.infinity(), B[0])]
+    log = sum(x * y for x, y in zip(la, lb)) % R
     gt = bn.pairing(G1, G2)
     t_setup = time.perf_counter() - t0
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    cold = tp.multi_pairing(sets[0][0])
-    t_cold = time.perf_counter() - t
+    def timed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = tp.multi_pairing(pairs)
+        return out, time.perf_counter() - t
+
+    (out, dt), launches = drive(counted, timed)
     t0 = time.perf_counter()
-    lanes = tp.t12.unpack_host(tp.miller_loop_batch(
-        *tp.pack_pairs(sets[0][0])))
-    if any(m != bn.miller_loop([pq]) for m, pq in zip(lanes, sets[0][0])):
+    lanes = tp.t12.unpack_host(tp.miller_loop_batch(*tp.pack_pairs(pairs)))
+    if any(m != bn.miller_loop([pq]) for m, pq in zip(lanes, pairs)):
         raise AssertionError("bn254_pairing_64: a lane's Miller value "
                              "differs from the host Miller loop")
-    if cold != bn.multi_pairing(sets[0][0]) or cold != gt ** sets[0][1]:
+    if out != bn.multi_pairing(pairs) or out != gt ** log:
         raise AssertionError("bn254_pairing_64: the product differs from "
-                             "the host multi-pairing")
+                             "the host multi-pairing or its known log")
     t_check = time.perf_counter() - t0
-    secs, launches = [], None
-    for run in range(PAIRING_RUNS):
-        pairs, log = sets[1 + run]
-
-        def timed():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = tp.multi_pairing(pairs)
-            return out, time.perf_counter() - t
-
-        if launches is None:
-            (out, dt), launches = drive(counted, timed)
-        else:
-            out, dt = timed()
-        if out != gt ** log:
-            raise AssertionError("bn254_pairing_64: a timed multi-pairing "
-                                 "differs from its known log")
-        secs.append(dt)
     require("bn254_pairing_64", launches, PAIRING_KERNELS)
     if any(launches[k] for k in G1_LEVEL_KERNELS + POINT_KERNELS):
         raise AssertionError(f"bn254_pairing_64 launched a level or point "
@@ -2497,14 +2793,12 @@ def bn254_pairing_phase(counted, dev) -> tuple:
     abP = G1.mul_raw(a * b % R).normalize()
     if not tp.multi_pairing([(aP, bQ), (-abP, G2)]).is_one():
         raise AssertionError("bn254_pairing_64: e(aP, bQ) != e(abP, Q)")
-    med = statistics.median(secs)
-    phase("bn254_pairing_64", pairs=PAIRS, infinite_pairs=1,
-          runs=PAIRING_RUNS, seconds=secs, median_s=med,
-          spread=max(secs) / min(secs), cold_s=t_cold,
-          pairings_per_s=PAIRS / med, setup_s=t_setup, host_check_s=t_check,
+    phase("bn254_pairing_64", pairs=PAIRS, infinite_pairs=1, runs=1,
+          seconds=[dt], median_s=dt, first_call=True,
+          pairings_per_s=PAIRS / dt, setup_s=t_setup, host_check_s=t_check,
           launches={k: v for k, v in launches.items() if v}, bilinear=True,
           correct=True)
-    return launches, sets[-1][0]
+    return launches, pairs
 
 
 def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
@@ -2563,6 +2857,39 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
     def add_row(name, src, rep, path, err, fn, plain_ms, args, shape, **kw):
         rows.append(row(name, src, rep, path, err, cuda_ms(fn), plain_ms,
                         args, shape, **kw))
+
+    # ---- the bench points' full add (at their 2^14 and 2^20 rows) and
+    # normalize (2^20 points) at 8 limbs, with the 12-limb checks' warps
+    # of one kind, ragged widths and infinite points
+    from crypto_tpu_torch.ops.kernels import point_kernels as pk
+    n = points.X.shape[1]
+    bp_path = "bn254_bench_points_2^20"
+    for M in (1 << 14, n):
+        J, Q, _ = jacobian_inputs(F, lvl(M, points, F), points.X[
+            :, torch.randint(0, n, (M,), generator=gen, device=dev)])
+        args = J + Q
+        pa, add_ms = timed_call(lambda: pk.jacobian_add_plain(F, *args))
+        e_add = agree("jacobian_add", pk.jacobian_add(F, *args), pa,
+                      f"on bn254 at M={M}")
+        if int(pa[3].sum()) == 0:
+            raise AssertionError("bn254 full-add check inputs hold no P + P")
+    add_row("jacobian_add", csrc + "jacobian.cu", ref + "334", bp_path,
+            e_add, lambda: pk.jacobian_add(F, *args), add_ms, (F,) + args,
+            [8, n])
+    warps_ms = check_full_add_warps(F, J, Q, agree)
+    pn, norm_ms = timed_call(lambda: pk.jacobian_normalize_plain(F, *J))
+    e_norm = agree("jacobian_normalize", pk.jacobian_normalize(F, *J), pn,
+                   f"on bn254 at M={n}")
+    add_row("jacobian_normalize", csrc + "normalize.cu", ref + "390",
+            bp_path, e_norm, lambda: pk.jacobian_normalize(F, *J), norm_ms,
+            (F,) + J, [8, n])
+    cases = check_normalize_cases(F, J, pn, agree)
+    phase("check_point_kernels_bn254", full_add_rows=[1 << 14, n],
+          full_add_warps_of_one_kind=True, full_add_warps_ms=warps_ms,
+          normalize_points=n, normalize_infinite=int(F.is_zero(J[2]).sum()),
+          normalize_checked=cases,
+          bound_chain_squares_products=list(chain_ops(bn.P - 2)),
+          bit_exact=True)
 
     # ---- mont_mul at the G1 tail's width and ragged, Fr at the 2^16 NTT's
     # stage, the pairing's base products; mont_pow's roots
@@ -2971,11 +3298,11 @@ def main() -> int:
           correct=True)
 
     # ---- the 2^20 MSM on the total-formula levels (safe=True) against the
-    # default, in turns on one scalar set (safe, fast, fast, safe)
+    # default, one turn each on one scalar set (safe, then fast)
     sc, sb = make_bench_scalars(bls.R, n, SEED + 40)
     expect = G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R)
     msm_turns = {True: [], False: []}
-    for safe in (True, False, False, True):
+    for safe in (True, False):
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = msm_v2.msm_device_scheduled(bls.G1, points, sb, c=16,
@@ -3092,18 +3419,11 @@ def main() -> int:
         return x1, y1, m1, x2, y2, m2
 
     def point_inputs(M: int):
-        """(X1, Y1, Z1) Jacobian with random Z, (x2, y2, Z2) affine, over
-        level_inputs' pairs (P + P gives the degenerate flag) with Z = 0
-        where a mask says infinity."""
-        x1, y1, m1, x2, y2, m2 = level_inputs(M)
-        z = points.X[:, torch.randint(0, n_pts, (M,), generator=gen,
-                                      device=dev)]
-        zz = F.mul(z, z)
-        one, zero = F.ones((M,)), F.zeros((M,))
-        J = (F.mul(x1, zz), F.mul(y1, F.mul(zz, z)),
-             torch.where((m1 != 0)[None], zero, z))
-        Q = (x2, y2, torch.where((m2 != 0)[None], zero, one))
-        return J, Q, (x1, y1, x2, y2)
+        """`jacobian_inputs` over level_inputs' pairs, Z an x of the
+        bench points."""
+        pairs = level_inputs(M)
+        return jacobian_inputs(F, pairs, points.X[:, torch.randint(
+            0, n_pts, (M,), generator=gen, device=dev)])
 
     pt_in = point_inputs(n)
     add_fn, affine_add_fn, double_fn = pk.make_add_fns(tc)
@@ -3269,13 +3589,20 @@ def main() -> int:
                  for k, v in pok_paths.items())
     phase("bbs_pok_phases", seconds=round(time.time() - t0, 3))
     t0 = time.time()
-    saver_paths, saver_shapes = saver_aggregate_phases(counted, dev)
+    saver_paths, saver_shapes, saver_keep = saver_aggregate_phases(counted,
+                                                                   dev)
     paths.update((k, (v, [])) for k, v in saver_paths.items())
     phase("saver_aggregate_phases", seconds=round(time.time() - t0, 3))
     t0 = time.time()
-    acc_paths = accumulator_phases(counted, dev)
+    acc_paths, acc_keep = accumulator_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in acc_paths.items())
     phase("accumulator_phases", seconds=round(time.time() - t0, 3))
+    t0 = time.time()
+    ps_paths, ps_shapes = proof_system_phase(counted, dev, saver_keep,
+                                             acc_keep)
+    paths.update((k, (v, [])) for k, v in ps_paths.items())
+    saver_shapes.update(ps_shapes)
+    phase("proof_system_phases", seconds=round(time.time() - t0, 3))
 
     # ---- BN254: the 2^20 G1 MSMs and the edge MSMs, the LegoGroth16
     # setup, proves and verifier at 2^16 constraints, the 64-pair pairing
@@ -3290,9 +3617,10 @@ def main() -> int:
     bn_union = {f.__name__: sum(v[0][f.__name__] for k, v in paths.items()
                                 if k.startswith("bn254_")) for f in counted}
     require("BN254", bn_union, BN254_KERNELS)
-    if any(bn_union[k] for k in POINT_KERNELS):
-        raise AssertionError(f"a BN254 path launched a point kernel: "
-                             f"{bn_union}")
+    if any(v[0][k] for p, v in paths.items() for k in POINT_KERNELS
+           if p.startswith("bn254_") and p != "bn254_bench_points_2^20"):
+        raise AssertionError(f"a BN254 path other than the bench points "
+                             f"launched a point kernel: {bn_union}")
     phase("bn254_phases", seconds=round(time.time() - t0, 3),
           launches={k: v for k, v in bn_union.items() if v})
     phase("launches", **{k: v[0] for k, v in paths.items()})
@@ -3627,30 +3955,8 @@ def main() -> int:
                     "bench_points_2^20", e_add,
                     cuda_ms(lambda: pk.jacobian_add(F, *args)), add_ms,
                     (F,) + args, [12, n]))
-    # and on warps of one kind each, in turn: P1 infinite, P2 infinite,
-    # both, P + P, P + (-P), then the mixed lanes of point_inputs
-    (X1, Y1, Z1), (X2, Y2, Z2), _ = pt_in
-    kind = torch.arange(n, device=dev) // 32 % 6
-    zero, one = F.zeros((n,)), F.ones((n,))
-    Zf = torch.where(F.is_zero(Z1)[None], one, Z1)          # finite Z1
-    same = ((kind == 3) | (kind == 4))[None]
-    Z1w = torch.where(((kind == 0) | (kind == 2))[None], zero, Zf)
-    Z1w = torch.where((kind == 5)[None], Z1, Z1w)
-    Z2w = torch.where(((kind == 1) | (kind == 2))[None], zero,
-                      torch.where(same, Zf, one))
-    Z2w = torch.where((kind == 5)[None], Z2, Z2w)
-    X2w = torch.where(same, X1, X2)
-    Y2w = torch.where((kind == 3)[None], Y1,
-                      torch.where((kind == 4)[None], F.neg(Y1), Y2))
-    w_args = (X1, Y1, Z1w, X2w, Y2w, Z2w)
-    pw = pk.jacobian_add_plain(F, *w_args)
-    agree("jacobian_add", pk.jacobian_add(F, *w_args), pw,
-          "on warps of one kind")
-    if not (bool(pw[3][kind == 3].all()) and not bool(pw[3][kind < 3].any())
-            and bool(F.is_zero(pw[2])[kind == 4].all())):
-        raise AssertionError("full-add warp inputs: P + P without the flag "
-                             "or P + (-P) not at infinity")
-    add_warps_ms = cuda_ms(lambda: pk.jacobian_add(F, *w_args))
+    # and on warps of one kind each
+    add_warps_ms = check_full_add_warps(F, pt_in[0], pt_in[1], agree)
     pm, mix_ms = timed_call(lambda: pk.jacobian_add_mixed_plain(F, *aff))
     e_mix = agree("jacobian_add_mixed", pk.jacobian_add_mixed(F, *aff), pm,
                   f"at M={n}")
@@ -3681,24 +3987,11 @@ def main() -> int:
                     ref + "390", "bench_points_2^20", e_norm,
                     cuda_ms(lambda: pk.jacobian_normalize(F, *J), reps=5),
                     norm_ms, (F,) + J, [12, n]))
-    # ragged widths about the kernel's chunk k and block T, a batch of
-    # infinities, and infinities at the first and the last point of every
-    # thread's chunk with one block's chunks all infinite.  A ragged width
-    # is a prefix of J, so its plain outputs are the prefix of the full
-    # width's (a lane's affine coordinates are unique, whatever the batch:
-    # `_inverse_plain`); the two infinite cases run the plain version.
-    zs = normalize_cases(J[2], pk.NORMALIZE_CHUNK, pk.NORMALIZE_THREADS)
-    for where, z in zs.items():
-        M = z.shape[1]
-        ins = tuple(t[:, :M].contiguous() for t in J[:2]) + (z,)
-        plain = tuple(t[:, :M] for t in pn) if where == f"M={M}" \
-            else pk.jacobian_normalize_plain(F, *ins)
-        agree("jacobian_normalize", pk.jacobian_normalize(F, *ins), plain,
-              where)
+    zs = check_normalize_cases(F, J, pn, agree)
     phase("check_normalize", points=n, infinite=int(F.is_zero(J[2]).sum()),
           chunk=pk.NORMALIZE_CHUNK, threads=pk.NORMALIZE_THREADS,
           shape="B (one chain a block)",
-          checked=list(zs), bound_squares_products_per_point=[1, 6],
+          checked=zs, bound_squares_products_per_point=[1, 6],
           bound_chain_squares_products=list(chain_ops(bls.P - 2)),
           bit_exact=True)
 
@@ -3973,7 +4266,6 @@ def main() -> int:
     # kernel's device time and summed bound over one MSM ----------------
     for tag, curve, pts, scalars, safe in (
             ("", bls.G1, points, sb, False),
-            ("_safe", bls.G1, points, sb, True),
             ("_g2", bls.G2, points2, sb, False),
             ("_bn254", bn.G1, bn_data["points"], bn_data["sb"], False)):
         def msm():
@@ -4001,27 +4293,24 @@ def main() -> int:
         {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
          for k, (cnt, b) in bounds.items() if cnt}))
 
-    # ---- rows 2 and 5 (the total and the fast affine level) on the paths
-    # that launch them: device time a launch from the profiler against a
-    # latency floor, a launch plus one thread's dependent products at
-    # mont_pow's time a product (fermat_root): none in a pre, 4 in the
-    # total post's doubling lanes, 3 in the fast post.  A launch is the
-    # cheaper pre's device time a launch on the same path (loads, a
-    # compare and a store, no product), so a pre sits at its floor.
-    edge_dev = device_profile("profile_edge_msm", edges)
+    # ---- rows 2 and 5 (the total and the fast affine level) on the
+    # profiled prove, which launches them: device time a launch from the
+    # profiler against a latency floor, a launch plus one thread's
+    # dependent products at mont_pow's time a product (fermat_root): none
+    # in a pre, 4 in the total post's doubling lanes, 3 in the fast post.
+    # A launch is the cheaper pre's device time a launch on the same path
+    # (loads, a compare and a store, no product), so a pre sits at its
+    # floor.
     rank = {}
-    for where, by_entry in (("edge_msm", edge_dev),
-                            ("legogroth16_prove", prove_dev)):
-        per = {k: ms / cnt * 1e3 for k, (cnt, ms) in by_entry.items()
-               if k.startswith("affine_level_p") and not k.endswith("fq2")}
-        pres = [us for k, us in per.items() if "_pre" in k]
-        if not pres:
-            continue
-        for k, us in per.items():
-            floor = min(pres) + (0 if "_pre" in k else
-                                 3 if k.endswith("fast") else 4) \
-                * per_product_us
-            rank[f"{where}:{k}"] = [by_entry[k][0], us, floor, floor / us]
+    per = {k: ms / cnt * 1e3 for k, (cnt, ms) in prove_dev.items()
+           if k.startswith("affine_level_p") and not k.endswith("fq2")}
+    pres = [us for k, us in per.items() if "_pre" in k]
+    for k, us in per.items() if pres else ():
+        floor = min(pres) + (0 if "_pre" in k else
+                             3 if k.endswith("fast") else 4) \
+            * per_product_us
+        rank[f"legogroth16_prove:{k}"] = [prove_dev[k][0], us, floor,
+                                          floor / us]
     phase("rank_affine_level", per_product_us=per_product_us,
           launches_us_floor_us_floor_share=json.dumps(rank))
     phase("total", seconds=round(time.time() - t_start, 3))

@@ -4,13 +4,13 @@ The port's counterpart of `bench.py` `make_bench_points`: point (i, u, v)
 is A_i + (C_u + D_v), three families with full-range random discrete logs
 from a seeded generator, so its log a_i + c_u + d_v mod r is a uniform
 ~255-bit value and base collisions or in-bucket partial-sum collisions
-have probability ~2^-215.  On BLS12-381 G1, as in `bench.py`, two batched
-calls of the full-add kernel (`make_add_fns`) build the Jacobian sums and
-one call of the normalize kernel (`make_normalize_fn`) makes them affine;
-those kernels take BLS12-381 Fq only.  On every other group (BLS12-381
-G2, BN254 G1 and G2), whose bench points the reference does not make,
-the total `TCurve.add` (its products through the mont_mul kernel, or the
-Fq2 kernels over Fq2) and `TCurve.to_affine` do the same.  The 320 family points are multiples of
+have probability ~2^-215.  On a G1 (BLS12-381's, as in `bench.py`, and
+BN254's), two batched calls of the full-add kernel (`make_add_fns`) build
+the Jacobian sums and one call of the normalize kernel
+(`make_normalize_fn`) makes them affine.  On G2 (BLS12-381's and
+BN254's), whose bench points the reference does not make and whose
+coordinates lie in Fq2, the total `TCurve.add` (its products through the
+Fq2 kernels) and `TCurve.to_affine` do the same.  The 320 family points are multiples of
 the generator computed on the host (`mul_raw`).  `make_bench_scalars`
 gives the full-range scalars of `bench.py`.
 """
@@ -24,8 +24,7 @@ import torch
 
 from . import resolve_device
 from .curves.tcurve import TCurve, TPoints
-from .ops.kernels.point_kernels import FQ_LIMBS, make_add_fns, \
-    make_normalize_fn
+from .ops.kernels.point_kernels import make_add_fns, make_normalize_fn
 from .ops.msm_v2 import scalars_to_bytes
 
 
@@ -64,7 +63,7 @@ def make_bench_points(tc: TCurve, n: int, seed: int = 0xBE7C4):
     base = tc.curve.generator()
     A, C, D = (tc.pack_points([base.mul_raw(s) for s in ss])
                for ss in (a_s, c_s, d_s))
-    if tc.F.U == tc.F.L == FQ_LIMBS:        # BLS12-381 G1: the bench's kernels
+    if tc.F.U == tc.F.L:                    # a G1: the bench's kernels
         add_fn, _affine_add, _double = make_add_fns(tc)
         normalize_fn = make_normalize_fn(tc)
     else:

@@ -258,38 +258,50 @@ def _is_fp12(obj) -> bool:
     return hasattr(obj, "c1") and hasattr(getattr(obj, "c0", None), "c2")
 
 
-def protocol_to_port(obj):
+def protocol_to_port(obj, _memo=None):
     """A protocol object of the reference (params, keys, signatures,
-    proofs, protocols, ciphertexts, SRSs) as the port's object of the class
-    of the same name, field by field: points through `carry_point` onto the
-    port's BLS12-381, GT elements through `carry_fp12`, field elements by
-    value, lists, tuples and dicts item by item; ints, bools and None as
-    they are."""
+    proofs, protocols, ciphertexts, SRSs, and the proof system's specs,
+    statements, meta-statements, witnesses and composite proofs) as the
+    port's object of the class of the same name, field by field: points
+    through `carry_point` onto the port's BLS12-381, GT elements through
+    `carry_fp12`, field elements by value, lists, tuples, sets and dicts
+    item by item; ints, bools, bytes and None as they are.  An object met
+    twice in one call is carried once, so objects that several statements
+    share stay shared (`DerivedParamsTracker` keys on identity)."""
+    memo = {} if _memo is None else _memo
+    if id(obj) in memo:
+        return memo[id(obj)][1]
+
+    def carry(x):
+        return protocol_to_port(x, memo)
+
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return _port_class(obj)(**{
-            f.name: protocol_to_port(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)})
-    if hasattr(obj, "curve") and hasattr(obj, "Z"):
-        return carry_point(obj, _port_curve(obj, bls))
-    if _is_fp12(obj):
-        return carry_fp12(obj, bls.Fq12)
-    if hasattr(obj, "f") and hasattr(obj, "v"):
-        return _PORT_FIELDS[obj.f.p](int(obj))
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(protocol_to_port(x) for x in obj)
-    if isinstance(obj, dict):
-        return {k: protocol_to_port(v) for k, v in obj.items()}
-    if obj is None or isinstance(obj, (bool, int)):
+        out = _port_class(obj)(**{f.name: carry(getattr(obj, f.name))
+                                  for f in dataclasses.fields(obj)})
+    elif hasattr(obj, "curve") and hasattr(obj, "Z"):
+        out = carry_point(obj, _port_curve(obj, bls))
+    elif _is_fp12(obj):
+        out = carry_fp12(obj, bls.Fq12)
+    elif hasattr(obj, "f") and hasattr(obj, "v"):
+        out = _PORT_FIELDS[obj.f.p](int(obj))
+    elif isinstance(obj, (list, tuple, set, frozenset)):
+        out = type(obj)(carry(x) for x in obj)
+    elif isinstance(obj, dict):
+        out = {k: carry(v) for k, v in obj.items()}
+    elif obj is None or isinstance(obj, (bool, int, bytes)):
         return obj
-    raise TypeError(f"cannot carry a {type(obj).__name__} to the port")
+    else:
+        raise TypeError(f"cannot carry a {type(obj).__name__} to the port")
+    memo[id(obj)] = (obj, out)     # obj held: its id stays its own
+    return out
 
 
 def canonical(obj):
     """An object of either package as plain nested tuples: a dataclass as
     its class name and fields, a point as its affine coordinate ints (or
     "inf"), a GT element as `fp12_ints`, a field element as its int, lists
-    and tuples item by item.  Equal objects of the two packages give equal
-    values."""
+    and tuples item by item, a set as its items' sorted forms.  Equal
+    objects of the two packages give equal values."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return (type(obj).__name__,) + tuple(
             (f.name, canonical(getattr(obj, f.name)))
@@ -304,6 +316,8 @@ def canonical(obj):
         return int(obj)
     if isinstance(obj, (list, tuple)):
         return tuple(canonical(x) for x in obj)
+    if isinstance(obj, (set, frozenset)):
+        return ("set",) + tuple(sorted(canonical(x) for x in obj))
     if isinstance(obj, dict):
         return tuple(sorted((k, canonical(v)) for k, v in obj.items()))
     if obj is None or isinstance(obj, (bool, int, bytes)):

@@ -611,7 +611,7 @@ __device__ __forceinline__ void neg(uint32_t r[N], const uint32_t a[N], const Mo
 // ---------------------------------------------------------------------------
 
 // BLS12-381 Fq, the field of the kernels that take 12 limbs only
-// (jacobian.cu, normalize.cu, sqr_designs.cu).
+// (sqr_designs.cu, and the Fq2 square's FqSquare below).
 constexpr int FQ_LIMBS = 12;
 using Fq = Mod<FQ_LIMBS>;
 

@@ -1,5 +1,7 @@
-// Batched Jacobian -> affine normalisation (BLS12-381 G1) by Montgomery's
-// batch inversion, in one launch.
+// Batched Jacobian -> affine normalisation by Montgomery's batch
+// inversion, in one launch, instantiated for BLS12-381 Fq (L = 12 limbs)
+// and BN254 Fq (L = 8); the C entry point takes L at run time
+// (ctt::by_limbs).
 //
 // Replaces crypto_tpu/ops/pallas/curve_kernels.py _mul_call_for, the
 // batched Montgomery-mul kernel that make_normalize_fn scans about 770
@@ -37,8 +39,6 @@
 
 namespace {
 
-using ctt::FQ_LIMBS;
-using ctt::Fq;
 constexpr int T = 128;         // threads a block
 constexpr int CHUNK = 16;      // points a thread
 constexpr int TREE_LOG = 7;    // levels of the product tree: log2 T, one chain a block
@@ -46,124 +46,132 @@ static_assert((T & (T - 1)) == 0 && (T >> TREE_LOG) >= 1, "a tree within the blo
 // the width of the Fermat chain's sliding window (1: the binary chain)
 constexpr int CHAIN_WINDOW = 5;
 
+template <int N>
 struct Limbs {
-  uint32_t w[FQ_LIMBS];
+  uint32_t w[N];
 };
 
-__device__ __forceinline__ void zero_if(uint32_t r[FQ_LIMBS], bool cond) {
+template <int N>
+__device__ __forceinline__ void zero_if(uint32_t r[N], bool cond) {
 #pragma unroll
-  for (int l = 0; l < FQ_LIMBS; ++l) r[l] = cond ? 0u : r[l];
+  for (int l = 0; l < N; ++l) r[l] = cond ? 0u : r[l];
 }
 
-// The block's tree lives in shared memory as FQ_LIMBS rows of 2T - 1
+// The block's tree lives in shared memory as N rows of 2T - 1
 // nodes (a thread's limb loads side by side): the T chunk totals, then
 // each level up the tree after the one below it; T >> TREE_LOG roots,
 // a chain each.
+template <int N>
 __global__ void __launch_bounds__(T) normalize_kernel(
     const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
     const uint32_t* __restrict__ z, uint32_t* __restrict__ xo, uint32_t* __restrict__ yo,
-    uint32_t* __restrict__ zo, long long M, Fq m, ctt::WindowChain<CHAIN_WINDOW> e,
-    Limbs one) {
+    uint32_t* __restrict__ zo, long long M, ctt::Mod<N> m, ctt::WindowChain<CHAIN_WINDOW> e,
+    Limbs<N> one) {
   constexpr int nodes = 2 * T - 1;
-  __shared__ uint32_t node[FQ_LIMBS * nodes];
+  __shared__ uint32_t node[N * nodes];
   const int j = threadIdx.x;
   const long long first = (long long)blockIdx.x * T * CHUNK + j;
   const int n = first < M ? (int)min((long long)CHUNK, (M - 1 - first) / T + 1) : 0;
-  uint32_t acc[FQ_LIMBS], t[FQ_LIMBS];
-  ctt::copy<FQ_LIMBS>(acc, one.w);
+  uint32_t acc[N], t[N];
+  ctt::copy<N>(acc, one.w);
 #pragma unroll 1
   for (int s = 0; s < n; ++s) {                            // prefix products
     const long long i = first + (long long)s * T;
-    ctt::load<FQ_LIMBS>(t, z, M, i);
-    if (ctt::is_zero<FQ_LIMBS>(t)) ctt::copy<FQ_LIMBS>(t, one.w);
+    ctt::load<N>(t, z, M, i);
+    if (ctt::is_zero<N>(t)) ctt::copy<N>(t, one.w);
     if (s == 0) {
-      ctt::copy<FQ_LIMBS>(acc, t);
+      ctt::copy<N>(acc, t);
     } else {
-      ctt::mont_mul_eo<FQ_LIMBS>(acc, acc, t, m);
+      ctt::mont_mul_eo<N>(acc, acc, t, m);
     }
-    ctt::store<FQ_LIMBS>(xo, acc, M, i);
+    ctt::store<N>(xo, acc, M, i);
   }
-  ctt::store<FQ_LIMBS>(node, acc, nodes, j);
+  ctt::store<N>(node, acc, nodes, j);
   int off = 0;                                             // this level's first node
   for (int lev = 0; lev < TREE_LOG; ++lev) {               // up the tree
     const int w = T >> (lev + 1);                          // nodes a level up
     __syncthreads();
     if (j < w) {
-      ctt::load<FQ_LIMBS>(acc, node, nodes, off + 2 * j);
-      ctt::load<FQ_LIMBS>(t, node, nodes, off + 2 * j + 1);
-      ctt::mont_mul_eo<FQ_LIMBS>(acc, acc, t, m);
-      ctt::store<FQ_LIMBS>(node, acc, nodes, off + 2 * w + j);
+      ctt::load<N>(acc, node, nodes, off + 2 * j);
+      ctt::load<N>(t, node, nodes, off + 2 * j + 1);
+      ctt::mont_mul_eo<N>(acc, acc, t, m);
+      ctt::store<N>(node, acc, nodes, off + 2 * w + j);
     }
     off += 2 * w;
   }
   __syncthreads();
   if (j < (T >> TREE_LOG)) {                               // a chain a root
-    ctt::load<FQ_LIMBS>(acc, node, nodes, off + j);
-    ctt::pow_window<FQ_LIMBS, CHAIN_WINDOW>(acc, acc, e, m);
-    ctt::store<FQ_LIMBS>(node, acc, nodes, off + j);
+    ctt::load<N>(acc, node, nodes, off + j);
+    ctt::pow_window<N, CHAIN_WINDOW>(acc, acc, e, m);
+    ctt::store<N>(node, acc, nodes, off + j);
   }
   for (int lev = TREE_LOG; lev > 0; --lev) {               // down the tree
     const int w = T >> lev;
     off -= 2 * w;
     __syncthreads();
     if (j < w) {
-      uint32_t inv[FQ_LIMBS];
-      ctt::load<FQ_LIMBS>(inv, node, nodes, off + 2 * w + j);
-      ctt::load<FQ_LIMBS>(t, node, nodes, off + 2 * j + 1);
-      ctt::mont_mul_eo<FQ_LIMBS>(acc, inv, t, m);          // 1/left = right/(left right)
-      ctt::load<FQ_LIMBS>(t, node, nodes, off + 2 * j);
-      ctt::mont_mul_eo<FQ_LIMBS>(inv, inv, t, m);
-      ctt::store<FQ_LIMBS>(node, acc, nodes, off + 2 * j);
-      ctt::store<FQ_LIMBS>(node, inv, nodes, off + 2 * j + 1);
+      uint32_t inv[N];
+      ctt::load<N>(inv, node, nodes, off + 2 * w + j);
+      ctt::load<N>(t, node, nodes, off + 2 * j + 1);
+      ctt::mont_mul_eo<N>(acc, inv, t, m);          // 1/left = right/(left right)
+      ctt::load<N>(t, node, nodes, off + 2 * j);
+      ctt::mont_mul_eo<N>(inv, inv, t, m);
+      ctt::store<N>(node, acc, nodes, off + 2 * j);
+      ctt::store<N>(node, inv, nodes, off + 2 * j + 1);
     }
   }
   __syncthreads();
-  ctt::load<FQ_LIMBS>(acc, node, nodes, j);                // 1 / the chunk's total
+  ctt::load<N>(acc, node, nodes, j);                // 1 / the chunk's total
 #pragma unroll 1
   for (int s = n - 1; s >= 0; --s) {                       // the walk back
     const long long i = first + (long long)s * T;
-    uint32_t zi[FQ_LIMBS], c[FQ_LIMBS];
-    ctt::load<FQ_LIMBS>(t, z, M, i);
-    const bool inf = ctt::is_zero<FQ_LIMBS>(t);
+    uint32_t zi[N], c[N];
+    ctt::load<N>(t, z, M, i);
+    const bool inf = ctt::is_zero<N>(t);
     if (s > 0) {
-      ctt::load<FQ_LIMBS>(zi, xo, M, i - T);
-      ctt::mont_mul_eo<FQ_LIMBS>(zi, acc, zi, m);          // z^-1
-      if (inf) ctt::copy<FQ_LIMBS>(t, one.w);
-      ctt::mont_mul_eo<FQ_LIMBS>(acc, acc, t, m);          // 1 / prefix s-1
+      ctt::load<N>(zi, xo, M, i - T);
+      ctt::mont_mul_eo<N>(zi, acc, zi, m);          // z^-1
+      if (inf) ctt::copy<N>(t, one.w);
+      ctt::mont_mul_eo<N>(acc, acc, t, m);          // 1 / prefix s-1
     } else {
-      ctt::copy<FQ_LIMBS>(zi, acc);
+      ctt::copy<N>(zi, acc);
     }
-    ctt::mont_sqr<FQ_LIMBS>(t, zi, m);                     // z^-2
-    ctt::load<FQ_LIMBS>(c, x, M, i);
-    ctt::mont_mul_eo<FQ_LIMBS>(c, c, t, m);
-    zero_if(c, inf);
-    ctt::store<FQ_LIMBS>(xo, c, M, i);
-    ctt::mont_mul_eo<FQ_LIMBS>(zi, t, zi, m);              // z^-3
-    ctt::load<FQ_LIMBS>(c, y, M, i);
-    ctt::mont_mul_eo<FQ_LIMBS>(c, c, zi, m);
-    zero_if(c, inf);
-    ctt::store<FQ_LIMBS>(yo, c, M, i);
-    ctt::copy<FQ_LIMBS>(c, one.w);
-    zero_if(c, inf);
-    ctt::store<FQ_LIMBS>(zo, c, M, i);
+    ctt::mont_sqr<N>(t, zi, m);                     // z^-2
+    ctt::load<N>(c, x, M, i);
+    ctt::mont_mul_eo<N>(c, c, t, m);
+    zero_if<N>(c, inf);
+    ctt::store<N>(xo, c, M, i);
+    ctt::mont_mul_eo<N>(zi, t, zi, m);              // z^-3
+    ctt::load<N>(c, y, M, i);
+    ctt::mont_mul_eo<N>(c, c, zi, m);
+    zero_if<N>(c, inf);
+    ctt::store<N>(yo, c, M, i);
+    ctt::copy<N>(c, one.w);
+    zero_if<N>(c, inf);
+    ctt::store<N>(zo, c, M, i);
   }
 }
 
 }  // namespace
-
-// e: the limbs of p - 2; one: the limbs of the Montgomery 1 (R mod p).
+// e: the L limbs of p - 2; one: the L limbs of the Montgomery 1 (R mod p).
 extern "C" int crypto_normalize(const void* x, const void* y, const void* z, void* xo,
-                                void* yo, void* zo, long long M, const void* p,
+                                void* yo, void* zo, long long M, int L, const void* p,
                                 unsigned int n0inv, const void* e, const void* one,
                                 void* stream) {
-  static_assert(ctt::EXP_WORDS == FQ_LIMBS, "p - 2 is passed in FQ_LIMBS words");
-  const ctt::Exponent ex = ctt::make_exponent((const uint32_t*)e);
-  Limbs r;
-  for (int j = 0; j < FQ_LIMBS; ++j) r.w[j] = ((const uint32_t*)one)[j];
+  if (L != 8 && L != 12) return (int)cudaErrorInvalidValue;
+  uint32_t ew[ctt::EXP_WORDS] = {};                         // p - 2, zero-padded
+  for (int j = 0; j < L; ++j) ew[j] = ((const uint32_t*)e)[j];
+  const ctt::Exponent ex = ctt::make_exponent(ew);
   if (ex.top < 0) return (int)cudaErrorInvalidValue;
-  normalize_kernel<<<ctt::blocks_for(M, T * CHUNK), T, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)xo,
-      (uint32_t*)yo, (uint32_t*)zo, M, ctt::make_mod<FQ_LIMBS>((const uint32_t*)p, n0inv),
-      ctt::make_window_chain<CHAIN_WINDOW>(ex), r);
-  return (int)cudaGetLastError();
+  const ctt::WindowChain<CHAIN_WINDOW> chain = ctt::make_window_chain<CHAIN_WINDOW>(ex);
+  return ctt::by_limbs(L, [&](auto n) {
+    constexpr int N = decltype(n)::value;
+    Limbs<N> r;
+    for (int j = 0; j < N; ++j) r.w[j] = ((const uint32_t*)one)[j];
+    normalize_kernel<N><<<ctt::blocks_for(M, T * CHUNK), T, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)xo,
+        (uint32_t*)yo, (uint32_t*)zo, M, ctt::make_mod<N>((const uint32_t*)p, n0inv), chain,
+        r);
+    return cudaSuccess;
+  });
 }

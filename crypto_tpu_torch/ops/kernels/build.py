@@ -54,10 +54,10 @@ SIGNATURES = {
     "crypto_affine_post_fast": [_P] * 9 + [_I64, _INT, _P, _U32, _P],
     "crypto_chunked_prefix_fast": [_P] * 7 + [_I64, _INT, _P, _U32, _P],
     "crypto_chunked_down_fast": [_P] * 10 + [_I64, _INT, _P, _U32, _P],
-    "crypto_jac_add": [_P] * 10 + [_I64, _P, _U32, _P],
-    "crypto_jac_add_mixed": [_P] * 8 + [_I64, _P, _U32, _P],
-    "crypto_jac_double": [_P] * 6 + [_I64, _P, _U32, _P],
-    "crypto_normalize": [_P] * 6 + [_I64, _P, _U32, _P, _P, _P],
+    "crypto_jac_add": [_P] * 10 + [_I64, _INT, _P, _U32, _P],
+    "crypto_jac_add_mixed": [_P] * 8 + [_I64, _INT, _P, _U32, _P],
+    "crypto_jac_double": [_P] * 6 + [_I64, _INT, _P, _U32, _P],
+    "crypto_normalize": [_P] * 6 + [_I64, _INT, _P, _U32, _P, _P, _P],
     "crypto_fq2_mul": [_P, _P, _P, _I64, _INT, _P, _U32, _P],
     "crypto_fq2_sqr": [_P, _P, _I64, _INT, _P, _U32, _P],
     "crypto_affine_pre_fq2": [_P] * 9 + [_I64, _INT, _P, _U32, _P],

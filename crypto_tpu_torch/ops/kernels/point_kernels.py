@@ -1,5 +1,6 @@
-"""Jacobian point kernels on BLS12-381 G1: CUDA kernels, wrappers, plain
-versions and the factories that batch them over `TPoints`.
+"""Jacobian point kernels on BLS12-381 G1 and BN254 G1: CUDA kernels,
+wrappers, plain versions and the factories that batch them over
+`TPoints`.
 
 Two TPU kernel factories of `crypto_tpu/ops/pallas/curve_kernels.py`:
 
@@ -20,11 +21,12 @@ Two TPU kernel factories of `crypto_tpu/ops/pallas/curve_kernels.py`:
 `make_add_fns(tc)` and `make_normalize_fn(tc)` are the counterparts of
 the reference's factories: any batch shape, one launch for the whole
 batch (the reference's `lax.map` over fixed blocks bounded its Mosaic
-compiles and has no purpose here).  Coordinates are (12, M) limb-major
-int32 tensors; flags (M,) int32.  Each wrapper launches its kernel for
-CUDA tensors (and counts the launch), takes the plain version for CPU
-tensors, and raises otherwise; kernel and plain version agree bit for bit
-on canonical inputs.
+compiles and has no purpose here).  Coordinates are (L, M) limb-major
+int32 tensors, L = 12 (BLS12-381 Fq) or 8 (BN254 Fq), the kernel's
+instance chosen by L at each C entry point; flags (M,) int32.  Each
+wrapper launches its kernel for CUDA tensors (and counts the launch),
+takes the plain version for CPU tensors, and raises otherwise; kernel
+and plain version agree bit for bit on canonical inputs.
 """
 
 from __future__ import annotations
@@ -35,9 +37,8 @@ import torch
 
 from ...curves.tcurve import TCurve, TPoints
 from .build import check, load_library
-from .field_kernels import check_limbs, mont_mul_plain, on_card, stream_of
-
-FQ_LIMBS = 12      # the point kernels' field: BLS12-381 Fq
+from .field_kernels import (check_kernel_field, check_limbs, mont_mul_plain,
+                            on_card, stream_of)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +112,7 @@ def jacobian_double_plain(F, x1, y1, z1):
 
 
 def _inverse_plain(F, z):
-    """Canonical Montgomery inverses of a (12, M) batch, 0 for 0.  The
+    """Canonical Montgomery inverses of an (L, M) batch, 0 for 0.  The
     batch trick over the whole batch (a product tree, one Fermat chain at
     its root, the walk back), where the kernel cuts its tree at threads'
     chunks and blocks: an inverse is unique, so the two agree bit for
@@ -162,9 +163,7 @@ NORMALIZE_THREADS, NORMALIZE_CHUNK = 128, 16
 
 
 def _check(name, F, coords):
-    if F.L != FQ_LIMBS:
-        raise ValueError(f"{name}: the point kernels take BLS12-381 Fq "
-                         f"({FQ_LIMBS} limbs), got {F.L}")
+    check_kernel_field(name, F.mod)
     return check_limbs(name, F.L, *coords)
 
 
@@ -177,7 +176,7 @@ def _launch(wrapper, cname, F, ins, n_out, flag, *extra):
         outs.append(torch.empty(M, dtype=torch.int32, device=ins[0].device))
     if M:
         err = getattr(load_library(), cname)(
-            *(t.data_ptr() for t in (*ins, *outs)), M,
+            *(t.data_ptr() for t in (*ins, *outs)), M, F.L,
             ctypes.addressof(F.mod.p_c), F.mod.n0inv, *extra,
             stream_of(ins[0].device))
         check(err, wrapper.__name__)

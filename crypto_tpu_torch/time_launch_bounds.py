@@ -56,8 +56,8 @@ from .time_sqr_designs import LEVEL_PAIRS, _event_ms, _limbs
 
 # the full add with its squares as products, mont_mul_eo(a, a): fewer
 # live words than mont_sqr's wide square, 300 wide products against 234
-SQR_BY_MUL = (r"ctt::mont_sqr<FQ_LIMBS>\((\w+), (\w+), m\)",
-              r"ctt::mont_mul_eo<FQ_LIMBS>(\1, \2, \2, m)")
+SQR_BY_MUL = (r"ctt::mont_sqr<N>\((\w+), (\w+), m\)",
+              r"ctt::mont_mul_eo<N>(\1, \2, \2, m)")
 
 
 def _bounds(threads: int, blocks: int, name: str = "FULL_ADD") -> list:
@@ -73,15 +73,15 @@ NORMALIZE_SHAPES = {"A_k32": (32, 0), "A_k64": (64, 0), "B_k8": (8, 7),
 # kernel -> (source, kernel function, C entry point, {build: the
 # substitutions (regex, replacement) that make the build's copy})
 BUILDS = {
-    "full_add": ("jacobian.cu", "full_add_kernel", "crypto_jac_add", {
+    "full_add": ("jacobian.cu", "full_add_kernel<12>", "crypto_jac_add", {
         **{f"{t}x{k}": _bounds(t, k) for t, k in (
             (128, 2), (64, 5), (32, 10), (32, 11), (128, 3), (128, 4))},
         **{f"{t}x{k}_sqr_by_mul": [SQR_BY_MUL, *_bounds(t, k)]
            for t, k in ((32, 11), (128, 3))}}),
-    "double": ("jacobian.cu", "double_kernel", "crypto_jac_double", {
+    "double": ("jacobian.cu", "double_kernel<12>", "crypto_jac_double", {
         f"{t}x{k}": _bounds(t, k, "DOUBLE") for t, k in (
             (128, 1), (128, 2), (128, 3), (128, 4), (256, 2))}),
-    "normalize": ("normalize.cu", "normalize_kernel", "crypto_normalize", {
+    "normalize": ("normalize.cu", "normalize_kernel<12>", "crypto_normalize", {
         f"w{w}_{k}": [(r"constexpr int CHAIN_WINDOW = \d+;",
                        f"constexpr int CHAIN_WINDOW = {w};"),
                       (r"constexpr int CHUNK = \d+;",
@@ -166,7 +166,7 @@ def _full_add(libs, F, gen, reps) -> dict:
 
     def run(k):
         build.check(libs[k][0].crypto_jac_add(
-            *[t.data_ptr() for t in (*ins, *outs[k])], M,
+            *[t.data_ptr() for t in (*ins, *outs[k])], M, F.L,
             ctypes.addressof(F.mod.p_c), F.mod.n0inv,
             torch.cuda.current_stream().cuda_stream), f"full add at {k}")
 
@@ -193,7 +193,7 @@ def _double(libs, F, gen, reps) -> dict:
 
     def run(k):
         build.check(libs[k][0].crypto_jac_double(
-            *[t.data_ptr() for t in (*ins, *outs[k])], M,
+            *[t.data_ptr() for t in (*ins, *outs[k])], M, F.L,
             ctypes.addressof(F.mod.p_c), F.mod.n0inv,
             torch.cuda.current_stream().cuda_stream), f"double at {k}")
 
@@ -219,7 +219,7 @@ def _normalize(libs, F, gen, reps) -> dict:
         out = outs.setdefault((b, M), [torch.empty_like(ins[0])
                                        for _ in range(3)])
         build.check(libs[b][0].crypto_normalize(
-            *[t.data_ptr() for t in (*ins, *out)], M,
+            *[t.data_ptr() for t in (*ins, *out)], M, F.L,
             ctypes.addressof(F.mod.p_c), F.mod.n0inv,
             ctypes.addressof(F.mod.pm2_c), ctypes.addressof(F.mod.one_c),
             torch.cuda.current_stream().cuda_stream), f"normalize {b}")

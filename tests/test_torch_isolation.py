@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -46,7 +47,13 @@ def test_port_imports_no_jax_and_no_reference():
                  "transcript.strobe", "transcript.merlin",
                  "transcript.transcript", "utils.elgamal", "saver.core",
                  "saver.lego", "legogroth16.aggregation", "legogroth16.link",
-                 "legogroth16.bound_check"):
+                 "legogroth16.bound_check", "short_group_sig.weak_bb",
+                 "short_group_sig.bb_sig", "accumulator.proofs_cdh",
+                 "accumulator.proofs_original", "accumulator.kb_positive",
+                 "proof_system.base", "proof_system.derived_params",
+                 "proof_system.statements", "proof_system.statements_snark",
+                 "proof_system.statements_accum_original",
+                 "proof_system.proof"):
         assert f"crypto_tpu_torch.{name}" in out.stdout
 
 
@@ -403,6 +410,32 @@ def _cp_link_proof():
                                    random.Random(1))
 
 
+def _proof_new():
+    import random
+    from crypto_tpu_torch.proof_system.base import ProofSpec
+    from crypto_tpu_torch.proof_system.proof import Proof
+    Proof.new(random.Random(1), ProofSpec(), [])
+
+
+def _proof_verify():
+    import random
+    from crypto_tpu_torch.proof_system.base import ProofSpec
+    from crypto_tpu_torch.proof_system.proof import Proof
+    Proof([]).verify(random.Random(1), ProofSpec())
+
+
+def _original_membership_protocol():
+    import random
+    from crypto_tpu_torch.accumulator import proofs_original as po
+    from crypto_tpu_torch.accumulator.core import MembershipWitness
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G1, G2 = tb.G1.generator(), tb.G2.generator()
+    key = po.MembershipProvingKey(G1, G1, G1)
+    po.MembershipProofProtocol.init(
+        random.Random(1), tb.Fr(3), None, MembershipWitness(G1), G1,
+        SimpleNamespace(Q_tilde=G2), SimpleNamespace(P_tilde=G2), key)
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -429,7 +462,9 @@ def _cp_link_proof():
                                    _saver_lego_generate_srs,
                                    _aggregate_proofs,
                                    _verify_aggregate_proof,
-                                   _bound_check_srs, _cp_link_proof],
+                                   _bound_check_srs, _cp_link_proof,
+                                   _proof_new, _proof_verify,
+                                   _original_membership_protocol],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""

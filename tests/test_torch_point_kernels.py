@@ -1,8 +1,9 @@
 """The port's Jacobian point kernels and normalize (plain versions, CPU)
 against the reference `make_add_fns(jc, block_b=128)` and
 `make_normalize_fn(jc, block_b=128)` run by the JAX package in Pallas
-interpret mode, and against the host curve; and `make_bench_points` at
-n = 2^12 against the host.
+interpret mode, and against the host curve, on BLS12-381 G1 (12 limbs)
+and BN254 G1 (8 limbs); and `make_bench_points` at n = 2^12 against the
+host on both.
 
 The JAX kernels run in one subprocess that sets
 `CRYPTO_TPU_PALLAS_INTERPRET=1` before it imports `crypto_tpu`.  Canonical
@@ -26,6 +27,7 @@ import torch
 
 from crypto_tpu_torch.bench_points import make_bench_points
 from crypto_tpu_torch.curves import bls12_381 as tb
+from crypto_tpu_torch.curves import bn254 as tbn
 from crypto_tpu_torch.curves.tcurve import TPoints, tcurve_for
 from crypto_tpu_torch.fields.tfield import tfield_for
 from crypto_tpu_torch.ops.kernels import build
@@ -43,13 +45,13 @@ rng = random.Random(89)
 LANES = 16
 
 SCRIPT = r"""
-import json, os, sys
+import importlib, json, os, sys
 os.environ["CRYPTO_TPU_PALLAS_INTERPRET"] = "1"
 import jax; jax.config.update("jax_platforms", "cpu")
-from crypto_tpu.curves import bls12_381 as jb
 from crypto_tpu.curves.jcurve import JPoints, jcurve_for
 from crypto_tpu.ops.pallas.curve_kernels import make_add_fns, make_normalize_fn
 inp = json.load(open(sys.argv[1]))
+jb = importlib.import_module("crypto_tpu.curves." + sys.argv[3])
 jc = jcurve_for(jb.G1)
 F = jc.F
 add_fn, affine_add_fn, double_fn = make_add_fns(jc, block_b=128)
@@ -72,14 +74,27 @@ json.dump(res, open(sys.argv[2], "w"))
 """
 
 
-def _jac(q):
+class _Curve:
+    """A G1's host curve, its `TCurve` on the CPU and its primes."""
+
+    def __init__(self, mod, name):
+        self.name, self.mod, self.G1 = name, mod, mod.G1
+        self.TC = tcurve_for(mod.G1, "cpu")
+        self.F, self.G, self.P, self.R = (self.TC.F, mod.G1.generator(),
+                                          mod.P, mod.R)
+
+
+BLS, BN = _Curve(tb, "bls12_381"), _Curve(tbn, "bn254")
+
+
+def _jac(q, cv=BLS):
     """Host point -> canonical Jacobian ints with a random Z; infinity is
     (1, 1, 0)."""
     if q.is_infinity():
         return [1, 1, 0]
     x, y = (int(v) for v in q.to_affine())
-    z = rng.randrange(1, P_MOD)
-    return [x * z * z % P_MOD, y * z ** 3 % P_MOD, z]
+    z = rng.randrange(1, cv.P)
+    return [x * z * z % cv.P, y * z ** 3 % cv.P, z]
 
 
 def _aff(q):
@@ -87,94 +102,103 @@ def _aff(q):
     return [x, y, 1]
 
 
-def _rand():
-    return G.mul_raw(rng.randrange(1, tb.R))
+def _rand(cv=BLS):
+    return cv.G.mul_raw(rng.randrange(1, cv.R))
 
 
-def _cases():
+def _cases(cv=BLS):
     """Each kernel's input batches (LANES lanes) as canonical ints."""
-    inf = tb.G1.infinity()
-    P = _rand()
-    pj = _jac(P)
-    add = [(_rand(), _rand()) for _ in range(LANES)]
+    inf = cv.G1.infinity()
+    P = _rand(cv)
+    pj = _jac(P, cv)
+    add = [(_rand(cv), _rand(cv)) for _ in range(LANES)]
     add[3], add[4], add[5], add[6] = (P, -P), (inf, P), (P, inf), (inf, inf)
-    A, B = [_jac(a) for a, _ in add], [_jac(b) for _, b in add]
+    A, B = [_jac(a, cv) for a, _ in add], [_jac(b, cv) for _, b in add]
     A_d, B_d = list(A), list(B)
     A[1], B[1] = pj, list(pj)                 # P + P, the same coordinates
-    A[2], B[2] = pj, _jac(P)                  # P + P, another Z
-    mixed = [(_rand(), _rand()) for _ in range(LANES)]
+    A[2], B[2] = pj, _jac(P, cv)              # P + P, another Z
+    mixed = [(_rand(cv), _rand(cv)) for _ in range(LANES)]
     mixed[3] = (P, -P)
     MA, MB = [_aff(a) for a, _ in mixed], [_aff(b) for _, b in mixed]
     MA_d, MB_d = list(MA), list(MB)
     MA[1], MB[1] = _aff(P), _aff(P)
-    dbl = [_jac(_rand()) for _ in range(LANES)]
+    dbl = [_jac(_rand(cv), cv) for _ in range(LANES)]
     dbl[2] = [1, 1, 0]
-    norm = [_jac(_rand()) for _ in range(LANES)]
+    norm = [_jac(_rand(cv), cv) for _ in range(LANES)]
     norm[4] = [1, 1, 0]
     return {"add": [A, B], "add_distinct": [A_d, B_d],
             "mixed": [MA, MB], "mixed_distinct": [MA_d, MB_d],
             "double": dbl, "normalize": norm}
 
 
-def _tp(rows):
-    return TPoints(*(F.pack([r[k] for r in rows]) for k in range(3)))
+def _tp(rows, cv=BLS):
+    return TPoints(*(cv.F.pack([r[k] for r in rows]) for k in range(3)))
 
 
-def _ints(P):
-    return [[int(v) for v in np.atleast_1d(F.unpack(t))] for t in P]
+def _ints(P, cv=BLS):
+    return [[int(v) for v in np.atleast_1d(cv.F.unpack(t))] for t in P]
 
 
-def _host_point(x, y, z):
+def _host_point(x, y, z, cv=BLS):
     if z == 0:
-        return tb.G1.infinity()
-    zi = pow(z, -1, P_MOD)
-    return tb.G1.point_from_affine(tb.Fq(x * zi * zi % P_MOD),
-                                   tb.Fq(y * zi ** 3 % P_MOD))
+        return cv.G1.infinity()
+    zi = pow(z, -1, cv.P)
+    return cv.G1.point_from_affine(cv.mod.Fq(x * zi * zi % cv.P),
+                                   cv.mod.Fq(y * zi ** 3 % cv.P))
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    cases = _cases()
+def _run_reference(tmp_path_factory, cv):
+    cases = _cases(cv)
     d = tmp_path_factory.mktemp("points")
     src, dst = d / "in.json", d / "out.json"
     src.write_text(json.dumps(cases))
-    out = subprocess.run([sys.executable, "-c", SCRIPT, str(src), str(dst)],
-                         capture_output=True, text=True, timeout=900,
-                         cwd=ROOT)
+    out = subprocess.run([sys.executable, "-c", SCRIPT, str(src), str(dst),
+                          cv.name], capture_output=True, text=True,
+                         timeout=900, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     return cases, json.loads(dst.read_text())
 
 
-def _port(name, cases):
-    add_fn, affine_add_fn, double_fn = pk.make_add_fns(TC)
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return _run_reference(tmp_path_factory, BLS)
+
+
+@pytest.fixture(scope="module")
+def reference_bn254(tmp_path_factory):
+    return _run_reference(tmp_path_factory, BN)
+
+
+def _port(name, cases, cv=BLS):
+    add_fn, affine_add_fn, double_fn = pk.make_add_fns(cv.TC)
+    tp = [_tp(c, cv) for c in cases[name]] if name.startswith(
+        ("add", "mixed")) else _tp(cases[name], cv)
     if name.startswith("add"):
-        S, flag = add_fn(*map(_tp, cases[name]))
+        S, flag = add_fn(*tp)
     elif name.startswith("mixed"):
-        S, flag = affine_add_fn(*map(_tp, cases[name]))
+        S, flag = affine_add_fn(*tp)
     elif name == "double":
-        S, flag = double_fn(_tp(cases[name])), torch.tensor(0)
+        S, flag = double_fn(tp), torch.tensor(0)
     else:
-        S, flag = pk.make_normalize_fn(TC)(_tp(cases[name])), torch.tensor(0)
+        S, flag = pk.make_normalize_fn(cv.TC)(tp), torch.tensor(0)
     assert flag.dim() == 0
-    return _ints(S), int(flag)
+    return _ints(S, cv), int(flag)
 
 
-def _host_expect(name, cases, lane):
+def _host_expect(name, cases, lane, cv=BLS):
     """The host's value of a lane, or None where the kernel's contract
     leaves it open (P + P raises the flag instead)."""
     if name == "double":
-        return _host_point(*cases[name][lane]).double()
+        return _host_point(*cases[name][lane], cv).double()
     if name == "normalize":
-        return _host_point(*cases[name][lane])
-    a, b = (_host_point(*cases[name][k][lane]) for k in (0, 1))
+        return _host_point(*cases[name][lane], cv)
+    a, b = (_host_point(*cases[name][k][lane], cv) for k in (0, 1))
     return None if a == b and not a.is_infinity() else a + b
 
 
-@pytest.mark.parametrize("name", ["add", "add_distinct", "mixed",
-                                  "mixed_distinct", "double", "normalize"])
-def test_point_kernel_vs_interpret(reference, name):
+def _check_vs_interpret(reference, name, cv):
     cases, ref = reference
-    (X, Y, Z), flag = _port(name, cases)
+    (X, Y, Z), flag = _port(name, cases, cv)
     assert flag == (1 if name in ("add", "mixed") else 0)
     if name in ref:
         (rX, rY, rZ), rflag = ref[name]
@@ -184,23 +208,66 @@ def test_point_kernel_vs_interpret(reference, name):
             if Z[i]:
                 assert (X[i], Y[i]) == (rX[i], rY[i]), i
     for i in range(LANES):
-        expect = _host_expect(name, cases, i)
+        expect = _host_expect(name, cases, i, cv)
         if expect is not None:
-            assert _host_point(X[i], Y[i], Z[i]) == expect, i
+            assert _host_point(X[i], Y[i], Z[i], cv) == expect, i
         else:
             assert Z[i] == 0, i        # P + P: the formula gives (0, 0, 0)
     if name == "normalize":
         assert Z == [0 if z == 0 else 1 for _, _, z in cases[name]]
 
 
+KERNEL_CASES = ["add", "add_distinct", "mixed", "mixed_distinct", "double",
+                "normalize"]
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_point_kernel_vs_interpret(reference, name):
+    _check_vs_interpret(reference, name, BLS)
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_point_kernel_vs_interpret_bn254(reference_bn254, name):
+    """The same cases at BN254's 8 limbs, against the reference's
+    factories at BN254's p (which take any limb count)."""
+    _check_vs_interpret(reference_bn254, name, BN)
+
+
+def test_make_add_fns_bn254():
+    """`make_add_fns(tcurve_for(bn254.G1))` and `make_normalize_fn` run at
+    8 limbs (the wrappers took BLS12-381 Fq only and raised here): a
+    batch of adds, a double and a normalize against the host."""
+    add_fn, affine_add_fn, double_fn = pk.make_add_fns(BN.TC)
+    pts = [_rand(BN) for _ in range(6)]
+    qts = [_rand(BN) for _ in range(6)]
+    A, B = BN.TC.pack_points(pts), BN.TC.pack_points(qts)
+    S, flag = add_fn(A, B)
+    M, mflag = affine_add_fn(A, B)
+    norm = pk.make_normalize_fn(BN.TC)
+    assert S.X.shape == (8, 6) and int(flag) == 0 and int(mflag) == 0
+    assert BN.TC.unpack(norm(S)) == [p + q for p, q in zip(pts, qts)]
+    assert BN.TC.unpack(norm(M)) == [p + q for p, q in zip(pts, qts)]
+    assert BN.TC.unpack(norm(double_fn(A))) == [p.double() for p in pts]
+
+
 def test_make_bench_points_cpu():
+    _check_bench_points(BLS)
+
+
+def test_make_bench_points_cpu_bn254():
+    """BN254 G1's bench points, now built by the point kernels at 8
+    limbs."""
+    _check_bench_points(BN)
+
+
+def _check_bench_points(cv):
     n = 1 << 12
-    pts, dlog = make_bench_points(TC, n)
-    assert pts.X.shape == (12, n)
-    assert torch.equal(pts.Z, F.ones((n,)))
+    pts, dlog = make_bench_points(cv.TC, n)
+    assert pts.X.shape == (cv.F.L, n)
+    assert torch.equal(pts.Z, cv.F.ones((n,)))
     sample = random.Random(3).sample(range(n), 24)
-    got = TC.unpack(TPoints(*(t[:, sample] for t in pts)))
-    assert all(g == G.mul_raw(dlog(i)) for g, i in zip(got, sample))
+    got = cv.TC.unpack(TPoints(*(t[:, sample] for t in pts)))
+    assert all(g == cv.G.mul_raw(dlog(i)) for g, i in zip(got, sample))
     assert len({tuple(pts.X[:, i].tolist()) for i in sample}) == len(sample)
 
 
@@ -229,7 +296,7 @@ def test_point_wrapper_checks():
         pk.jacobian_add_mixed(F, x, x[:, :2].contiguous(), x, x)
     Fr = tfield_for(tb.Fr, "cpu")
     y = Fr.pack([1, 2, 3])
-    with pytest.raises(ValueError, match="12 limbs"):
+    with pytest.raises(ValueError, match="4p < 2"):
         pk.jacobian_normalize(Fr, y, y, y)
 
 
