@@ -11,9 +11,8 @@ before it and read just after:
   logs, built by the full-add and normalize kernels (`make_bench_points`);
 * the 2^20 MSM (c = 16, full-range 255-bit scalars) through
   `msm_device_scheduled` on its default doubling-free levels, two timed
-  runs, each checked against the known discrete logs, none rerun (then,
-  outside the counted paths, one run each of `safe=True` and the
-  default);
+  runs, each checked against the known discrete logs, none rerun, then
+  one `safe=True` run on the total-formula levels, checked the same way;
 * the rerun path: the same MSM with one base duplicated and the digits set
   so that the pair collides in one window's bucket; the flagged windows
   must be exactly those that share a spoiled chunk, and they are rerun
@@ -28,8 +27,6 @@ before it and read just after:
   configuration: the Fq2 pre/post at every level, the Fq2 mul in the
   inversions and the tail, the Fq2 square in the tail, and no G1 level
   kernel;
-* the 2^20 G2 MSM with its squares through the square kernel and through
-  the product kernel, in turns (timed, outside the counted paths);
 * the G2 edge MSMs (duplicate bases, a base and its negation, infinity,
   zero scalars; 300 points with one scalar), checked against the host
   sum with no rerun;
@@ -42,7 +39,7 @@ before it and read just after:
   card, normalisation on the card, timed apart), one warm-up and one timed
   proves (witness map and each query MSM timed), each proof checked in
   the exponent against its discrete logs and the verification equation,
-  and every device MSM against its known logs; one more prove profiled;
+  and every device MSM against its known logs;
 * the pairing at `benches/bench_pairing.py`'s size: a 64-pair
   multi-pairing (plus one pair with G1 at infinity) through `TPairing`,
   once cold and once timed on fresh pairs from known logs, each
@@ -53,29 +50,30 @@ before it and read just after:
   device Miller product, valid and with one spoiled pair; the BBS+ batch
   verify of 1,024 signatures over 4 messages (known logs, the pairing on
   the device), its two MSMs against their logs, valid and with one e
-  spoiled; one more multi-pairing profiled;
+  spoiled;
 * BASELINE config 2, BBS+ proofs of knowledge over 32 messages (4
   revealed): `batch_verify_proofs` of 256 proofs (252 from the protocol's
   algebra over known logs, 4 through the port's `SignatureG1.new` and
   `PoKOfSignatureG1Protocol`, their sign, prove and host verify timed),
   the pairing on the device, cold (both MSMs against their known logs)
   and warm (host checker, device MSMs and pairing timed apart), and two
-  spoiled sets rejected (a response off by one; a proof under another
-  key, which passes the mult checker and fails the pairing); one lazy
+  spoiled sets rejected (32 proofs with a response off by one, which the
+  mult checker refuses; all 256 with a proof under another key, which
+  passes the mult checker, runs both MSMs on the card, counted, and
+  fails the pairing); one lazy
   checker on the card with 16 PoKs, 4 signatures and 2 BBS23 PoKs (44
   deferred pairs), valid and with one signature spoiled;
 * BASELINE config 4, SAVER at 8-bit chunks (`saver_config4`): a BBS+
   signature over 8 messages, the SAVER CRS and keys, every message
-  encrypted with a proof and both ciphertext checks passed, three
+  encrypted with a proof and both ciphertext checks passed, two
   ciphertexts decrypted on the card through the batched multi-pairing
-  (each timed and equal to its message), two decryptions verified, a
-  changed chunk and a wrong message rejected, one decryption on the host
-  route; then SnarkPack on the router's own choice: the 8 SAVER proofs
+  (each timed and equal to its message), one decryption verified, a
+  changed chunk and a wrong message rejected; then SnarkPack on the router's own choice: the 8 SAVER proofs
   aggregated without D and verified with prepared inputs, a changed
   ciphertext and a wrong label rejected (`saver_aggregate_8`), and 8
   bound-check LegoGroth16 proofs aggregated with D, wrong inputs rejected
   (`legogroth16_aggregate_8`); every kernel they launched is held to its
-  plain version at every width they gave it;
+  plain version on the arguments of each launch at a new shape;
 * the VB accumulator at `benches/bench_accumulator.py`'s size: params
   hashed from a label, 2^14 elements added, the first 8,192 members'
   witnesses on the device fixed-base path, then three updates of all
@@ -97,15 +95,31 @@ before it and read just after:
   launch) and with the eager one, each timed; a wrong nonce, a broken
   witness equality, a changed SAVER ciphertext and an out-of-range age
   rejected; the auditor's decryption on the card equal to the user id;
-  every kernel it launched held to its plain version at every width it
-  gave it;
+  every kernel it launched held to its plain version on the arguments
+  of each launch at a new shape;
+* the range statements and the Circom statement
+  (`proof_system_ranges`): one `ProofSpec` over a BBS+ credential of 32
+  messages (4 revealed), a 64-bit timestamp in 64-bit bounds by the
+  Bulletproofs++ bound check (base 2), by the CCS arbitrary range (base
+  16, 2 x 16 digits) and by its keyed-verification form, another
+  message unequal to a public value, and the 2^16 - 4 constraint chain
+  circuit written as Circom's `.r1cs`, read back and proven under the
+  LegoGroth16 phase's key, its committed wire a credential message;
+  `Proof.new` timed (the Circom prove's witness map and its G1 and G2
+  MSMs on the card), `Proof.verify` with no checker (the digits' pairings
+  in one routed call), the lazy checker (one device Miller product of 34
+  or more pairs) and the eager one, each timed; a wrong nonce, a broken
+  witness equality, a spoiled Bulletproofs++ proof, a spoiled digit (by
+  the lazy checker's device Miller product) and a timestamp out of range
+  refused; every kernel launch of its paths
+  held to its plain version on the same arguments;
 * BN254 at the reference's sizes, every kernel at its 8-limb
   instantiation: 2^20 G1 bench points with known logs (two full adds
   and a normalize, `make_add_fns` and `make_normalize_fn` at 8 limbs),
   two timed 2^20 MSMs at c = 16 on the fast levels, one
   `safe=True`, the rerun path (one duplicated base: exactly the spoiled
   windows rerun) and the G1 and G2 edge MSMs; the LegoGroth16 setup,
-  warm-up, one timed and one profiled prove of the 2^12 - 4 constraint
+  warm-up and one timed prove of the 2^12 - 4 constraint
   chain circuit over BN254 Fr (each checked in the exponent), and the
   port's verifier on a proof (valid, spoiled input and C rejected, D
   opened, both rerandomisations verified); the 64-pair `TPairingBN`
@@ -134,14 +148,11 @@ mont_pow also at the witness update's to_affine; every 8-limb
 instantiation at the BN254 paths' shapes, the same way), times the fast
 down pass at each of
 the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
-call down to 16 elements, profiles one more 2^20 G1 MSM on the fast
-levels, one more G2 MSM and one more BN254 G1 MSM for the device's busy
-share and each
-kernel's device time against its summed bound (the bound summed by
-shims over the same profiled run, its data-dependent part after the
-profile closes), and ranks the affine
-level's kernels (total and fast) on the prove by their device time a
-launch against a latency floor.  It fails if a kernel of
+call down to 16 elements, and profiles one more 2^20 G1 MSM on the fast
+levels for the device's busy share and each kernel's device time
+against its summed bound (the bound summed by shims over the same
+profiled run, its data-dependent part after the profile closes).  It
+fails if a kernel of
 a path was not launched on it.  One line per phase, each ending with
 its time since the start (`at_s`); before the last line
 the card's name and power limit and a JSON object of the kernels'
@@ -800,7 +811,7 @@ def qap_at(cs, lag: list, p: int) -> tuple:
 
 
 def legogroth16_phases(counted, dev, mod=None, tag: str = "",
-                       log_n: int = LEGO_LOG) -> dict:
+                       log_n: int = LEGO_LOG, keep: dict | None = None) -> dict:
     """The north-star workload (`benches/bench_northstar.py`) over the
     port's curve module `mod` (BLS12-381 by default; BN254 with tag
     "bn254_"): `chain_circuit` at 2^log_n - 4 constraints (2^16 - 4 by
@@ -812,8 +823,9 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "",
     (inputs + D) + delta C, and every device MSM equals the sum of its
     scalars times its points' known logs.  Then the port's verifier on
     the last proof (`verify_phase`).  Returns ({path: launches}, the
-    profiled prove's `device_ms_by_entry`, the last checked prove's
-    b_g2 query MSM as {"points": TPoints, "scalars", "out"})."""
+    last checked prove's b_g2 query MSM as {"points": TPoints, "scalars",
+    "out"}); `keep`, when
+    given, gets the proving key as "pk"."""
     from crypto_tpu_torch.curves import bls12_381 as bls
     from crypto_tpu_torch.curves.tcurve import TPoints
     from crypto_tpu_torch.legogroth16 import snark
@@ -1024,9 +1036,6 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "",
         g2_msm = dict(points=TPoints(*(t[:, g2_off:g2_off + len(g2_sc)]
                                        .contiguous() for t in g2_pts)),
                       scalars=g2_sc, out=g2_out)
-        prove_dev = device_profile(f"profile_{tag}prove",
-                                   lambda: create(SEED + 94 + PROVE_RUNS),
-                                   cpu=False)
     finally:
         snark.witness_map, snark._msm_query = real_wm, real_mq
     require(f"{tag}LegoGroth16 prove", launches, PROVE_KERNELS)
@@ -1040,13 +1049,13 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "",
               for k in splits[0]}, msm_points=msm_sizes,
           launches={k: v for k, v in launches.items() if v},
           all_s=t_all, correct=True)
-    phase(f"per_{tag}prove", launches_device_ms=json.dumps(
-        {k: [cnt, round(ms, 4)] for k, (cnt, ms) in prove_dev.items()}))
     pub = [F(int(v_)) for v_ in cs1.instance_assignment[1:]]
     verify_launches = verify_phase(counted, mod, pk, pub, *last, tag)
+    if keep is not None:
+        keep["pk"] = pk
     return {f"{tag}legogroth16_setup": setup_launches,
             f"{tag}legogroth16_prove": launches,
-            f"{tag}legogroth16_verify": verify_launches}, prove_dev, g2_msm
+            f"{tag}legogroth16_verify": verify_launches}, g2_msm
 
 
 def verify_phase(counted, mod, pk, pub, proof, v, committed,
@@ -1146,7 +1155,7 @@ def pairing_phases(counted, dev) -> tuple:
     bilinearity and a product that is one; a lazy checker with 64
     deferred pairs, valid and spoiled; the BBS+ batch verify of `NSIG`
     signatures, valid and spoiled.  Returns ({path: launches}, the level
-    widths of the batch verify's MSMs, the pair set to profile)."""
+    widths of the batch verify's MSMs)."""
     import os
     from types import SimpleNamespace
 
@@ -1355,13 +1364,14 @@ def pairing_phases(counted, dev) -> tuple:
           msm_level_pairs=bbs_widths, rerun_level_pairs=safe_widths,
           launches={k: v for k, v in bbs_launches.items() if v},
           valid=True, spoiled_rejected=True, correct=True)
-    return paths, bbs_widths, sets[1][0]
+    return paths, bbs_widths
 
 
 POK_N = 256                         # proofs in the batch verify
 POK_MSGS = 32                       # BASELINE.json config 2: 32 messages,
 POK_REVEALED = 4                    # 4 of them revealed
 POK_PROTOCOL = 4                    # proofs made by the port's own protocol
+POK_SPOILED_N = 32                  # proofs in the spoiled-response batch
 CHECKER_POKS, CHECKER_SIGS, CHECKER_23 = 16, 4, 2
 
 
@@ -1371,8 +1381,10 @@ def bbs_pok_phases(counted, dev) -> tuple:
     revealed), the pairing on the device, once cold (counted, both MSMs
     held to their known logs) and once warm (timed, host checker, device
     MSMs and pairing apart), and two spoiled sets that must be rejected:
-    one response off by one (the mult checker fails, no pairing runs) and
-    one proof made under another secret key (its Schnorr legs hold, the
+    `POK_SPOILED_N` proofs with one response off by one (the mult checker
+    fails before any MSM or pairing runs) and all `POK_N` with one proof
+    made under another secret key (its Schnorr legs hold, both MSMs run
+    on the card, counted and every level kernel required, and the
     pairing fails).  The params, key and `POK_N - POK_PROTOCOL` proofs
     come from the protocol's algebra over known logs (one
     `known_log_points` call); `POK_PROTOCOL` proofs come from the port's
@@ -1483,8 +1495,11 @@ def bbs_pok_phases(counted, dev) -> tuple:
     for proof, revealed, ch in algebra[:2]:
         proof.verify(revealed, ch, pk, params)
     valid = made + algebra
-    spoiled_resp, spoiled_key = list(valid), list(valid)
-    k = POK_N // 3
+    # the spoiled sets: the first POK_SPOILED_N proofs with one response
+    # spoiled, and all POK_N with one under another key
+    spoiled_resp = list(valid[:POK_SPOILED_N])
+    spoiled_key = list(valid)
+    k = POK_SPOILED_N // 3
     pr, rev, ch = valid[k]
     resp = list(pr.sc_resp_2.responses)
     resp[0] = resp[0] + Fr(1)
@@ -1497,6 +1512,7 @@ def bbs_pok_phases(counted, dev) -> tuple:
     # cold run (the protocol-made proofs' terms on the host); the warm run
     # split into device MSMs, pairing and host work
     widths, safe_widths = [], []
+    sink = [widths, safe_widths]
     real_msm, real_vmsm, real_pair = (batch.msm_device_scheduled,
                                       batch._msm, batch._multi_pairing)
     spent = {"device_msm_s": 0.0, "pairing_s": 0.0, "pairings": 0,
@@ -1505,8 +1521,8 @@ def bbs_pok_phases(counted, dev) -> tuple:
     def checked_msm(curve, points, scalars, device):
         tm = {}
         out = real_msm(curve, points, scalars, device=device, timings=tm)
-        widths.extend(tm["level_pairs"])
-        safe_widths.extend(rerun_widths(tm))
+        sink[0].extend(tm["level_pairs"])
+        sink[1].extend(rerun_widths(tm))
         want, extra = 0, bls.G1.infinity()
         for s_, p in zip(scalars, points):
             if (p.X, p.Y) in log_of:
@@ -1557,11 +1573,17 @@ def bbs_pok_phases(counted, dev) -> tuple:
             t_warm = time.perf_counter() - t
             split = dict(spent)
             spent["pairings"] = 0
+            t = time.perf_counter()
             ok_resp = verify(spoiled_resp, SEED + 204)
             pairings_resp = spent["pairings"]
-            ok_key = verify(spoiled_key, SEED + 205)
+            key_widths, key_safe = sink[:] = [], []
+            batch.msm_device_scheduled = checked_msm
+            ok_key, key_launches = drive(
+                counted, lambda: verify(spoiled_key, SEED + 205))
             pairings_key = spent["pairings"] - pairings_resp
+            t_spoiled = time.perf_counter() - t
         finally:
+            batch.msm_device_scheduled = real_msm
             batch._msm, batch._multi_pairing = real_vmsm, real_pair
     finally:
         if env is None:
@@ -1576,6 +1598,9 @@ def bbs_pok_phases(counted, dev) -> tuple:
             f"{ok_key} ({pairings_key} pairings)")
     require("bbs_pok_batch_verify_256", launches, set(PAIRING_KERNELS)
             | level_kernels(widths, safe_widths, msm_v2.CHUNK_MIN_PAIRS))
+    require("bbs_pok_batch_verify_256 other key", key_launches,
+            set(PAIRING_KERNELS) | level_kernels(key_widths, key_safe,
+                                                 msm_v2.CHUNK_MIN_PAIRS))
     paths["bbs_pok_batch_verify_256"] = launches
     host_s = t_warm - split["device_msm_s"] - split["pairing_s"]
     phase("bbs_pok_batch_verify_256", proofs=POK_N, messages=POK_MSGS,
@@ -1583,10 +1608,13 @@ def bbs_pok_phases(counted, dev) -> tuple:
           cold_s=t_cold, host_checker_s=host_s,
           device_msm_s=split["device_msm_s"], pairing_s=split["pairing_s"],
           proofs_per_s=POK_N / t_warm, build_s=t_build,
+          spoiled_sets_s=t_spoiled,
           **{k: statistics.mean(v) for k, v in secs.items()},
           msm_level_pairs=widths, rerun_level_pairs=safe_widths,
           launches={k: v for k, v in launches.items() if v}, valid=True,
           spoiled_response_rejected=True, other_key_rejected=True,
+          other_key_proofs=POK_N, other_key_level_pairs=key_widths,
+          other_key_launches={k: v for k, v in key_launches.items() if v},
           correct=True)
 
     # ---- bbs_pok_checker_16: PoKs, signatures and BBS23 PoKs through one
@@ -1654,38 +1682,10 @@ def bbs_pok_phases(counted, dev) -> tuple:
 
 SAVER_CB = 8                        # BASELINE config 4: 8-bit chunks (32)
 SAVER_MSGS = 8                      # ... of 8 BBS+-signed messages
-SAVER_DECRYPTS = 3                  # messages decrypted on the card, timed
-SAVER_VERIFY_DECRYPTION = 2         # decryptions whose proof is verified
+SAVER_DECRYPTS = 2                  # messages decrypted on the card, timed
+SAVER_VERIFY_DECRYPTION = 1         # decryptions whose proof is verified
 AGG_N = 8                           # proofs a SnarkPack aggregate folds
 ROUTE_KERNELS = ("mont_mul", "mont_pow", "fq2_mul", "fq2_sqr")
-
-
-def record_shapes(counted, fn):
-    """fn() with every counted wrapper shimmed (`with_shims`) to note the
-    field, exponent and width of every call that launched; returns fn()'s
-    result and {name: {(field prime, exponent): set of widths}}.  A counted
-    kernel other than the pairing's four (`mont_mul` also runs the
-    witness map's NTTs) that launches fails the run: the new paths'
-    checks cover these four."""
-    seen = {f.__name__: {} for f in counted}
-
-    def on_launch(name, args):
-        if name in ("fq2_mul", "fq2_sqr"):
-            key, width = (args[0].mod.p, None), args[1].shape[1]
-        elif name == "mont_pow":
-            key, width = (args[2].p, args[1]), args[0].shape[1]
-        elif name == "mont_mul":
-            key, width = (args[2].p, None), args[0].shape[1]
-        else:
-            key, width = (None, None), None
-        seen[name].setdefault(key, set()).add(width)
-
-    out = with_shims(counted, on_launch, fn)
-    other = sorted(k for k, v in seen.items() if v and k not in ROUTE_KERNELS)
-    if other:
-        raise AssertionError(f"the SAVER and aggregation paths launched "
-                             f"{other}, which their checks do not cover")
-    return out, {k: v for k, v in seen.items() if v}
 
 
 def saver_aggregate_phases(counted, dev) -> tuple:
@@ -1699,9 +1699,8 @@ def saver_aggregate_phases(counted, dev) -> tuple:
       first `SAVER_DECRYPTS` on the card through the batched
       multi-pairing (every chunk's product and base in one call, timed,
       each message equal to the signed one), `verify_decryption` of
-      `SAVER_VERIFY_DECRYPTION`, a changed
-      chunk and a wrong message rejected, and one decryption on the host
-      route for comparison;
+      `SAVER_VERIFY_DECRYPTION`, a changed chunk and a wrong message
+      rejected;
     * `saver_aggregate_8`: the 8 SAVER proofs aggregated by SnarkPack
       without D (as the proof system aggregates Groth16 proofs), the
       prover split into its pairing calls, MSMs and host work; verified
@@ -1724,9 +1723,9 @@ def saver_aggregate_phases(counted, dev) -> tuple:
     device route; its four kernels) or, for `saver_aggregate_8`, of
     `TPairing.miller_product` (the checker's; its three);
     `legogroth16_aggregate_8` requires a batched call.  Returns ({path:
-    launches}, {path: the widths each kernel ran at}, the SAVER CRS,
-    generators and keys and the bound-check key, for
-    `proof_system_phase`)."""
+    launches}, {path: its launches' arguments, as `capture_launches`
+    keeps them}, the SAVER CRS, generators and keys and the bound-check
+    key, for `proof_system_phase`)."""
     import os
 
     from crypto_tpu_torch.bbs_plus.setup import KeypairG2, SignatureParamsG1
@@ -1739,7 +1738,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
     from crypto_tpu_torch.transcript.transcript import Transcript
     Fr = bls.Fr
     hr = random.Random(SEED + 300)
-    paths, shapes, keep = {}, {}, {}
+    paths, captured, keep = {}, {}, {}
     batches = []                       # (path, groups k, lanes k m)
     real_batch = tpairing.TPairing.multi_pairings
     real_miller = tpairing.TPairing.miller_product
@@ -1761,7 +1760,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
         def run(path, fn, need_batch=False):
             path_now[0] = path
             (out, seen), launches = drive(
-                counted, lambda: record_shapes(counted, fn))
+                counted, lambda: capture_launches(counted, fn))
             batched = any(b[0] == path and b[1] for b in batches)
             require(path, launches, ROUTE_KERNELS if batched
                     else CHECKER_KERNELS)
@@ -1772,7 +1771,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
                 raise AssertionError(f"{path}: no batched multi-pairing "
                                      f"call")
             paths[path] = launches
-            shapes[path] = seen
+            captured[path] = seen
             return out
 
         # ---- saver_config4 ---------------------------------------------
@@ -1839,16 +1838,6 @@ def saver_aggregate_phases(counted, dev) -> tuple:
                                                SAVER_CB, device=dev):
                 raise AssertionError("saver_config4: a changed chunk or a "
                                      "wrong message was accepted")
-            os.environ[PAIRING_ENV] = "host"
-            try:
-                t0 = time.perf_counter()
-                host = saver.decrypt(ct, sk, dk, g_i, SAVER_CB, device=dev)
-                t["decrypt_host_route_s"] = time.perf_counter() - t0
-            finally:
-                os.environ.pop(PAIRING_ENV)
-            if host != decs[0]:
-                raise AssertionError("saver_config4: the host route's "
-                                     "decryption differs")
             keep.update(gens=gens, spk=spk, g_i=g_i, sk=sk, ek=ek, dk=dk)
             return t, spk, cts
 
@@ -1982,129 +1971,7 @@ def saver_aggregate_phases(counted, dev) -> tuple:
         tpairing.TPairing.miller_product = real_miller
         if env is not None:
             os.environ[PAIRING_ENV] = env
-    return paths, shapes, keep
-
-
-def route_kernel_checks(row, agree, shapes, dev) -> list:
-    """Every kernel the SAVER and aggregation paths launched, held bit for
-    bit against its plain version at every width those paths gave it (as
-    `record_shapes` saw them): random elements with the edges 0, 1 and
-    p - 1 first, the kernel at each width on its own slice, the plain
-    version once over all of a kernel's widths (it is lane by lane).
-    `mont_pow`'s plain version runs 608 dependent products whatever the
-    width, so the three paths' widths share one plain call.  Returns the
-    kernels-line rows, one a path and kernel at its widest width."""
-    from crypto_tpu_torch.curves import bls12_381 as bls
-    from crypto_tpu_torch.fields.tfield import tfield_for
-    from crypto_tpu_torch.fields.ttower import tquad_for
-    from crypto_tpu_torch.ops.kernels import field_kernels as fk
-    csrc = "crypto_tpu_torch/csrc/"
-    mref = "crypto_tpu/ops/pallas/field_kernels.py:386"
-    fref = "crypto_tpu/ops/pallas/curve_kernels.py:"
-    hr = random.Random(SEED + 310)
-    fields = {bls.Fq.p: bls.Fq, bls.Fr.p: bls.Fr}
-    F2 = tquad_for(bls.Fq2, dev)
-    rows, checked = [], []
-
-    def elems(p: int, M: int) -> torch.Tensor:
-        Fx = tfield_for(fields[p], dev)
-        return Fx.pack([0, 1, p - 1][:M] + [hr.randrange(p)
-                                           for _ in range(M - 3)])
-
-    def fq2s(M: int) -> torch.Tensor:
-        return torch.cat([elems(bls.Fq.p, M), elems(bls.Fq.p, M).flip(1)])
-
-    def slices(widths):
-        out, at = [], 0
-        for w in widths:
-            out.append(slice(at, at + w))
-            at += w
-        return out
-
-    pow_args = []
-    for path, seen in shapes.items():
-        for name, by_key in seen.items():
-            for n_key, ((p, e), ws) in enumerate(sorted(
-                    by_key.items(), key=lambda kv: -max(kv[1]))):
-                ws = sorted(ws)
-                total = sum(ws)
-                if name == "mont_pow":
-                    pow_args.append((path, p, e, ws, elems(p, total)))
-                    continue
-                if name == "mont_mul":
-                    L = tfield_for(fields[p], dev).L
-                    a, b = elems(p, total), elems(p, total).flip(1)
-                    mod = tfield_for(fields[p], dev).mod
-                    kern = (lambda s: fk.mont_mul(a[:, s].contiguous(),
-                                                  b[:, s].contiguous(), mod))
-                    plain = (lambda s: fk.mont_mul_plain(
-                        a[:, s].contiguous(), b[:, s].contiguous(), mod))
-                    args = lambda s: (a[:, s].contiguous(),
-                                      b[:, s].contiguous(), mod)
-                    src, rep = csrc + "mont_mul.cu", mref
-                elif name == "fq2_mul":
-                    L = 2 * F2.L
-                    a, b = fq2s(total), fq2s(total).flip(1)
-                    kern = (lambda s: fk.fq2_mul(F2.base, a[:, s].contiguous(),
-                                                 b[:, s].contiguous()))
-                    plain = (lambda s: fk.fq2_mul_plain(
-                        F2.base, a[:, s].contiguous(), b[:, s].contiguous()))
-                    args = lambda s: (F2.base, a[:, s].contiguous(),
-                                      b[:, s].contiguous())
-                    src, rep = csrc + "fq2_mul.cu", fref + "1066"
-                else:
-                    L = 2 * F2.L
-                    a = fq2s(total)
-                    kern = (lambda s: fk.fq2_sqr(F2.base,
-                                                 a[:, s].contiguous()))
-                    plain = (lambda s: fk.fq2_sqr_plain(F2.base,
-                                                        a[:, s].contiguous()))
-                    args = lambda s: (F2.base, a[:, s].contiguous())
-                    src, rep = csrc + "fq2_mul.cu", fref + "908"
-                whole = plain(slice(0, total))
-                for w, s in zip(ws, slices(ws)):
-                    agree(name, (kern(s),), (whole[:, s],),
-                          f"on {path} at M={w}")
-                checked.append([path, name, fields[p].name, ws])
-                if n_key:
-                    continue
-                widest = slices(ws)[-1]
-                pm, pm_ms = timed_call(lambda: plain(widest))
-                err = agree(name, (kern(widest),), (pm,),
-                            f"on {path} at M={ws[-1]}")
-                rows.append(row(name, src, rep, path, err,
-                                cuda_ms(lambda: kern(widest)), pm_ms,
-                                args(widest), [L, ws[-1]]))
-    # mont_pow: every path's widths in one plain call, the row at the
-    # widest width of all
-    if pow_args:
-        p, e = pow_args[0][1], pow_args[0][2]
-        if any((q, f) != (p, e) for _, q, f, _, _ in pow_args):
-            raise AssertionError(f"mont_pow ran at more than one field or "
-                                 f"exponent on the new paths: {pow_args}")
-        mod = tfield_for(fields[p], dev).mod
-        x = torch.cat([t for *_, t in pow_args], 1)
-        whole = fk.mont_pow_plain(x, e, mod)
-        at, widest = 0, None
-        for path, _, _, ws, t in pow_args:
-            for w, s in zip(ws, slices(ws)):
-                agree("mont_pow", (fk.mont_pow(t[:, s].contiguous(), e, mod),),
-                      (whole[:, at + s.start:at + s.stop],),
-                      f"on {path} at M={w}")
-            if widest is None or ws[-1] > widest[1]:
-                widest = (path, ws[-1], t[:, slices(ws)[-1]].contiguous())
-            checked.append([path, "mont_pow", fields[p].name, ws])
-            at += t.shape[1]
-        path, w, t = widest
-        pw, pw_ms = timed_call(lambda: fk.mont_pow_plain(t, e, mod))
-        err = agree("mont_pow", (fk.mont_pow(t, e, mod),), (pw,),
-                    f"on {path} at M={w}")
-        rows.append(row("mont_pow", csrc + "mont_mul.cu", mref, path, err,
-                        cuda_ms(lambda: fk.mont_pow(t, e, mod)), pw_ms,
-                        (t, e, mod), [t.shape[0], w]))
-    phase("check_saver_aggregation_kernels",
-          path_kernel_field_widths=json.dumps(checked), bit_exact=True)
-    return rows
+    return paths, captured, keep
 
 
 NELEM = 1 << 14                     # benches/bench_accumulator.py NELEM
@@ -2320,7 +2187,7 @@ def proof_system_phase(counted, dev, saver_keep, acc_keep) -> tuple:
     five statements, the age across the credential and the bound check.
 
     Each path below runs with the launch counts reset before it and read
-    after, and `record_shapes` noting every width: `Proof.new`
+    after, and `capture_launches` keeping its launches: `Proof.new`
     (`proof_system_prove`: the SNARK provers' witness maps on the card;
     their MSMs on the card only from `legogroth16/snark.py`'s threshold,
     and whether one did is reported), `Proof.verify` with no checker,
@@ -2333,8 +2200,8 @@ def proof_system_phase(counted, dev, saver_keep, acc_keep) -> tuple:
     broken witness equality (a Pedersen commitment to another value), a
     changed SAVER ciphertext and an age out of range at prove time are
     rejected.  The pairing backend variable is unset: the router and the
-    checker take their own choice.  Returns ({path: launches}, {path: the
-    widths each kernel ran at})."""
+    checker take their own choice.  Returns ({path: launches}, {path: its
+    captured launches})."""
     import copy
     import os
 
@@ -2408,7 +2275,7 @@ def proof_system_phase(counted, dev, saver_keep, acc_keep) -> tuple:
                 [value, blinding]] + ([uid, age] if snarks else [])
 
     spec = spec_of()
-    paths, shapes = {}, {}
+    paths, captured = {}, {}
     miller, device_msms = [], []
     real_miller = tpairing.TPairing.miller_product
     real_msm = snark.msm_device_scheduled
@@ -2428,12 +2295,12 @@ def proof_system_phase(counted, dev, saver_keep, acc_keep) -> tuple:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (out, seen), launches = drive(
-            counted, lambda: record_shapes(counted, fn))
+            counted, lambda: capture_launches(counted, fn))
         torch.cuda.synchronize()
         t[path + "_s"] = time.perf_counter() - t0
         require(path, launches, need)
         paths[path] = launches
-        shapes[path] = seen
+        captured[path] = seen
         return out
 
     env = os.environ.pop(PAIRING_ENV, None)
@@ -2520,8 +2387,419 @@ def proof_system_phase(counted, dev, saver_keep, acc_keep) -> tuple:
           launches={p: {n: c for n, c in v.items() if c}
                     for p, v in paths.items()},
           decrypted=True, refused=refused, correct=True)
-    return paths, shapes
+    return paths, captured
 
+
+
+# ---- the range statements and the Circom statement (`proof_system_ranges`)
+PR_MSGS = 32                        # BASELINE config 2's credential: 32
+PR_REVEALED = 4                     # messages, 4 of them revealed
+PR_BASE = 16                        # the CCS range proofs' digit base
+# a 64-bit attribute (a timestamp in ns) in [PR_MIN, PR_MAX): 64-bit
+# bounds, whose CCS decompositions take 16 base-16 digits each
+PR_MIN, PR_MAX = 1 << 62, (1 << 63) + (1 << 61)
+PR_NONCE = b"chip-smoke ranges nonce"
+# each kernel wrapper's source, and the `pl.pallas_call` line it replaces
+KERNEL_SOURCE = {
+    "mont_mul": ("mont_mul.cu", "ops/pallas/field_kernels.py:386"),
+    "mont_pow": ("mont_mul.cu", "ops/pallas/field_kernels.py:386"),
+    "fq2_mul": ("fq2_mul.cu", "ops/pallas/curve_kernels.py:1066"),
+    "fq2_sqr": ("fq2_mul.cu", "ops/pallas/curve_kernels.py:908"),
+    "gather_rows_t": ("gather.cu", "ops/pallas/field_kernels.py:356"),
+    "slot_tables": ("gather.cu", "ops/msm_v2.py:719"),
+    "affine_level_pre": ("affine_level.cu", "ops/pallas/curve_kernels.py:533"),
+    "affine_level_post": ("affine_level.cu",
+                          "ops/pallas/curve_kernels.py:548"),
+    "affine_level_pre_fast": ("affine_level.cu",
+                              "ops/pallas/curve_kernels.py:739"),
+    "affine_level_post_fast": ("affine_level.cu",
+                               "ops/pallas/curve_kernels.py:752"),
+    "chunked_level_prefix": ("chunked_level.cu",
+                             "ops/pallas/curve_kernels.py:844"),
+    "chunked_level_down": ("chunked_level.cu",
+                           "ops/pallas/curve_kernels.py:860"),
+    "chunked_level_prefix_fast": ("chunked_level.cu",
+                                  "ops/pallas/curve_kernels.py:669"),
+    "chunked_level_down_fast": ("chunked_level.cu",
+                                "ops/pallas/curve_kernels.py:683"),
+    "affine_level_pre_fq2": ("affine_level_fq2.cu",
+                             "ops/pallas/curve_kernels.py:1014"),
+    "affine_level_post_fq2": ("affine_level_fq2.cu",
+                              "ops/pallas/curve_kernels.py:1029"),
+}
+
+
+def plain_of(name: str):
+    """The plain PyTorch version of the kernel wrapper `name` (the Fq2
+    levels' is the generic level's over Fq2)."""
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    base = name[:-len("_fq2")] if name.endswith("_fq2") else name
+    return getattr(fk, base + "_plain", None) or getattr(ck, base + "_plain")
+
+
+def kernel_of(name: str):
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    from crypto_tpu_torch.ops.kernels import field_kernels as fk
+    return getattr(fk, name, None) or getattr(ck, name)
+
+
+def launch_shape(name: str, args) -> list:
+    """The [rows, lanes] a launch of `name` ran at: the gather's payload
+    words and slots, otherwise its first tensor's."""
+    if name == "gather_rows_t":
+        return [args[0].shape[1], args[1].shape[0]]
+    t = next(a for a in args if isinstance(a, torch.Tensor))
+    return list(t.shape)
+
+
+def capture_launches(counted, fn):
+    """fn() with every counted wrapper shimmed (`with_shims`) to keep a
+    copy of the arguments of the first launch at each shape (and
+    exponent) of each kernel; returns fn()'s result and {(name, shape
+    key): args}."""
+    seen = {}
+
+    def on_launch(name, args):
+        key = (name,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
+                              else a if isinstance(a, int) else None
+                              for a in args)
+        if key not in seen:
+            seen[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args)
+
+    return with_shims(counted, on_launch, fn), seen
+
+
+def captured_kernel_checks(row, agree, captured: dict) -> list:
+    """Every kernel launch `capture_launches` kept, per path: the kernel
+    against its plain version on the same arguments, bit for bit.
+    `mont_pow`'s plain version is lane by lane (608 dependent products,
+    ~4-5 s a call at any width), so every path's launches of one
+    exponent share one plain call over their inputs side by side, and it
+    has no row here (its rows are `check_mont_pow`'s).  Returns the
+    kernels-line rows, one a path and kernel at its widest launch."""
+    rows, checked, pows = [], [], {}
+    for path, seen in captured.items():
+        widest = {}
+        for key, args in seen.items():
+            name = key[0]
+            shape = launch_shape(name, args)
+            checked.append([path, name, shape])
+            if name == "mont_pow":
+                pows.setdefault((args[1], args[2].p), []).append((path,
+                                                                  args))
+                continue
+            out, want = kernel_of(name)(*args), plain_of(name)(*args)
+            agree(name, out if isinstance(out, tuple) else (out,),
+                  want if isinstance(want, tuple) else (want,),
+                  f"on {path} at {shape}")
+            if shape[0] * shape[1] > widest.get(name, (0, None))[0]:
+                widest[name] = (shape[0] * shape[1], args)
+        rows.extend(kernel_row(row, agree, path, name, args)
+                    for name, (_, args) in sorted(widest.items()))
+    for (e, _), group in pows.items():
+        mod = group[0][1][2]
+        whole = plain_of("mont_pow")(torch.cat([a[0] for _, a in group], 1),
+                                     e, mod)
+        at = 0
+        for path, a in group:
+            m = a[0].shape[1]
+            agree("mont_pow", (kernel_of("mont_pow")(*a),),
+                  (whole[:, at:at + m],), f"on {path} at M={m}")
+            at += m
+    phase("check_captured_kernels", path_kernel_shape=json.dumps(checked),
+          bit_exact=True)
+    return rows
+
+
+def kernel_row(row, agree, path: str, name: str, args) -> dict:
+    """The kernels-line row of `name` on `path` at the launch `args`: its
+    plain version timed once and held to the kernel, the kernel timed."""
+    src, rep = KERNEL_SOURCE[name]
+    want, plain_ms = timed_call(lambda: plain_of(name)(*args))
+    out = kernel_of(name)(*args)
+    err = agree(name, out if isinstance(out, tuple) else (out,),
+                want if isinstance(want, tuple) else (want,), f"on {path}")
+    return row(name, "crypto_tpu_torch/csrc/" + src, "crypto_tpu/" + rep,
+               path, err, cuda_ms(lambda: kernel_of(name)(*args)), plain_ms,
+               args, launch_shape(name, args))
+
+
+def proof_system_ranges_phase(counted, dev, lego_pk) -> tuple:
+    """The range statements and the Circom statement in one composite
+    proof on the card (`proof_system_ranges`): a BBS+ credential over
+    `PR_MSGS` messages (`PR_REVEALED` revealed; message 0 a 64-bit
+    timestamp, message 1 an attribute, message 2 the circuit's committed
+    wire), and, each linked to its message by a witness equality: the
+    timestamp in [`PR_MIN`, `PR_MAX`) by the Bulletproofs++ bound check
+    (64 bits in base-2 digits, the statement's), by the CCS arbitrary range (base
+    `PR_BASE`: 2 x 16 digits) and by its keyed-verification form (the
+    prover's statement in the prover's spec, the verifier's, holding the
+    weak-BB key, in the verifier's); message 1 unequal to a public value;
+    and `chain_circuit` at 2^LEGO_LOG - 4 constraints written as Circom's
+    `.r1cs` (`testing.r1cs_of`, into build/), read back by
+    `legogroth16/circom.py` and proven under `legogroth16_phases`' key
+    (`lego_pk`: the same constraint system, `tests/test_torch_circom.py`).
+
+    Each path runs with the launch counts reset before it and read after,
+    and every launch's arguments kept (`capture_launches`): `Proof.new`
+    (`proof_system_ranges_prove`: the Circom prover's witness map and
+    its G1 and G2 query MSMs on the card, every MSM kernel required),
+    `Proof.verify` with no checker, with the lazy checker (one device
+    Miller product of 34 or more pairs; mont_mul, fq2_mul and fq2_sqr
+    required) and with the eager one, each timed.  Every routed pairing
+    call's pairs, products and route are listed.  A wrong nonce, a broken
+    witness equality, a spoiled Bulletproofs++ proof, a spoiled
+    set-membership digit (its response z_v, which passes the commitment
+    check: the lazy checker's one device Miller product refuses it) and a
+    timestamp out of range at prove time are refused.  Returns ({path: launches}, {path: captured launches})."""
+    import copy
+    import os
+
+    from crypto_tpu_torch.bbs_plus.setup import KeypairG2, SignatureParamsG1
+    from crypto_tpu_torch.bbs_plus.signature import SignatureG1
+    from crypto_tpu_torch.bulletproofs_pp.range_proof import SetupParams
+    from crypto_tpu_torch.bulletproofs_pp.wnla import BppError
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves import tpairing
+    from crypto_tpu_torch.legogroth16 import snark
+    from crypto_tpu_torch.legogroth16.circom import parse_r1cs
+    from crypto_tpu_torch.proof_system import statements as st
+    from crypto_tpu_torch.proof_system import statements_ranges as sr
+    from crypto_tpu_torch.proof_system.base import ProofSpec, \
+        ProofSystemError
+    from crypto_tpu_torch.proof_system.proof import Proof, VerifierConfig
+    from crypto_tpu_torch.r1cs.cs import ConstraintSystem
+    from crypto_tpu_torch.smc_range_proof.ccs import (
+        MemberCommitmentKey, SetMembershipCheckParams, SmcError)
+    from crypto_tpu_torch.smc_range_proof.kv import \
+        SetMembershipCheckParamsKV
+    from crypto_tpu_torch.testing import r1cs_of
+    from crypto_tpu_torch.utils.commitment import PedersenCommitmentKey
+    Fr = bls.Fr
+    hr = random.Random(SEED + 600)
+    t = {}
+    t0 = time.perf_counter()
+    sig_params = SignatureParamsG1.generate_using_rng(hr, PR_MSGS)
+    issuer = KeypairG2.generate(hr, sig_params)
+    stamp = hr.randrange(PR_MIN, PR_MAX)
+    x = Fr.rand(hr)
+    msgs = [Fr(stamp), Fr.rand(hr), x] + [Fr.rand(hr)
+                                          for _ in range(PR_MSGS - 3)]
+    sig = SignatureG1.new(hr, msgs, issuer.secret_key, sig_params)
+    revealed = {i: msgs[i] for i in range(PR_MSGS - PR_REVEALED, PR_MSGS)}
+    bpp = SetupParams.new_for_perfect_range_proof(b"chip-smoke bpp", 2, 64,
+                                                  2)
+    smc = SetMembershipCheckParams.new_for_range_proof(hr, b"chip-smoke smc",
+                                                       PR_BASE)
+    smc_kv = SetMembershipCheckParamsKV.new_for_range_proof(
+        hr, b"chip-smoke smc kv", PR_BASE)
+    ck = MemberCommitmentKey.new(b"chip-smoke smc ck")
+    ped = PedersenCommitmentKey.new(bls.G1, b"chip-smoke ineq")
+    ped_r = Fr.rand(hr)
+    ped_c = ped.commit(msgs[1], ped_r)
+    inequal_to = msgs[1] + Fr(1)
+    t["setup_s"] = time.perf_counter() - t0
+
+    # the circuit as Circom's .r1cs, written and read back; its wires
+    t0 = time.perf_counter()
+    nc = (1 << LEGO_LOG) - 4
+    cs1 = ConstraintSystem(Fr, mode="prove")
+    chain_circuit(nc, x)(cs1)
+    wires = cs1.full_assignment()
+    path = Path("build") / "chain_circuit.r1cs"
+    path.parent.mkdir(exist_ok=True)
+    path.write_bytes(r1cs_of(cs1, 1, 1))
+    r1cs = parse_r1cs(str(path))
+    out = wires[1]
+    t["circom_r1cs_s"] = time.perf_counter() - t0
+    if (r1cs.n_constraints, r1cs.n_wires, r1cs.n_public) != (nc, nc + 2, 1):
+        raise AssertionError(f"proof_system_ranges: the .r1cs read back as "
+                             f"{r1cs.n_constraints} constraints, "
+                             f"{r1cs.n_wires} wires")
+
+    def spec_of(verifier=True, link=0, bpp_only=False):
+        spec = ProofSpec(context=b"chip-smoke ranges")
+        s0 = spec.add_statement(st.PoKBBSSignatureG1(
+            params=sig_params, public_key=issuer.public_key,
+            revealed_messages=revealed))
+        rng_ = [(s0, link), (spec.add_statement(sr.BoundCheckBpp(
+            min_val=PR_MIN, max_val=PR_MAX, bpp_params=bpp)), 0)]
+        if bpp_only:
+            spec.add_witness_equality(rng_)
+            return spec
+        rng_.append((spec.add_statement(sr.BoundCheckSmc(
+            min_val=PR_MIN, max_val=PR_MAX, params=smc, comm_key=ck,
+            base=PR_BASE)), 0))
+        kv = sr.BoundCheckSmcWithKVVerifier(
+            min_val=PR_MIN, max_val=PR_MAX, params=smc_kv, comm_key=ck,
+            base=PR_BASE, secret_key=smc_kv.sk) if verifier else \
+            sr.BoundCheckSmcWithKVProver(
+                min_val=PR_MIN, max_val=PR_MAX, params=smc_kv, comm_key=ck,
+                base=PR_BASE)
+        rng_.append((spec.add_statement(kv), 0))
+        spec.add_witness_equality(rng_)
+        s4 = spec.add_statement(sr.PublicInequalityStatement(
+            commitment=ped_c, inequal_to=inequal_to, comm_key=ped))
+        spec.add_witness_equality([(s0, 1), (s4, 0)])
+        s5 = spec.add_statement(sr.R1CSCircomStatement(
+            r1cs=r1cs, snark_pk=lego_pk, public_inputs=[out]))
+        spec.add_witness_equality([(s0, 2), (s5, 0)])
+        return spec
+
+    def wits_of(stamp_value=stamp, bpp_only=False):
+        w = [st.BBSWitness(signature=sig, messages=msgs), Fr(stamp_value)]
+        if bpp_only:
+            return w
+        return w + [Fr(stamp_value), Fr(stamp_value), (msgs[1], ped_r),
+                    wires]
+
+    paths, captured = {}, {}
+    miller, device_msms, routes = [], [], []
+    real_miller = tpairing.TPairing.miller_product
+    real_msm = snark.msm_device_scheduled
+    real_route = tpairing.pairing_route
+    path_now = [None]
+
+    def miller_spy(self, pairs):
+        miller.append((path_now[0], len(pairs)))
+        return real_miller(self, pairs)
+
+    def msm_spy(curve, points, scalars, **kw):
+        device_msms.append((path_now[0], curve.name, len(scalars)))
+        return real_msm(curve, points, scalars, **kw)
+
+    def route_spy(npairs, ngroups=1):
+        r = real_route(npairs, ngroups)
+        routes.append((path_now[0], npairs, ngroups, r))
+        return r
+
+    def run(path, fn, need=()):
+        path_now[0] = path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (res, seen), launches = drive(
+            counted, lambda: capture_launches(counted, fn))
+        torch.cuda.synchronize()
+        t[path + "_s"] = time.perf_counter() - t0
+        require(path, launches, need)
+        paths[path] = launches
+        captured[path] = seen
+        return res
+
+    env = os.environ.pop(PAIRING_ENV, None)
+    tpairing.TPairing.miller_product = miller_spy
+    tpairing.pairing_route = route_spy
+    snark.msm_device_scheduled = msm_spy
+    spec = spec_of()
+    try:
+        proof = run("proof_system_ranges_prove", lambda: Proof.new(
+            hr, spec_of(verifier=False), wits_of(), nonce=PR_NONCE,
+            device=dev), PROVE_KERNELS + LEVEL_KERNELS[("pre_post", False)])
+        sizes = sorted({(c, n) for p, c, n in device_msms
+                        if p == "proof_system_ranges_prove"})
+        if not any(c == bls.G2.name for c, _ in sizes) \
+                or max(n for _, n in sizes) < nc:
+            raise AssertionError(f"proof_system_ranges: the Circom prove's "
+                                 f"device MSMs {sizes}")
+        for mode, cfg, need in (("none", None, ()),
+                                ("lazy", VerifierConfig(True),
+                                 CHECKER_KERNELS),
+                                ("eager", VerifierConfig(False), ())):
+            if not run(f"proof_system_ranges_verify_{mode}",
+                       lambda: proof.verify(hr, spec, nonce=PR_NONCE,
+                                            config=cfg, device=dev), need):
+                raise AssertionError(f"proof_system_ranges: verify ({mode}) "
+                                     f"refused the proof")
+        lazy = [n for p, n in miller if p == "proof_system_ranges_verify_lazy"]
+        if len(lazy) != 1 or lazy[0] < 34:
+            raise AssertionError(f"proof_system_ranges: the lazy checker's "
+                                 f"device Miller products {lazy}")
+        if any(p != "proof_system_ranges_verify_lazy" for p, _ in miller):
+            raise AssertionError(f"proof_system_ranges: a device Miller "
+                                 f"product off the lazy verify: {miller}")
+        path_now[0] = "rejections"
+
+        # ---- rejections, outside the counted paths
+        t0 = time.perf_counter()
+        refused = {}
+
+        def refuses(name, fn, err=ProofSystemError, match=""):
+            try:
+                fn()
+            except err as e:
+                refused[name] = match in str(e)
+                return
+            refused[name] = False
+
+        refuses("wrong_nonce", lambda: proof.verify(
+            hr, spec, nonce=b"another nonce", device=dev))
+        refuses("broken_equality", lambda: proof.verify(
+            hr, spec_of(link=3), nonce=PR_NONCE, device=dev),
+            match="equality")
+        bad = copy.deepcopy(proof)
+        wn = bad.statement_proofs[1].bpp_proof.norm_proof
+        wn.n = [wn.n[0] + Fr(1)]
+        refuses("spoiled_bpp", lambda: bad.verify(
+            hr, spec, nonce=PR_NONCE, device=dev), match="BP++")
+        # a spoiled digit response z_v passes the commitment check: only
+        # its pairing equation, deferred into the lazy checker's one
+        # device Miller product, refuses it
+        bad_digit = copy.deepcopy(proof)
+        rp = bad_digit.statement_proofs[2].range_proof
+        rp.z_v_min = [rp.z_v_min[0] + Fr(1)] + rp.z_v_min[1:]
+        path_now[0] = "spoiled_digit"
+        _, digit_launches = drive(counted, lambda: refuses(
+            "spoiled_digit", lambda: bad_digit.verify(
+                hr, spec, nonce=PR_NONCE, config=VerifierConfig(True),
+                device=dev), match="accumulated pairing check"))
+        path_now[0] = "rejections"
+        require("proof_system_ranges spoiled digit", digit_launches,
+                CHECKER_KERNELS)
+        digit_miller = [n for p, n in miller if p == "spoiled_digit"]
+        if len(digit_miller) != 1 or digit_miller[0] < 34:
+            raise AssertionError(f"proof_system_ranges: the spoiled digit's "
+                                 f"device Miller products {digit_miller}")
+        refuses("stamp_out_of_range_bpp", lambda: Proof.new(
+            hr, spec_of(verifier=False, bpp_only=True),
+            wits_of(PR_MAX, bpp_only=True), nonce=PR_NONCE, device=dev),
+            BppError)
+        small = ProofSpec()
+        small.add_statement(sr.BoundCheckSmc(
+            min_val=PR_MIN, max_val=PR_MAX, params=smc, comm_key=ck,
+            base=PR_BASE))
+        refuses("stamp_out_of_range_smc", lambda: Proof.new(
+            hr, small, [Fr(PR_MIN - 1)], nonce=PR_NONCE, device=dev),
+            SmcError)
+        t["rejections_s"] = time.perf_counter() - t0
+        if not all(refused.values()):
+            raise AssertionError(f"proof_system_ranges: not refused: "
+                                 f"{refused}")
+    finally:
+        tpairing.TPairing.miller_product = real_miller
+        tpairing.pairing_route = real_route
+        snark.msm_device_scheduled = real_msm
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    phase("proof_system_ranges", statements=len(spec.statements),
+          messages=PR_MSGS, revealed=PR_REVEALED, ccs_base=PR_BASE,
+          bpp_base=2,
+          bounds=[PR_MIN, PR_MAX], circom_constraints=nc,
+          prove_s=t["proof_system_ranges_prove_s"],
+          verify_s={m: t[f"proof_system_ranges_verify_{m}_s"]
+                    for m in ("none", "lazy", "eager")},
+          setup_s=t["setup_s"], circom_r1cs_s=t["circom_r1cs_s"],
+          rejections_s=t["rejections_s"], deferred_pairs=lazy[0],
+          spoiled_digit_pairs=digit_miller[0],
+          spoiled_digit_launches={n: c for n, c in digit_launches.items()
+                                  if c},
+          prover_device_msms=[[c, n] for c, n in sizes],
+          routes=[list(r) for r in routes],
+          launches={p: {n: c for n, c in v.items() if c}
+                    for p, v in paths.items()},
+          refused=refused, correct=True)
+    return paths, captured
 
 BN254_MSM_RUNS = 2                  # timed 2^20 BN254 G1 MSMs
 # the L = 8 instantiations the BN254 paths must launch between them: every
@@ -3297,24 +3575,21 @@ def main() -> int:
           bench_points_seconds=round(t_points, 3), card=repr(card),
           correct=True)
 
-    # ---- the 2^20 MSM on the total-formula levels (safe=True) against the
-    # default, one turn each on one scalar set (safe, then fast)
+    # ---- safe=True once on fresh scalars: the total-formula levels
     sc, sb = make_bench_scalars(bls.R, n, SEED + 40)
-    expect = G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R)
-    msm_turns = {True: [], False: []}
-    for safe in (True, False):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = msm_v2.msm_device_scheduled(bls.G1, points, sb, c=16,
-                                          safe=safe)
-        msm_turns[safe].append(time.perf_counter() - t)
-        if res != expect:
-            raise AssertionError(f"2^20 MSM with safe={safe} disagrees with "
-                                 f"the known-dlog result")
-    phase("msm_safe_vs_fast", n=n, safe_s=msm_turns[True],
-          fast_s=msm_turns[False],
-          safe_median_s=statistics.median(msm_turns[True]),
-          fast_median_s=statistics.median(msm_turns[False]), correct=True)
+    t_s = {}
+    t0 = time.perf_counter()
+    res, safe_launches = drive(counted, lambda: msm_v2.msm_device_scheduled(
+        bls.G1, points, sb, c=16, safe=True, timings=t_s))
+    dt_s = time.perf_counter() - t0
+    if res != G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R) \
+            or t_s["rerun_windows"]:
+        raise AssertionError("2^20 MSM with safe=True disagrees with the "
+                             "known-dlog result or reran")
+    require("safe 2^20 MSM", safe_launches,
+            level_kernels([], t_s["level_pairs"], thr))
+    paths["msm_safe_2^20"] = (safe_launches, t_s["level_pairs"])
+    phase("msm_safe", n=n, seconds=dt_s, phases=floats(t_s), correct=True)
 
     # ---- the rerun path: a duplicated base collides in one window -------
     sc, sb = make_bench_scalars(bls.R, n, SEED + 50)
@@ -3524,30 +3799,6 @@ def main() -> int:
           slots=t2["slots"], launches={k: g2_launches[k] for k in G2_KERNELS},
           card=repr(card), correct=True)
 
-    # ---- the G2 MSM with its squares through the square kernel (the
-    # default) against the Karatsuba product kernel, in turns on one
-    # scalar set (product, square, square, product)
-    sq_turns = {"product": [], "square": []}
-    for kind in ("product", "square", "square", "product"):
-        if kind == "product":
-            F2.square = lambda a: F2.mul(a, a)
-        tt = {}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = msm_v2.msm_device_scheduled(bls.G2, points2, sb2, c=16,
-                                          timings=tt)
-        sq_turns[kind].append((time.perf_counter() - t, tt["tail"]))
-        F2.__dict__.pop("square", None)
-        if res != expect:
-            raise AssertionError(f"2^20 G2 MSM with squares by {kind} "
-                                 f"disagrees with the known-dlog result")
-    out = {}
-    for k, v in sq_turns.items():
-        out[f"{k}_s"] = [s for s, _ in v]
-        out[f"{k}_tail_s"] = [tail for _, tail in v]
-        out[f"{k}_median_s"] = statistics.median(s for s, _ in v)
-    phase("g2_square_vs_product", n=n, **out, correct=True)
-
     # ---- G2 edge MSMs: duplicates, P and -P, infinity, zero scalars, and
     # all-equal scalars (the grid path); the total formula, no rerun
     hr = random.Random(SEED + 70)
@@ -3578,9 +3829,10 @@ def main() -> int:
     # ---- the QAP witness map at 2^20, and the LegoGroth16 setup and
     # proves at 2^16 constraints
     paths["qap_h_2^20"] = (qap_h_phase(counted, dev), [])
-    lego, prove_dev, _ = legogroth16_phases(counted, dev)
+    lego_keep = {}
+    lego, _ = legogroth16_phases(counted, dev, keep=lego_keep)
     paths.update((k, (v, [])) for k, v in lego.items())
-    pair_paths, bbs_widths, profile_pairs = pairing_phases(counted, dev)
+    pair_paths, bbs_widths = pairing_phases(counted, dev)
     paths.update((k, (v, bbs_widths if k.startswith("bbs") else []))
                  for k, v in pair_paths.items())
     t0 = time.time()
@@ -3589,7 +3841,7 @@ def main() -> int:
                  for k, v in pok_paths.items())
     phase("bbs_pok_phases", seconds=round(time.time() - t0, 3))
     t0 = time.time()
-    saver_paths, saver_shapes, saver_keep = saver_aggregate_phases(counted,
+    saver_paths, captured, saver_keep = saver_aggregate_phases(counted,
                                                                    dev)
     paths.update((k, (v, [])) for k, v in saver_paths.items())
     phase("saver_aggregate_phases", seconds=round(time.time() - t0, 3))
@@ -3598,18 +3850,24 @@ def main() -> int:
     paths.update((k, (v, [])) for k, v in acc_paths.items())
     phase("accumulator_phases", seconds=round(time.time() - t0, 3))
     t0 = time.time()
-    ps_paths, ps_shapes = proof_system_phase(counted, dev, saver_keep,
+    ps_paths, ps_captured = proof_system_phase(counted, dev, saver_keep,
                                              acc_keep)
     paths.update((k, (v, [])) for k, v in ps_paths.items())
-    saver_shapes.update(ps_shapes)
+    captured.update(ps_captured)
     phase("proof_system_phases", seconds=round(time.time() - t0, 3))
+    t0 = time.time()
+    pr_paths, pr_captured = proof_system_ranges_phase(counted, dev,
+                                                      lego_keep["pk"])
+    paths.update((k, (v, [])) for k, v in pr_paths.items())
+    captured.update(pr_captured)
+    phase("proof_system_ranges_phases", seconds=round(time.time() - t0, 3))
 
     # ---- BN254: the 2^20 G1 MSMs and the edge MSMs, the LegoGroth16
     # setup, proves and verifier at 2^16 constraints, the 64-pair pairing
     t0 = time.time()
     bn_paths, bn_data = bn254_msm_phases(counted, dev)
     paths.update(bn_paths)
-    bn_lego, _, bn_data["prove_g2_msm"] = legogroth16_phases(
+    bn_lego, bn_data["prove_g2_msm"] = legogroth16_phases(
         counted, dev, bn, "bn254_", BN254_LEGO_LOG)
     paths.update((k, (v, [])) for k, v in bn_lego.items())
     bn_pairing, _ = bn254_pairing_phase(counted, dev)
@@ -3732,56 +3990,6 @@ def main() -> int:
                     plain_ms, (x, e, Fx.mod), [Fx.L, M]))
     phase("check_mont_pow", elements=[1, 16, 1 << 16, NMEMBERS], zeros=True,
           fields=["Fq", "Fr"], bit_exact=True)
-
-    # one Fermat root, in turns: the chain of 608 mont_mul launches from a
-    # host loop (what TField.inv did) against one mont_pow launch
-    Fq_ = tfield_for(bls.Fq, dev)
-    e = bls.P - 2
-
-    def chain(a):
-        acc = a
-        for bit in bin(e)[3:]:
-            acc = fk.mont_mul(acc, acc, Fq_.mod)
-            if bit == "1":
-                acc = fk.mont_mul(acc, a, Fq_.mod)
-        return acc
-
-    hr = random.Random(SEED + 4)
-    root = {}
-    ins = Fq_.pack([hr.randrange(1, bls.P) for _ in range(17)])
-    wants = fk.mont_pow_plain(ins, e, Fq_.mod)       # lane by lane
-    for M, at in ((1, 0), (16, 1)):
-        a = ins[:, at:at + M].contiguous()
-        want = wants[:, at:at + M]
-        for kind in ("chain", "mont_pow", "mont_pow", "chain"):
-            fn = (lambda: chain(a)) if kind == "chain" else \
-                (lambda: fk.mont_pow(a, e, Fq_.mod))
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            start.record()
-            out = fn()
-            stop.record()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-            if not torch.equal(out, want):
-                raise AssertionError(f"Fermat root by {kind} disagrees at "
-                                     f"M={M}")
-            root.setdefault(f"{kind}_{M}_wall_ms", []).append(wall)
-            root.setdefault(f"{kind}_{M}_event_ms", []).append(
-                start.elapsed_time(stop))
-    # the chain runs one product a launch; at 1 to 16 elements the floor
-    # that binds is the latency of the shortest chain's dependent
-    # products, here at mont_pow's own time a product
-    before = fk.mont_mul.launches
-    chain(a)
-    run = fk.mont_mul.launches - before
-    per_product_us = statistics.median(root["mont_pow_1_event_ms"]) / run * 1e3
-    phase("fermat_root", launches_chain=run,
-          chain_muls_bound=sum(chain_ops(e)), per_product_us=per_product_us,
-          latency_floor_ms=sum(chain_ops(e)) * per_product_us / 1e3, **root,
-          correct=True)
 
     def check_pre_post(M: int, path: str | None, fast: bool):
         x1, y1, m1, x2, y2, m2 = level_inputs(M)
@@ -4139,7 +4347,7 @@ def main() -> int:
     check_pairing_kernels(PAIRS + 1, "pairing_64")
     for path, lanes in pok_lanes.items():
         check_pairing_kernels(lanes, path)
-    rows.extend(route_kernel_checks(row, agree, saver_shapes, dev))
+    rows.extend(captured_kernel_checks(row, agree, captured))
     # the pairing's Fq inverse: one element, as `check_mont_pow`'s root at
     # M = 1, whose input, plain output and plain time it takes
     a, pw, pw_ms = root_1
@@ -4262,57 +4470,15 @@ def main() -> int:
     # ---- every L = 8 instantiation at the BN254 paths' shapes
     rows.extend(bn254_kernel_checks(row, agree, paths, bn_data, dev))
 
-    # ---- device busy share of one more 2^20 MSM of each curve, and each
-    # kernel's device time and summed bound over one MSM ----------------
-    for tag, curve, pts, scalars, safe in (
-            ("", bls.G1, points, sb, False),
-            ("_g2", bls.G2, points2, sb, False),
-            ("_bn254", bn.G1, bn_data["points"], bn_data["sb"], False)):
-        def msm():
-            return msm_v2.msm_device_scheduled(curve, pts, scalars, c=16,
-                                               safe=safe)
-
-        device, bounds = record_work(
-            counted, lambda: device_profile("profile" + tag, msm))
-        phase("per_msm" + tag, launches_device_ms_bound_ms=json.dumps(
-            {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 4)]
-             for k, (cnt, b) in bounds.items() if cnt}))
-
-    # ---- one more 64-pair multi-pairing: the device's busy share, and
-    # each kernel's launches, device time and summed bound a pairing
-    from crypto_tpu_torch.curves.tpairing import tpairing_for
-    tp = tpairing_for("bls12_381", dev)
-
-    def pairing():
-        return tp.multi_pairing(profile_pairs)
-
-    device, bounds = record_work(
-        counted, lambda: device_profile("profile_pairing_64", pairing,
-                                        cpu=False))
-    phase("per_pairing_64", launches_device_ms_bound_ms=json.dumps(
-        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 6)]
+    # ---- device busy share of one more 2^20 G1 MSM, and each kernel's
+    # device time and summed bound over one MSM -------------------------
+    device, bounds = record_work(counted, lambda: device_profile(
+        "profile", lambda: msm_v2.msm_device_scheduled(bls.G1, points, sb,
+                                                       c=16)))
+    phase("per_msm", launches_device_ms_bound_ms=json.dumps(
+        {k: [cnt, round(device.get(k, (0, 0.0))[1], 4), round(b, 4)]
          for k, (cnt, b) in bounds.items() if cnt}))
 
-    # ---- rows 2 and 5 (the total and the fast affine level) on the
-    # profiled prove, which launches them: device time a launch from the
-    # profiler against a latency floor, a launch plus one thread's
-    # dependent products at mont_pow's time a product (fermat_root): none
-    # in a pre, 4 in the total post's doubling lanes, 3 in the fast post.
-    # A launch is the cheaper pre's device time a launch on the same path
-    # (loads, a compare and a store, no product), so a pre sits at its
-    # floor.
-    rank = {}
-    per = {k: ms / cnt * 1e3 for k, (cnt, ms) in prove_dev.items()
-           if k.startswith("affine_level_p") and not k.endswith("fq2")}
-    pres = [us for k, us in per.items() if "_pre" in k]
-    for k, us in per.items() if pres else ():
-        floor = min(pres) + (0 if "_pre" in k else
-                             3 if k.endswith("fast") else 4) \
-            * per_product_us
-        rank[f"legogroth16_prove:{k}"] = [prove_dev[k][0], us, floor,
-                                          floor / us]
-    phase("rank_affine_level", per_product_us=per_product_us,
-          launches_us_floor_us_floor_share=json.dumps(rank))
     phase("total", seconds=round(time.time() - t_start, 3))
 
     print(card)

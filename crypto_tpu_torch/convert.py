@@ -21,9 +21,11 @@ onto the port's curve module of its curve (`proving_key_to_port`), a
 proof as the integers that rebuild it (`proof_ints`), and the protocol
 objects (the BBS+, BBS23 and Schnorr params, keys, signatures and proofs;
 LegoGroth16 keys and proofs; SAVER's generators, keys and ciphertexts;
-SnarkPack's SRSs and `AggregateProof`; cp_link's `LinkKeys`) as the
-port's classes of the same names in the port's modules of the same names
-(`protocol_to_port`).  `canonical` reads an object of either package as
+SnarkPack's SRSs and `AggregateProof`; cp_link's `LinkKeys`; the range
+proofs' setup params, keys, signatures and proofs, Pedersen commitment
+keys and parsed Circom circuits) as the port's classes of the same names
+in the port's modules of the same names (`protocol_to_port`; a class
+with `__slots__`, as `utils/commitment.py`'s key, slot by slot).  `canonical` reads an object of either package as
 plain nested tuples of ints, so two objects compare element by element.
 """
 
@@ -258,6 +260,15 @@ def _is_fp12(obj) -> bool:
     return hasattr(obj, "c1") and hasattr(getattr(obj, "c0", None), "c2")
 
 
+def _slots(obj) -> tuple:
+    """The `__slots__` of a protocol class of either package (a Pedersen
+    commitment key), which its constructor takes by name; () otherwise."""
+    mod = type(obj).__module__
+    if not mod.startswith(("crypto_tpu.", "crypto_tpu_torch.")):
+        return ()
+    return tuple(getattr(type(obj), "__slots__", ()))
+
+
 def protocol_to_port(obj, _memo=None):
     """A protocol object of the reference (params, keys, signatures,
     proofs, protocols, ciphertexts, SRSs, and the proof system's specs,
@@ -284,6 +295,9 @@ def protocol_to_port(obj, _memo=None):
         out = carry_fp12(obj, bls.Fq12)
     elif hasattr(obj, "f") and hasattr(obj, "v"):
         out = _PORT_FIELDS[obj.f.p](int(obj))
+    elif _slots(obj) and obj.__class__.__module__.startswith(_REFERENCE):
+        out = _port_class(obj)(**{s: carry(getattr(obj, s))
+                                  for s in _slots(obj)})
     elif isinstance(obj, (list, tuple, set, frozenset)):
         out = type(obj)(carry(x) for x in obj)
     elif isinstance(obj, dict):
@@ -314,6 +328,9 @@ def canonical(obj):
         return fp12_ints(obj)
     if hasattr(obj, "f") and hasattr(obj, "v"):
         return int(obj)
+    if _slots(obj):
+        return (type(obj).__name__,) + tuple(
+            (s, canonical(getattr(obj, s))) for s in _slots(obj))
     if isinstance(obj, (list, tuple)):
         return tuple(canonical(x) for x in obj)
     if isinstance(obj, (set, frozenset)):

@@ -1,7 +1,7 @@
 """Host field-vector and polynomial helpers: the port's own copy of the
 parts of `crypto_tpu/utils/ff.py` (reference `utils/src/ff.rs`,
 `utils/src/poly.rs`) that the accumulator, SAVER and the aggregation
-use."""
+use, and the Bulletproofs++ range proof's `hadamard_product`."""
 
 from __future__ import annotations
 
@@ -14,6 +14,11 @@ def inner_product(a, b) -> Fp:
     for x, y in zip(a[1:], b[1:]):
         acc = acc + x * y
     return acc
+
+
+def hadamard_product(a, b):
+    """The entrywise product of a and b, truncated to the shorter."""
+    return [x * y for x, y in zip(a, b)]
 
 
 def powers(x: Fp, n: int):
