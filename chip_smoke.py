@@ -10,8 +10,9 @@ before it and read just after:
 * bench points: 2^20 distinct BLS12-381 G1 points with known discrete
   logs, built by the full-add and normalize kernels (`make_bench_points`);
 * the 2^20 MSM (c = 16, full-range 255-bit scalars) through
-  `msm_device_scheduled` on its default doubling-free levels, two timed
-  runs, each checked against the known discrete logs, none rerun, then
+  `msm_device_scheduled` on its default doubling-free levels, one timed
+  run after an untimed warm-up, checked against the known discrete
+  logs, none rerun, then
   one `safe=True` run on the total-formula levels, checked the same way;
 * the rerun path: the same MSM with one base duplicated and the digits set
   so that the pair collides in one window's bucket; the flagged windows
@@ -22,8 +23,8 @@ before it and read just after:
 * the Jacobian add, mixed add and double of `make_add_fns` at 2^20 rows;
 * G2 bench points: 2^20 distinct BLS12-381 G2 points with known discrete
   logs, built by the total `TCurve` add and `to_affine` over Fq2;
-* the 2^20 G2 MSM (c = 16, full-range scalars), two timed runs, each
-  checked against the known discrete logs, on the reference's Fq2
+* the 2^20 G2 MSM (c = 16, full-range scalars), one timed run after a
+  warm-up, checked against the known discrete logs, on the reference's Fq2
   configuration: the Fq2 pre/post at every level, the Fq2 mul in the
   inversions and the tail, the Fq2 square in the tail, and no G1 level
   kernel;
@@ -76,12 +77,31 @@ before it and read just after:
   plain version on the arguments of each launch at a new shape;
 * the VB accumulator at `benches/bench_accumulator.py`'s size: params
   hashed from a label, 2^14 elements added, the first 8,192 members'
-  witnesses on the device fixed-base path, then three updates of all
+  witnesses on the device fixed-base path, then two updates of all
   8,192 witnesses through `update_membership_batch_with_sk` on the card
-  (256 additions, cold and warm; 256 removals; 128 of each), each split
-  by phase and held to V_new / (y + alpha) from the fixed-base table, its
-  d factors to host integers, 16 members to the host branch and two by
-  pairing;
+  (256 additions; 256 removals), each split by phase and
+  held to V_new / (y + alpha) from the fixed-base table, its d factors
+  to host integers, 16 members to the host branch and two by pairing;
+* the KB universal accumulator (`accumulator_kb_universal`) on the same
+  params, keys and 2^14 elements as its domain: 8,192 members, the
+  batch witnesses of 8,064 members and 8,064 non-members on the device
+  fixed-base path, one `batch_updates` of 128 additions with 128
+  removals, and each half's witnesses updated on the card through
+  `kb_universal_witness` (the non-member half with the roles swapped),
+  each held as the VB updates are and 8 holders a half updated through
+  the published `KBUniversalOmega` to the same witnesses;
+* PS, BBS23, BBDT16 and the KB statements in one composite
+  (`proof_system_more`): config 2's credential under BBS+, under a PS
+  signature aggregated from 3 of 5 threshold signers, under BBS23 and a
+  BBDT16 MAC (its full verifier), KB membership and non-membership in
+  the updated accumulator, CDH and keyed-verification (full verifiers),
+  the user id linked across five statements; prove, verify with no
+  checker, the lazy checker (10 deferred pairs in one device Miller
+  product) and the eager one; a detached membership proof in a spec of
+  its own; a spoiled PS signature (by the lazy checker's device Miller
+  product), the MAC under another key and the detached proof under
+  another accumulator key refused; every kernel launch of the KB and
+  composite paths held to its plain version on the same arguments;
 * the composite proof system (`proof_system_composite`): one `ProofSpec`
   over a BBS+ credential of 32 messages (4 revealed), VB membership
   (CDH) of its user id in the 2^14-element accumulator above, the
@@ -116,7 +136,7 @@ before it and read just after:
 * BN254 at the reference's sizes, every kernel at its 8-limb
   instantiation: 2^20 G1 bench points with known logs (two full adds
   and a normalize, `make_add_fns` and `make_normalize_fn` at 8 limbs),
-  two timed 2^20 MSMs at c = 16 on the fast levels, one
+  one timed 2^20 MSM at c = 16 on the fast levels, one
   `safe=True`, the rerun path (one duplicated base: exactly the spoiled
   windows rerun) and the G1 and G2 edge MSMs; the LegoGroth16 setup,
   warm-up and one timed prove of the 2^12 - 4 constraint
@@ -176,8 +196,8 @@ import torch
 
 N_LOG = 20
 SEED = 20251016
-MSM_RUNS = 2                        # timed 2^20 MSMs, fresh scalars each
-G2_MSM_RUNS = 2                     # timed 2^20 G2 MSMs, fresh scalars each
+MSM_RUNS = 1                        # timed 2^20 MSMs, fresh scalars each
+G2_MSM_RUNS = 1                     # timed 2^20 G2 MSMs, fresh scalars each
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 # 32-bit integer multiply-adds: 64 per SM per clock on compute capability
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
@@ -1984,32 +2004,112 @@ NCHECK_HOST = 16                    # members held to the port's host branch
 ACCUM_KERNELS = ("mont_mul", "mont_pow")
 
 
+def timed_update(counted, seen: dict, fn, capture: bool = False):
+    """fn(), a witness update that reaches
+    `device_update.batch_update_with_sk_device`, with the launch counts
+    reset just before it and read just after, and the device function
+    shimmed to keep its `timings=` split and its d factors in `seen`;
+    with `capture`, under `capture_launches`.  Returns (fn()'s result,
+    the launches, the seconds, the captured launches or None)."""
+    from crypto_tpu_torch.accumulator import device_update
+    real = device_update.batch_update_with_sk_device
+
+    def shim(*a, **kw):
+        tm = {}
+        out = real(*a, **kw, timings=tm)
+        seen.update(timings=tm, d=out[0])
+        return out
+
+    device_update.batch_update_with_sk_device = shim
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if capture:
+            (out, captured), launches = drive(
+                counted, lambda: capture_launches(counted, fn))
+        else:
+            (out, launches), captured = drive(counted, fn), None
+        return out, launches, time.perf_counter() - t, captured
+    finally:
+        device_update.batch_update_with_sk_device = real
+
+
+def check_update(where, dev, sk, members, wits, V_old, adds, rems,
+                 new_value, new_wits, d, verify) -> dict:
+    """A witness update of `members` (old witnesses `wits` under V_old,
+    the batch as the updated accumulator sees it: `adds`, `rems`) held
+    to an independent result: every d factor to d_A(y) / d_D(y) in plain
+    host integers, every new witness to new_value / (y + alpha) by a host
+    batch inverse and the device fixed-base table (not scalar_mul),
+    `NCHECK_HOST` members to the port's host branch (below 512 members),
+    the first and the last member by `verify(member, witness)`, a pairing
+    check.  Returns the checks' seconds."""
+    from crypto_tpu_torch.accumulator import witness
+    from crypto_tpu_torch.accumulator.batch_utils import _batch_inverse
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.utils.msm import \
+        multiply_field_elems_with_same_group_elem
+    F, R = bls.Fr, bls.R
+    n = len(members)
+    ys, alpha = [int(y) for y in members], int(sk.alpha)
+    t0 = time.perf_counter()
+    num = [1] * n
+    den = [1] * n
+    for i, y in enumerate(ys):
+        for a in adds:
+            num[i] = num[i] * (int(a) - y) % R
+        for r in rems:
+            den[i] = den[i] * (int(r) - y) % R
+    want_d = [n_ * pow(d_, -1, R) % R for n_, d_ in zip(num, den)]
+    if [int(x) for x in d] != want_d:
+        raise AssertionError(f"{where}: a d factor differs from the host "
+                             f"product")
+    invs = _batch_inverse([F(y + alpha) for y in ys])
+    want = multiply_field_elems_with_same_group_elem(new_value, invs,
+                                                     device=dev)
+    got = [None if c.is_infinity() else (int(c.X), int(c.Y))
+           for c in (w.C.normalize() for w in new_wits)]
+    exp = [None if p.is_infinity() else tuple(int(c) for c in p.to_affine())
+           for p in want]
+    if got != exp:
+        raise AssertionError(f"{where}: a witness differs from V_new / "
+                             f"(y + alpha)")
+    t1 = time.perf_counter()
+    hd, hc = witness._batch_update_with_sk(
+        adds, rems, members[:NCHECK_HOST],
+        [w.C for w in wits[:NCHECK_HOST]], V_old, sk, device=dev)
+    if [int(x) for x in hd] != want_d[:NCHECK_HOST] or \
+            hc != [w.C for w in new_wits[:NCHECK_HOST]]:
+        raise AssertionError(f"{where}: the host branch differs")
+    t2 = time.perf_counter()
+    if not all(verify(members[i], new_wits[i]) for i in (0, n - 1)):
+        raise AssertionError(f"{where}: a witness fails its pairing check")
+    return dict(check_table_s=t1 - t0, check_host_branch_s=t2 - t1,
+                check_pairing_s=time.perf_counter() - t2)
+
+
 def accumulator_phases(counted, dev) -> tuple:
     """The VB accumulator at `benches/bench_accumulator.py`'s size: the
     setup (params hashed from a label, a key from a fixed seed, 2^14
     elements added, the first 8,192 members' witnesses on the device
-    fixed-base path, two pairing checks), then three updates of all 8,192
+    fixed-base path, two pairing checks), then two updates of all 8,192
     witnesses through `update_membership_batch_with_sk` on the card: (a)
-    256 additions, the bench's workload, cold and warm; (b) 256 removals
-    of non-members; (c) 128 additions and 128 removals.  Each update is
-    held to an independent result: every witness to V_new / (y + alpha)
-    by a host batch inverse and the device fixed-base table, every d
-    factor to host integers, 16 members to the port's host branch, two
-    members by pairing.  Returns ({path: launches}, the params, the keys,
-    the accumulator before the updates and its first member and witness,
-    for `proof_system_phase`)."""
+    256 additions, the bench's workload; (b) 256 removals
+    of non-members (128 additions with 128 removals run on both halves of
+    the KB universal accumulator, `accumulator_kb_universal_phase`).  Each
+    update is held to an independent result (`check_update`).  Returns
+    ({path: launches}, the params, the keys, the 2^14 elements, the
+    accumulator before the updates and its first member and witness, for
+    `proof_system_phase` and `accumulator_kb_universal_phase`)."""
     import os
 
-    from crypto_tpu_torch.accumulator import device_update, witness
-    from crypto_tpu_torch.accumulator.batch_utils import _batch_inverse
+    from crypto_tpu_torch.accumulator import witness
     from crypto_tpu_torch.accumulator.core import PositiveAccumulator
     from crypto_tpu_torch.accumulator.persistence import InMemoryState
     from crypto_tpu_torch.accumulator.setup import AccumKeypair, \
         AccumSetupParams
     from crypto_tpu_torch.curves import bls12_381 as bls
-    from crypto_tpu_torch.utils.msm import \
-        multiply_field_elems_with_same_group_elem
-    F, R = bls.Fr, bls.R
+    F = bls.Fr
     rng = random.Random(SEED + 200)
     paths = {}
     # the routing held here is the reference's rule, with no override
@@ -2051,84 +2151,27 @@ def accumulator_phases(counted, dev) -> tuple:
           launches={k: v for k, v in wit_launches.items() if v},
           correct=True)
 
-    # ---- accumulator_update: three batches, each from the same V
-    V0, alpha = acc.value(), int(sk.alpha)
-    ys = [int(y) for y in members]
-    fresh = [F.rand(rng) for _ in range(NBATCH + NBATCH // 2)]
+    # ---- accumulator_update: two batches, each from the same V
+    V0 = acc.value()
+    fresh = [F.rand(rng) for _ in range(NBATCH)]
     cases = {
-        "a": (fresh[:NBATCH], [], acc.add_batch(fresh[:NBATCH], sk, state)),
+        "a": (fresh, [], acc.add_batch(fresh, sk, state)),
         "b": ([], elems[NMEMBERS:NMEMBERS + NBATCH],
               acc.remove_batch(elems[NMEMBERS:NMEMBERS + NBATCH], sk,
                                state)),
     }
-    rem_c = elems[NMEMBERS + NBATCH:NMEMBERS + NBATCH + NBATCH // 2]
-    cases["c"] = (fresh[NBATCH:], rem_c,
-                  acc.batch_updates(fresh[NBATCH:], rem_c, sk, state))
-    real = device_update.batch_update_with_sk_device
 
     def update(adds, rems, seen: dict):
-        def shim(*a, **kw):
-            tm = {}
-            out = real(*a, **kw, timings=tm)
-            seen.update(timings=tm, d=out[0])
-            return out
-
-        device_update.batch_update_with_sk_device = shim
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out, launches = drive(counted, lambda: witness.
-                                  update_membership_batch_with_sk(
-                                      adds, rems, members, wits, V0, sk,
-                                      device=dev))
-            return out, launches, time.perf_counter() - t
-        finally:
-            device_update.batch_update_with_sk_device = real
+        out, launches, secs_, _ = timed_update(
+            counted, seen, lambda: witness.update_membership_batch_with_sk(
+                adds, rems, members, wits, V0, sk, device=dev))
+        return out, launches, secs_
 
     def check(tag, adds, rems, new_acc, new_wits, d) -> dict:
-        t0 = time.perf_counter()
-        # every d factor: d_A(y) / d_D(y) in plain host integers
-        num = [1] * NMEMBERS
-        den = [1] * NMEMBERS
-        for i, y in enumerate(ys):
-            for a in adds:
-                num[i] = num[i] * (int(a) - y) % R
-            for r in rems:
-                den[i] = den[i] * (int(r) - y) % R
-        want_d = [n_ * pow(d_, -1, R) % R for n_, d_ in zip(num, den)]
-        if [int(x) for x in d] != want_d:
-            raise AssertionError(f"accumulator_update ({tag}): a d factor "
-                                 f"differs from the host product")
-        # every witness: V_new / (y + alpha), by a host batch inverse and
-        # the device fixed-base table (not scalar_mul)
-        invs = _batch_inverse([F(y + alpha) for y in ys])
-        want = multiply_field_elems_with_same_group_elem(
-            new_acc.value(), invs, device=dev)
-        got = [None if c.is_infinity() else (int(c.X), int(c.Y))
-               for c in (w.C.normalize() for w in new_wits)]
-        exp = [None if p.is_infinity() else tuple(int(c) for c in
-                                                  p.to_affine())
-               for p in want]
-        if got != exp:
-            raise AssertionError(f"accumulator_update ({tag}): a witness "
-                                 f"differs from V_new / (y + alpha)")
-        t1 = time.perf_counter()
-        # 16 members through the port's host branch (below 512 members)
-        hd, hc = witness._batch_update_with_sk(
-            adds, rems, members[:NCHECK_HOST],
-            [w.C for w in wits[:NCHECK_HOST]], V0, sk, device=dev)
-        if [int(x) for x in hd] != want_d[:NCHECK_HOST] or \
-                hc != [w.C for w in new_wits[:NCHECK_HOST]]:
-            raise AssertionError(f"accumulator_update ({tag}): the host "
-                                 f"branch differs")
-        t2 = time.perf_counter()
-        if not all(new_acc.verify_membership(members[i], new_wits[i], pk,
-                                             params)
-                   for i in (0, NMEMBERS - 1)):
-            raise AssertionError(f"accumulator_update ({tag}): a witness "
-                                 f"fails its pairing check")
-        return dict(check_table_s=t1 - t0, check_host_branch_s=t2 - t1,
-                    check_pairing_s=time.perf_counter() - t2)
+        return check_update(
+            f"accumulator_update ({tag})", dev, sk, members, wits, V0, adds,
+            rems, new_acc.value(), new_wits, d,
+            lambda m, w: new_acc.verify_membership(m, w, pk, params))
 
     def report(tag, seconds, seen, launches, checks, **kv):
         require(f"accumulator update ({tag})", launches, ACCUM_KERNELS)
@@ -2140,31 +2183,141 @@ def accumulator_phases(counted, dev) -> tuple:
               correct=True)
 
     adds, rems, new_acc = cases["a"]
-    cold = {}
-    wits_a, launches_a, t_cold = update(adds, rems, cold)
-    if "d" not in cold:
+    seen = {}
+    wits_a, launches_a, secs_a = update(adds, rems, seen)
+    if "d" not in seen:
         raise AssertionError("accumulator update (a): 8,192 members did not "
                              "take the device path")
-    checks = check("a", adds, rems, new_acc, wits_a, cold["d"])
-    report("a", t_cold, cold, launches_a, checks, run="cold")
-    warm = {}
-    wits_w, launches_w, t_warm = update(adds, rems, warm)
-    if [w.C for w in wits_w] != [w.C for w in wits_a] or \
-            warm["d"] != cold["d"]:
-        raise AssertionError("accumulator update (a): the warm run differs "
-                             "from the cold one")
-    report("a", t_warm, warm, launches_w, {}, run="warm",
-           vb_accum_witness_update_8192_after_256_adds_wall_s=t_warm)
-    paths["accumulator_update"] = launches_w
-    for tag in ("b", "c"):
-        adds, rems, new_acc = cases[tag]
-        seen = {}
-        new_wits, launches, secs_ = update(adds, rems, seen)
-        checks = check(tag, adds, rems, new_acc, new_wits, seen["d"])
-        report(tag, secs_, seen, launches, checks)
-        paths[f"accumulator_update_{tag}"] = launches
+    checks = check("a", adds, rems, new_acc, wits_a, seen["d"])
+    report("a", secs_a, seen, launches_a, checks,
+           vb_accum_witness_update_8192_after_256_adds_wall_s=secs_a)
+    paths["accumulator_update"] = launches_a
+    adds, rems, new_acc = cases["b"]
+    seen = {}
+    new_wits, launches, secs_ = update(adds, rems, seen)
+    checks = check("b", adds, rems, new_acc, new_wits, seen["d"])
+    report("b", secs_, seen, launches, checks)
+    paths["accumulator_update_b"] = launches
     return paths, dict(params=params, kp=kp, value=V0, member=members[0],
-                       witness=wits[0])
+                       witness=wits[0], elements=elems)
+
+
+# ---- the KB universal accumulator (`accumulator_kb_universal`)
+NKB_BATCH = 128                     # a batch of 128 additions (non-members
+                                    # that join) with 128 removals (members
+                                    # that leave), on both halves
+NKB_OMEGA = 8                       # holders a half updated through Omega
+
+
+def accumulator_kb_universal_phase(counted, dev, acc_keep) -> tuple:
+    """The KB universal accumulator at BASELINE config 3's scale, on the
+    params, keys and 2^14 elements of `accumulator_phases` (no second
+    setup): the domain is the 2^14 elements, the first 8,192 are added
+    as members, then one `batch_updates` of `NKB_BATCH` additions drawn
+    from the non-members with `NKB_BATCH` removals drawn from the
+    members.  The tracked sets are the 8,064 members not removed and the
+    8,064 non-members not added (so no tracked element is among its
+    half's removals, whose d_D would be 0: ROADMAP Queue 3).  Their
+    witnesses come from the KB batch methods on the device fixed-base
+    path (`accumulator_kb_witnesses`), then each half updates through
+    `kb_universal_witness.update_{mem,non_mem}_wits_on_batch_updates`:
+    one device update a half (`accumulator_kb_update_{mem,non_mem}`),
+    timed, split by phase, its launches counted and captured, the
+    accumulator kernels required.  Each half is held to `check_update`
+    (the non-member half with the roles of additions and removals
+    swapped), and `NKB_OMEGA` holders a half update from the published
+    `KBUniversalOmega` alone to the same witnesses.  Returns ({path:
+    launches}, {path: captured launches}, what `proof_system_more_phase`
+    needs: the updated accumulator, its keys and params, a tracked member
+    and non-member with their new witnesses)."""
+    from crypto_tpu_torch.accumulator import kb_universal_witness as kbw
+    from crypto_tpu_torch.accumulator.kb_universal import \
+        KBUniversalAccumulator
+    from crypto_tpu_torch.accumulator.persistence import InMemoryState
+    params, kp, elems = acc_keep["params"], acc_keep["kp"], \
+        acc_keep["elements"]
+    sk, pk = kp.secret_key, kp.public_key
+    t = {}
+    t0 = time.perf_counter()
+    ms, ns = InMemoryState(), InMemoryState()
+    kb = KBUniversalAccumulator.initialize(params, sk, elems, ms, ns)
+    kb = kb.add_batch(elems[:NMEMBERS], sk, ms, ns)
+    t["setup_s"] = time.perf_counter() - t0
+    adds = elems[NMEMBERS:NMEMBERS + NKB_BATCH]
+    rems = elems[:NKB_BATCH]
+    members = elems[NKB_BATCH:NMEMBERS]
+    non_members = elems[NMEMBERS + NKB_BATCH:]
+    ids = {int(x) for x in members} | {int(x) for x in non_members}
+    if ids & ({int(x) for x in adds} | {int(x) for x in rems}):
+        raise AssertionError("accumulator_kb_universal: a tracked element "
+                             "is in the batch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (mem_wits, nm_wits), wit_launches = drive(counted, lambda: (
+        kb.get_membership_witnesses_for_batch(members, sk, ms, device=dev),
+        kb.get_non_membership_witnesses_for_batch(non_members, sk, ns,
+                                                  device=dev)))
+    t["witnesses_s"] = time.perf_counter() - t0
+    require("KB witnesses", wit_launches, ("mont_mul",))
+    if not (kb.verify_membership(members[0], mem_wits[0], pk, params)
+            and kb.verify_non_membership(non_members[-1], nm_wits[-1], pk,
+                                         params)):
+        raise AssertionError("accumulator_kb_universal: a batch witness "
+                             "fails its pairing check")
+    paths = {"accumulator_kb_witnesses": wit_launches}
+    captured = {}
+    old_mem, old_nm = kb.mem_value(), kb.non_mem_value()
+    t0 = time.perf_counter()
+    omega = kbw.KBUniversalOmega.new(adds, rems, old_mem, old_nm, sk,
+                                     device=dev)
+    t["omega_s"] = time.perf_counter() - t0
+    new_kb = kb.batch_updates(adds, rems, sk, ms, ns)
+    halves = (
+        ("mem", members, mem_wits, old_mem, new_kb.mem, adds, rems,
+         omega.mem, kbw.update_mem_wits_on_batch_updates,
+         kbw.update_mem_wit_using_public_info),
+        ("non_mem", non_members, nm_wits, old_nm, new_kb.non_mem, rems, adds,
+         omega.non_mem, kbw.update_non_mem_wits_on_batch_updates,
+         kbw.update_non_mem_wit_using_public_info))
+    new = {}
+    for (tag, tracked, wits, V_old, half, h_adds, h_rems, om, update,
+         public) in halves:
+        path = f"accumulator_kb_update_{tag}"
+        seen = {}
+        new_wits, launches, secs, cap = timed_update(
+            counted, seen, lambda: update(adds, rems, tracked, wits, V_old,
+                                          sk, device=dev), capture=True)
+        if "d" not in seen:
+            raise AssertionError(f"{path}: 8,064 witnesses did not take the "
+                                 f"device path")
+        require(path, launches, ACCUM_KERNELS)
+        checks = check_update(path, dev, sk, tracked, wits, V_old, h_adds,
+                              h_rems, half.value(), new_wits, seen["d"],
+                              lambda m, w: half.verify_membership(
+                                  m, w, pk, params))
+        t0 = time.perf_counter()
+        held = [public(w, y, adds, rems, om) for y, w in
+                zip(tracked[:NKB_OMEGA], wits[:NKB_OMEGA])]
+        if [w.C for w in held] != [w.C for w in new_wits[:NKB_OMEGA]]:
+            raise AssertionError(f"{path}: a holder's Omega update differs")
+        checks["check_omega_s"] = time.perf_counter() - t0
+        paths[path] = launches
+        captured[path] = cap
+        new[tag] = new_wits
+        phase(path, tracked=len(tracked), additions=len(h_adds),
+              removals=len(h_rems), seconds=secs,
+              updates_per_s=len(tracked) / secs, split_s=seen["timings"],
+              launches={k: v for k, v in launches.items() if v},
+              omega_holders=NKB_OMEGA, **checks, correct=True)
+    phase("accumulator_kb_universal", domain=NELEM, members=NMEMBERS,
+          tracked=[len(members), len(non_members)],
+          batch=[NKB_BATCH, NKB_BATCH], **t,
+          witness_launches={k: v for k, v in wit_launches.items() if v},
+          correct=True)
+    return paths, captured, dict(
+        params=params, kp=kp, kb=new_kb, member=members[0],
+        mem_wit=new["mem"][0], non_member=non_members[0],
+        nm_wit=new["non_mem"][0])
 
 
 PS_MSGS = 32                        # BASELINE config 2's credential: 32
@@ -2801,7 +2954,7 @@ def proof_system_ranges_phase(counted, dev, lego_pk) -> tuple:
           refused=refused, correct=True)
     return paths, captured
 
-BN254_MSM_RUNS = 2                  # timed 2^20 BN254 G1 MSMs
+BN254_MSM_RUNS = 1                  # timed 2^20 BN254 G1 MSMs
 # the L = 8 instantiations the BN254 paths must launch between them: every
 # level kernel of both formulas, the Fq2 level, product and square, the
 # gather and its tables (8 words a row on G1, 16 on G2), mont_mul and
@@ -2814,6 +2967,254 @@ BN254_KERNELS = ("mont_mul", "mont_pow", "affine_level_pre",
                  "affine_level_pre_fq2", "affine_level_post_fq2",
                  "gather_rows_t", "slot_tables", "jacobian_add",
                  "jacobian_normalize")
+
+
+# ---- PS, BBS23, BBDT16, KB universal and keyed-verification statements
+# in one composite (`proof_system_more`)
+PM_MSGS = 32                        # BASELINE config 2's credential: 32
+PM_REVEALED = 4                     # messages, 4 of them revealed
+PM_SIGNERS = (3, 5)                 # the PS issuers: 3 of 5 sign
+PM_NONCE = b"chip-smoke more nonce"
+
+
+def proof_system_more_phase(counted, dev, kb_keep) -> tuple:
+    """The statements of `statements_more` and `statements_kv` in one
+    `ProofSpec` on the card, over config 2's credential (`PM_MSGS`
+    messages, the last `PM_REVEALED` revealed; message 0 the user id, a
+    tracked member of `accumulator_kb_universal_phase`'s updated
+    accumulator): a BBS+ PoK, a PS PoK on a signature aggregated from 3
+    of 5 signers of a `threshold_keygen`, a BBS23 PoK, a BBDT16 MAC PoK
+    (`PoKBBDT16MAC`; its full verifier on the verifier's side), KB
+    universal membership and non-membership (CDH) and the two KB
+    keyed-verification statements (their full verifiers on the
+    verifier's side); the user id linked across BBS+, PS, the MAC and
+    both membership statements, the non-member across its two.  Each run
+    below with the launch counts reset before it and read after, its
+    launches captured: `Proof.new`, `Proof.verify` with no checker, the
+    lazy checker (BBS+, PS, BBS23 and both CDH statements defer 10
+    pairs: one device Miller product, whose kernels must launch) and the
+    eager one, each timed; a detached membership proof of the user id in
+    a spec of its own (the detached verifier's challenge contribution is
+    not its prover's, so it verifies only alone: ROADMAP Queue 3), proved
+    and verified.  Refused: a proof over a spoiled PS signature, by the
+    lazy checker's device Miller product; the MAC under another key, by
+    its full verifier; the detached proof opened with another
+    accumulator key.  The pairing backend variable is unset.  Returns
+    ({path: launches}, {path: captured launches})."""
+    import os
+
+    from crypto_tpu_torch.accumulator.setup import AccumSecretKey
+    from crypto_tpu_torch.bbs_plus.bbs23 import (PublicKey23G2,
+                                                 Signature23G1,
+                                                 SignatureParams23G1)
+    from crypto_tpu_torch.bbs_plus.setup import (KeypairG2, SecretKey,
+                                                 SignatureParamsG1)
+    from crypto_tpu_torch.bbs_plus.signature import SignatureG1
+    from crypto_tpu_torch.coconut import core as ps
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves import tpairing
+    from crypto_tpu_torch.kvac.bbdt16 import MAC, KVACSecretKey, MACParams
+    from crypto_tpu_torch.proof_system import statements as st
+    from crypto_tpu_torch.proof_system import statements_kv as skv
+    from crypto_tpu_torch.proof_system import statements_more as sm
+    from crypto_tpu_torch.proof_system.base import ProofSpec, \
+        ProofSystemError
+    from crypto_tpu_torch.proof_system.proof import Proof, VerifierConfig
+    from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
+    Fr = bls.Fr
+    hr = random.Random(SEED + 700)
+    params, kp, kb = kb_keep["params"], kb_keep["kp"], kb_keep["kb"]
+    pk = kp.public_key
+    uid, mem_wit = kb_keep["member"], kb_keep["mem_wit"]
+    y_nm, nm_wit = kb_keep["non_member"], kb_keep["nm_wit"]
+    t = {}
+    t0 = time.perf_counter()
+    msgs = [uid] + [Fr.rand(hr) for _ in range(PM_MSGS - 1)]
+    revealed = {i: msgs[i] for i in range(PM_MSGS - PM_REVEALED, PM_MSGS)}
+    sig_params = SignatureParamsG1.generate_using_rng(hr, PM_MSGS)
+    issuer = KeypairG2.generate(hr, sig_params)
+    bbs_sig = SignatureG1.new(hr, msgs, issuer.secret_key, sig_params)
+    ps_params = ps.PSSignatureParams.new(b"chip-smoke PS", PM_MSGS)
+    shares, _, ps_pk = ps.threshold_keygen(hr, *PM_SIGNERS, PM_MSGS,
+                                           ps_params)
+    ps_sig = ps.aggregate_signatures([      # signers 1, 3 and 5
+        (i + 1, ps.PSSignature.new_deterministic(msgs, shares[i]))
+        for i in (0, 2, 4)])
+    if not ps_sig.verify(msgs, ps_pk, ps_params, device=dev):
+        raise AssertionError("proof_system_more: the aggregated PS "
+                             "signature fails to verify")
+    b23_params = SignatureParams23G1.new(b"chip-smoke BBS23", PM_MSGS)
+    b23_sk = SecretKey.generate(hr)
+    b23_pk = PublicKey23G2.generate(b23_sk, b23_params)
+    b23_sig = Signature23G1.new(hr, msgs, b23_sk, b23_params)
+    mac_params = MACParams.new(b"chip-smoke BBDT16", PM_MSGS)
+    mac_sk = KVACSecretKey.generate(hr)
+    mac = MAC.new(hr, msgs, mac_sk, mac_params)
+    t["setup_s"] = time.perf_counter() - t0
+
+    def spec_of(verifier: bool, mac_key=mac_sk):
+        """The composite spec; `verifier` puts the full verifiers (the
+        MAC's under `mac_key`, the KV statements' under the accumulator
+        key) in place of the prover's statements."""
+        spec = ProofSpec(context=b"chip-smoke more")
+        add = spec.add_statement
+        s_bbs = add(st.PoKBBSSignatureG1(
+            params=sig_params, public_key=issuer.public_key,
+            revealed_messages=revealed))
+        s_ps = add(sm.PoKPSSignature(params=ps_params, public_key=ps_pk,
+                                     revealed_messages=revealed))
+        add(sm.PoKBBSSignature23G1(params=b23_params, public_key=b23_pk,
+                                   revealed_messages=revealed))
+        s_mac = add(sm.PoKBBDT16MACFullVerifier(
+            params=mac_params, revealed_messages=revealed,
+            secret_key=mac_key) if verifier else sm.PoKBBDT16MAC(
+                params=mac_params, revealed_messages=revealed))
+        s_mem = add(st.KBUniversalAccumulatorMembership(
+            accumulator_value=kb.mem.value(), params=params, public_key=pk))
+        s_nm = add(st.KBUniversalAccumulatorNonMembership(
+            accumulator_value=kb.non_mem.value(), params=params,
+            public_key=pk))
+        if verifier:
+            s_mkv = add(skv.KBUniversalAccumulatorMembershipKVFullVerifier(
+                accumulator_value=kb.mem.value(), secret_key=kp.secret_key))
+            s_nkv = add(
+                skv.KBUniversalAccumulatorNonMembershipKVFullVerifier(
+                    accumulator_value=kb.non_mem.value(),
+                    secret_key=kp.secret_key))
+        else:
+            s_mkv = add(skv.KBUniversalAccumulatorMembershipKV(
+                accumulator_value=kb.mem.value()))
+            s_nkv = add(skv.KBUniversalAccumulatorNonMembershipKV(
+                accumulator_value=kb.non_mem.value()))
+        spec.add_witness_equality([(s_bbs, 0), (s_ps, 0), (s_mac, 0),
+                                   (s_mem, 0), (s_mkv, 0)])
+        spec.add_witness_equality([(s_nm, 0), (s_nkv, 0)])
+        return spec
+
+    def wits_of(ps_signature=ps_sig):
+        mem = st.AccumMembershipWit(element=uid, witness=mem_wit)
+        nm = st.AccumMembershipWit(element=y_nm, witness=nm_wit)
+        return [st.BBSWitness(bbs_sig, msgs),
+                sm.PSSigWitness(ps_signature, msgs),
+                sm.BBS23Witness(b23_sig, msgs), sm.KVACWitness(mac, msgs),
+                mem, nm, mem, nm]
+
+    def detached_spec(acc_key=None):
+        spec = ProofSpec(context=b"chip-smoke detached")
+        spec.add_statement(skv.DetachedAccumulatorMembershipVerifier(
+            params=params, public_key=pk, secret_key=acc_key)
+            if acc_key is not None else
+            skv.DetachedAccumulatorMembershipProver(params=params,
+                                                    public_key=pk))
+        return spec
+
+    prover_spec, verifier_spec = spec_of(False), spec_of(True)
+    paths, captured = {}, {}
+    miller = []
+    real_miller = tpairing.TPairing.miller_product
+    path_now = [None]
+
+    def miller_spy(self, pairs):
+        miller.append((path_now[0], len(pairs)))
+        return real_miller(self, pairs)
+
+    def run(path, fn, need=()):
+        path_now[0] = path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, seen), launches = drive(
+            counted, lambda: capture_launches(counted, fn))
+        torch.cuda.synchronize()
+        t[path + "_s"] = time.perf_counter() - t0
+        require(path, launches, need)
+        paths[path] = launches
+        captured[path] = seen
+        return out
+
+    refused = {}
+
+    def refuses(name, fn, err=ProofSystemError, match=""):
+        try:
+            fn()
+        except err as e:
+            refused[name] = match in str(e)
+            return
+        refused[name] = False
+
+    env = os.environ.pop(PAIRING_ENV, None)
+    tpairing.TPairing.miller_product = miller_spy
+    try:
+        proof = run("proof_system_more_prove", lambda: Proof.new(
+            hr, prover_spec, wits_of(), nonce=PM_NONCE, device=dev))
+        for mode, cfg, need in (("none", None, ()),
+                                ("lazy", VerifierConfig(True),
+                                 CHECKER_KERNELS),
+                                ("eager", VerifierConfig(False), ())):
+            if not run(f"proof_system_more_verify_{mode}",
+                       lambda: proof.verify(hr, verifier_spec,
+                                            nonce=PM_NONCE, config=cfg,
+                                            device=dev), need):
+                raise AssertionError(f"proof_system_more: verify ({mode}) "
+                                     f"refused the proof")
+        det = run("proof_system_more_detached_prove", lambda: Proof.new(
+            hr, detached_spec(), [skv.DetachedAccumMembershipWit(
+                element=uid, witness=mem_wit,
+                accumulator_value=kb.mem.value())], nonce=PM_NONCE,
+            device=dev))
+        if not run("proof_system_more_detached_verify", lambda: det.verify(
+                hr, detached_spec(kp.secret_key), nonce=PM_NONCE,
+                device=dev)):
+            raise AssertionError("proof_system_more: the detached verifier "
+                                 "refused the proof")
+
+        # ---- rejections
+        t0 = time.perf_counter()
+        spoiled = ps.PSSignature(ps_sig.sigma_1, (
+            ps_sig.sigma_2 + bls.G1.generator()).normalize())
+        bad = Proof.new(hr, prover_spec, wits_of(spoiled), nonce=PM_NONCE,
+                        device=dev)
+        run("proof_system_more_spoiled_ps", lambda: refuses(
+            "spoiled_ps_signature", lambda: bad.verify(
+                hr, verifier_spec, nonce=PM_NONCE,
+                config=VerifierConfig(True), device=dev),
+            match="pairing"), CHECKER_KERNELS)
+        refuses("mac_other_key", lambda: proof.verify(
+            hr, spec_of(True, KVACSecretKey.generate(hr)), nonce=PM_NONCE,
+            device=dev), match="keyed")
+        refuses("detached_other_key", lambda: det.verify(
+            hr, detached_spec(AccumSecretKey(alpha=Fr.rand(hr))),
+            nonce=PM_NONCE, device=dev), (ProofSystemError, ValueError))
+        t["rejections_s"] = time.perf_counter() - t0
+    finally:
+        tpairing.TPairing.miller_product = real_miller
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    if not all(refused.values()):
+        raise AssertionError(f"proof_system_more: not refused: {refused}")
+    lazy = [n for p, n in miller if p == "proof_system_more_verify_lazy"]
+    if len(lazy) != 1 or lazy[0] < RandomizedPairingChecker.DEVICE_THRESHOLD:
+        raise AssertionError(f"proof_system_more: the lazy checker's device "
+                             f"Miller products {lazy}")
+    off = [m for m in miller if m[0] not in ("proof_system_more_verify_lazy",
+                                             "proof_system_more_spoiled_ps")]
+    if off or len(miller) != 2:
+        raise AssertionError(f"proof_system_more: device Miller products "
+                             f"{miller}")
+    phase("proof_system_more", statements=len(verifier_spec.statements),
+          messages=PM_MSGS, revealed=PM_REVEALED,
+          ps_signers=list(PM_SIGNERS), accumulator_domain=NELEM,
+          prove_s=t["proof_system_more_prove_s"],
+          verify_s={m: t[f"proof_system_more_verify_{m}_s"]
+                    for m in ("none", "lazy", "eager")},
+          detached_s=[t["proof_system_more_detached_prove_s"],
+                      t["proof_system_more_detached_verify_s"]],
+          setup_s=t["setup_s"], rejections_s=t["rejections_s"],
+          deferred_pairs=lazy[0],
+          checker_device_threshold=RandomizedPairingChecker.DEVICE_THRESHOLD,
+          launches={p: {n: c for n, c in v.items() if c}
+                    for p, v in paths.items()},
+          refused=refused, correct=True)
+    return paths, captured
 
 
 def bn254_msm_phases(counted, dev) -> tuple:
@@ -3861,6 +4262,18 @@ def main() -> int:
     paths.update((k, (v, [])) for k, v in pr_paths.items())
     captured.update(pr_captured)
     phase("proof_system_ranges_phases", seconds=round(time.time() - t0, 3))
+    t0 = time.time()
+    kb_paths, kb_captured, kb_keep = accumulator_kb_universal_phase(
+        counted, dev, acc_keep)
+    paths.update((k, (v, [])) for k, v in kb_paths.items())
+    captured.update(kb_captured)
+    phase("accumulator_kb_universal_phases",
+          seconds=round(time.time() - t0, 3))
+    t0 = time.time()
+    pm_paths, pm_captured = proof_system_more_phase(counted, dev, kb_keep)
+    paths.update((k, (v, [])) for k, v in pm_paths.items())
+    captured.update(pm_captured)
+    phase("proof_system_more_phases", seconds=round(time.time() - t0, 3))
 
     # ---- BN254: the 2^20 G1 MSMs and the edge MSMs, the LegoGroth16
     # setup, proves and verifier at 2^16 constraints, the 64-pair pairing

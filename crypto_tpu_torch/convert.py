@@ -23,10 +23,17 @@ objects (the BBS+, BBS23 and Schnorr params, keys, signatures and proofs;
 LegoGroth16 keys and proofs; SAVER's generators, keys and ciphertexts;
 SnarkPack's SRSs and `AggregateProof`; cp_link's `LinkKeys`; the range
 proofs' setup params, keys, signatures and proofs, Pedersen commitment
-keys and parsed Circom circuits) as the port's classes of the same names
-in the port's modules of the same names (`protocol_to_port`; a class
-with `__slots__`, as `utils/commitment.py`'s key, slot by slot).  `canonical` reads an object of either package as
-plain nested tuples of ints, so two objects compare element by element.
+keys and parsed Circom circuits; the PS/Coconut, BBDT16 and keyed
+accumulator keys, signatures, MACs and proofs; the KB universal
+accumulator with its two states, `Omega`, and the statements, witnesses
+and proofs of `statements_more` and `statements_kv`) as the port's
+classes of the same names in the port's modules of the same names
+(`protocol_to_port`; a class with `__slots__`, as
+`utils/commitment.py`'s key, slot by slot; an accumulator's in-memory
+state, `persistence.py`'s `InMemoryState` or `InMemoryInitialElements`,
+by its set of element ints).  `canonical` reads an object of either
+package as plain nested tuples of ints, so two objects compare element
+by element.
 """
 
 from __future__ import annotations
@@ -269,6 +276,14 @@ def _slots(obj) -> tuple:
     return tuple(getattr(type(obj), "__slots__", ()))
 
 
+def _store(obj) -> bool:
+    """Whether `obj` is an accumulator's in-memory element store of either
+    package (`accumulator/persistence.py`): its elements are the int set
+    `db`."""
+    return type(obj).__module__.endswith(".accumulator.persistence") and \
+        isinstance(getattr(obj, "db", None), set)
+
+
 def protocol_to_port(obj, _memo=None):
     """A protocol object of the reference (params, keys, signatures,
     proofs, protocols, ciphertexts, SRSs, and the proof system's specs,
@@ -298,6 +313,9 @@ def protocol_to_port(obj, _memo=None):
     elif _slots(obj) and obj.__class__.__module__.startswith(_REFERENCE):
         out = _port_class(obj)(**{s: carry(getattr(obj, s))
                                   for s in _slots(obj)})
+    elif _store(obj) and obj.__class__.__module__.startswith(_REFERENCE):
+        out = _port_class(obj)()
+        out.db = set(obj.db)
     elif isinstance(obj, (list, tuple, set, frozenset)):
         out = type(obj)(carry(x) for x in obj)
     elif isinstance(obj, dict):
@@ -331,6 +349,8 @@ def canonical(obj):
     if _slots(obj):
         return (type(obj).__name__,) + tuple(
             (s, canonical(getattr(obj, s))) for s in _slots(obj))
+    if _store(obj):
+        return (type(obj).__name__, tuple(sorted(obj.db)))
     if isinstance(obj, (list, tuple)):
         return tuple(canonical(x) for x in obj)
     if isinstance(obj, (set, frozenset)):

@@ -53,7 +53,13 @@ def test_port_imports_no_jax_and_no_reference():
                  "proof_system.base", "proof_system.derived_params",
                  "proof_system.statements", "proof_system.statements_snark",
                  "proof_system.statements_accum_original",
-                 "proof_system.proof"):
+                 "proof_system.proof", "secret_sharing.common",
+                 "secret_sharing.schemes", "utils.ecies",
+                 "accumulator.kb_universal",
+                 "accumulator.kb_universal_witness", "accumulator.keyed",
+                 "coconut.core", "coconut.messages_pok", "kvac.bbdt16",
+                 "kvac.keyed_proof", "proof_system.statements_more",
+                 "proof_system.statements_kv"):
         assert f"crypto_tpu_torch.{name}" in out.stdout
 
 
@@ -436,6 +442,59 @@ def _original_membership_protocol():
         SimpleNamespace(Q_tilde=G2), SimpleNamespace(P_tilde=G2), key)
 
 
+def _kb_accumulator():
+    from crypto_tpu_torch.accumulator.kb_universal import \
+        KBUniversalAccumulator
+    from crypto_tpu_torch.accumulator.persistence import InMemoryState
+    from crypto_tpu_torch.accumulator.setup import AccumSetupParams
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    ms, ns = InMemoryState(), InMemoryState()
+    kb = KBUniversalAccumulator.initialize(
+        AccumSetupParams(tb.G1.generator(), tb.G2.generator()), _accum_key(),
+        [tb.Fr(1), tb.Fr(2)], ms, ns)
+    return kb, ms, ns
+
+
+def _kb_witnesses_for_batch():
+    kb, _, ns = _kb_accumulator()
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    kb.get_non_membership_witnesses_for_batch([tb.Fr(1)], _accum_key(), ns)
+
+
+def _kb_update_non_members():
+    from crypto_tpu_torch.accumulator import kb_universal_witness as kbw
+    from crypto_tpu_torch.accumulator.core import MembershipWitness
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G = tb.G1.generator()
+    kbw.update_non_mem_wits_on_batch_updates(
+        [tb.Fr(3)], [], [tb.Fr(1)], [MembershipWitness(G)], G, _accum_key())
+
+
+def _kb_omega():
+    from crypto_tpu_torch.accumulator import kb_universal_witness as kbw
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G = tb.G1.generator()
+    kbw.KBUniversalOmega.new([tb.Fr(3)], [tb.Fr(4)], G, G, _accum_key())
+
+
+def _ps_verify():
+    from crypto_tpu_torch.coconut import core
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    G1, G2 = tb.G1.generator(), tb.G2.generator()
+    core.PSSignature(G1, G1).verify(
+        [tb.Fr(1)], core.PSPublicKey(G2, [G1], [G2]),
+        core.PSSignatureParams(G1, G2, [G1]))
+
+
+def _keyed_proof_public_verify():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.kvac.keyed_proof import (KeyedProof,
+                                                   PublicVerificationKey)
+    G1, G2 = tb.G1.generator(), tb.G2.generator()
+    KeyedProof(G1, G1).verify_with_public_verification_key(
+        PublicVerificationKey(G2, G2))
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -464,7 +523,10 @@ def _original_membership_protocol():
                                    _verify_aggregate_proof,
                                    _bound_check_srs, _cp_link_proof,
                                    _proof_new, _proof_verify,
-                                   _original_membership_protocol],
+                                   _original_membership_protocol,
+                                   _kb_witnesses_for_batch,
+                                   _kb_update_non_members, _kb_omega,
+                                   _ps_verify, _keyed_proof_public_verify],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
