@@ -102,6 +102,21 @@ before it and read just after:
   product), the MAC under another key and the detached proof under
   another accumulator key refused; every kernel launch of the KB and
   composite paths held to its plain version on the same arguments;
+* TZ21, the split composite and the IETF suites (`proof_system_split`):
+  DKGitH at N = 16, tau = 32 over 4 messages and the filler, prove and
+  verify cold (7 fixed-base tables built) and warm, each a batch of
+  fixed-base products on the card (mont_mul and mont_pow must launch),
+  32 sampled party instances against host products, the auditor's
+  decryption, a spoiled delta, opening and hidden ciphertext refused;
+  one composite over a prover's and a verifier's spec: config 2's
+  credential (BBS+), BBS23 under the IETF statement, VB and KB CDH
+  statements on the accumulators above, a G2 Pedersen commitment,
+  `VeTZ21` at (16, 32) over 4 hidden messages and `VeTZ21Robust` at 16
+  parties, 12 revealed, prove and verify with no, the lazy (8 deferred
+  pairs in one device Miller product) and the eager checker; a (2, 1)
+  proof under the (16, 32) statement, the prover's spec, a wrong nonce
+  and a broken equality refused; both IETF ciphersuites at the draft's
+  fixtures, sign, verify, proof_gen and proof_verify over 32 messages;
 * the composite proof system (`proof_system_composite`): one `ProofSpec`
   over a BBS+ credential of 32 messages (4 revealed), VB membership
   (CDH) of its user id in the 2^14-element accumulator above, the
@@ -167,8 +182,7 @@ MSMs),
 mont_pow also at the witness update's to_affine; every 8-limb
 instantiation at the BN254 paths' shapes, the same way), times the fast
 down pass at each of
-the 2^20 MSM's level widths and the Fq2 square from the G2 tail's widest
-call down to 16 elements, and profiles one more 2^20 G1 MSM on the fast
+the 2^20 MSM's level widths, and profiles one more 2^20 G1 MSM on the fast
 levels for the device's busy share and each kernel's device time
 against its summed bound (the bound summed by shims over the same
 profiled run, its data-dependent part after the profile closes).  It
@@ -3217,6 +3231,409 @@ def proof_system_more_phase(counted, dev, kb_keep) -> tuple:
     return paths, captured
 
 
+SPLIT_MSGS = 32                     # BASELINE config 2's credential: 32
+SPLIT_REVEALED = 4                  # messages, 4 of them revealed
+TZ21_SET = (16, 32)                 # DKGitH (N, tau): (1/16)^32 = 2^-128
+TZ21_K = 4                          # messages it encrypts (+ the filler)
+TZ21_SAMPLES = 32                   # party instances held to host products
+TZ21_ROBUST = (16, 12)              # RDkgith: the reference's default,
+#                                     16 parties, 12 revealed
+SPLIT_NONCE = b"chip-smoke split nonce"
+IETF_MSGS = 32                      # the IETF suites' messages, 4 disclosed
+IETF_DISCLOSED = (0, 9, 17, 31)
+IETF_HEADER = bytes.fromhex("11223344556677889900aabbccddeeff")
+IETF_KEY_MATERIAL = bytes.fromhex(
+    "746869732d49532d6a7573742d616e2d546573742d494b4d2d746f2d67656e65"
+    "726174652d246528724074232d6b6579")
+IETF_KEY_INFO = bytes.fromhex(
+    "746869732d49532d736f6d652d6b65792d6d657461646174612d746f2d62652d"
+    "757365642d696e2d746573742d6b65792d67656e")
+# the draft's fixtures (tests/test_bbs_ietf.py): SK, PK and P1 of the
+# SHA-256 suite; SK, Q_1, H_1 and H_2 of the SHAKE-256 suite
+IETF_KATS = {
+    "BLS12381_SHA256": dict(
+        sk=0x60e55110f76883a13d030b2f6bd11883422d5abde717569fc0731f51237169fc,
+        pk="a820f230f6ae38503b86c70dc50b61c58a77e45c39ab25c0652bbaa8fa136f28"
+           "51bd4781c9dcde39fc9d1d52c9e60268061e7d7632171d91aa8d460acee0e96f"
+           "1e7c4cfb12d3ff9ab5d5dc91c277db75c845d649ef3c4f63aebc364cd55ded0c",
+        p1="a8ce256102840821a3e94ea9025e4662b205762f9776b3a766c872b948f1fd22"
+           "5e7c59698588e70d11406d161b4e28c9"),
+    "BLS12381_SHAKE256": dict(
+        sk=0x2eee0f60a8a3a8bec0ee942bfd46cbdae9a0738ee68f5a64e7238311cf09a079,
+        generators=[
+            "a9d40131066399fd41af51d883f4473b0dcd7d028d3d34ef17f3241d204e2850"
+            "7d7ecae032afa1d5490849b7678ec1f8",
+            "903c7ca0b7e78a2017d0baf74103bd00ca8ff9bf429f834f071c75ffe6bfdec6"
+            "d6dca15417e4ac08ca4ae1e78b7adc0e",
+            "84321f5855bfb6b001f0dfcb47ac9b5cc68f1a4edd20f0ec850e0563b27d2acc"
+            "ee6edff1a26b357762fb24e8ddbb6fcb"])}
+TZ21_KERNELS = ("mont_mul", "mont_pow")
+
+
+def proof_system_split_phase(counted, dev, acc_keep, kb_keep) -> tuple:
+    """TZ21 verifiable encryption at the 128-bit set, the split composite
+    and the IETF BBS suites on the card (`proof_system_split`), over a
+    credential of config 2's shape (`SPLIT_MSGS` messages, the last
+    `SPLIT_REVEALED` revealed; message 0 the user id of
+    `accumulator_phases`' first member, messages 1-4 the encrypted ones).
+
+    (a) DKGitH alone at (N, tau) = `TZ21_SET` over `TZ21_K` messages and
+    the filler (5 commitment bases): the prove and the verify, cold (the
+    7 fixed-base tables built in the call; the table cache cleared before
+    the cold verify) and warm, each on the device route (`mont_mul` and
+    `mont_pow` required: the host route launches nothing);
+    `TZ21_SAMPLES` sampled party instances' commitments, shared secrets
+    and ephemeral keys against host `msm` and `mul_raw`; compress at the
+    reference's default subset and decrypt as the auditor, every message
+    back exactly; a spoiled delta, opening and hidden ciphertext refused.
+
+    (b) One composite over a prover's spec and a verifier's spec
+    (`statements_split`): BBS+ (`PoKBBSSignatureG1Prover`/`Verifier`), a
+    BBS23 credential on the same messages (the IETF statements), VB
+    membership (CDH) of the user id in `acc_keep`'s accumulator, KB
+    universal non-membership (CDH) in `kb_keep`'s, a G2 Pedersen
+    commitment, `VeTZ21` at `TZ21_SET` over messages 1-4 and
+    `VeTZ21Robust` at `TZ21_ROBUST` over message 1, tied by witness
+    equalities.  The prove, and the verify with no checker, the lazy
+    checker (the four signature and CDH statements defer 8 pairs: one
+    device Miller product) and the eager one, each timed; refused: a
+    proof at (2, 1) under the (16, 32) statement, the prover's spec
+    asked to verify, a wrong nonce, a broken witness equality; the
+    auditor decrypts the 4 messages from the composite's TZ21 proof.
+
+    (c) Both IETF ciphersuites: the draft's fixtures (`IETF_KATS`), then
+    `sign`, `verify`, `proof_gen` and `proof_verify` over `IETF_MSGS`
+    messages, 4 disclosed, each timed; a spoiled signature and a spoiled
+    proof refused.
+
+    Each path runs with the launch counts reset before it and read after,
+    its launches captured.  The pairing backend variable is unset.
+    Returns ({path: launches}, {path: captured launches})."""
+    import os
+
+    from crypto_tpu_torch.bbs_plus import ietf
+    from crypto_tpu_torch.bbs_plus.bbs23 import (PublicKey23G2,
+                                                 Signature23G1,
+                                                 SignatureParams23G1)
+    from crypto_tpu_torch.bbs_plus.setup import (KeypairG2, SecretKey,
+                                                 SignatureParamsG1)
+    from crypto_tpu_torch.bbs_plus.signature import SignatureG1
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves import tpairing
+    from crypto_tpu_torch.hashing import n_group_elements
+    from crypto_tpu_torch.ops import fixed_base
+    from crypto_tpu_torch.proof_system import statements as st
+    from crypto_tpu_torch.proof_system import statements_more as sm
+    from crypto_tpu_torch.proof_system import statements_split as ss
+    from crypto_tpu_torch.proof_system.base import ProofSpec, \
+        ProofSystemError
+    from crypto_tpu_torch.proof_system.proof import Proof, VerifierConfig
+    from crypto_tpu_torch.utils.checkers import RandomizedPairingChecker
+    from crypto_tpu_torch.utils.elgamal import keygen
+    from crypto_tpu_torch.utils.msm import msm
+    from crypto_tpu_torch.verifiable_encryption import tz21
+    Fr = bls.Fr
+    hr = random.Random(SEED + 800)
+    t = {}
+    t0 = time.perf_counter()
+    uid = acc_keep["member"]
+    msgs = [uid] + [Fr.rand(hr) for _ in range(SPLIT_MSGS - 1)]
+    revealed = {i: msgs[i] for i in range(SPLIT_MSGS - SPLIT_REVEALED,
+                                          SPLIT_MSGS)}
+    hidden = msgs[1:1 + TZ21_K]
+    gens = [p.normalize() for p in n_group_elements(
+        bls.G1, 0, TZ21_K + 1, b"chip-smoke TZ21 commitment key")]
+    enc_g = bls.G1.rand(hr).normalize()
+    dec_sk, enc_pk = keygen(hr, enc_g)
+    wits = hidden + [Fr.rand(hr)]
+    Y = msm(gens, wits).normalize()
+    t["setup_s"] = time.perf_counter() - t0
+
+    paths, captured = {}, {}
+    miller, products = [], {}
+    real_miller = tpairing.TPairing.miller_product
+    real_products = tz21._party_products
+    path_now = [None]
+
+    def miller_spy(self, pairs):
+        miller.append((path_now[0], len(pairs)))
+        return real_miller(self, pairs)
+
+    def products_spy(gens_, shares, ephs, pk, g, device):
+        out = real_products(gens_, shares, ephs, pk, g, device)
+        products.setdefault(path_now[0], []).append(
+            (gens_, shares, ephs, pk, g, out))
+        return out
+
+    def run(path, fn, need=()):
+        path_now[0] = path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, seen), launches = drive(
+            counted, lambda: capture_launches(counted, fn))
+        torch.cuda.synchronize()
+        t[path + "_s"] = time.perf_counter() - t0
+        require(path, launches, need)
+        paths[path] = launches
+        captured[path] = seen
+        return out
+
+    refused = {}
+
+    def refuses(name, fn, match=""):
+        try:
+            ok = fn()
+        except (ProofSystemError, ValueError) as e:
+            refused[name] = match in str(e)
+            return
+        refused[name] = ok is False and not match
+
+    env = os.environ.pop(PAIRING_ENV, None)
+    tpairing.TPairing.miller_product = miller_spy
+    tz21._party_products = products_spy
+    try:
+        # ---- (a) DKGitH alone at the 128-bit set
+        def prove():
+            return tz21.DkgithProof.new(hr, wits, Y, gens, enc_pk, enc_g,
+                                        *TZ21_SET, device=dev)
+
+        def verify(p):
+            return p.verify(Y, gens, enc_pk, enc_g, device=dev)
+
+        proof = run("tz21_prove_cold", prove, TZ21_KERNELS)
+        run("tz21_prove_warm", prove, TZ21_KERNELS)
+        fixed_base._table_cache.cache_clear()
+        for path in ("tz21_verify_cold", "tz21_verify_warm"):
+            if not run(path, lambda: verify(proof), TZ21_KERNELS):
+                raise AssertionError(f"proof_system_split: {path} refused "
+                                     f"the proof")
+        t0 = time.perf_counter()
+        for path, n in (("tz21_prove_cold", TZ21_SET[0] * TZ21_SET[1]),
+                        ("tz21_verify_cold",
+                         (TZ21_SET[0] - 1) * TZ21_SET[1])):
+            (g_, shares, ephs, pk, g, (comms, shared, eph)), = \
+                products[path]
+            if len(comms) != n:
+                raise AssertionError(f"proof_system_split: {path} made "
+                                     f"{len(comms)} party instances")
+            for i in sorted(hr.sample(range(n), TZ21_SAMPLES)):
+                r = int(ephs[i])
+                if (comms[i], shared[i], eph[i]) != (
+                        msm(g_, shares[i]), pk.y.mul_raw(r),
+                        g.mul_raw(r)):
+                    raise AssertionError(f"proof_system_split: {path}'s "
+                                         f"party instance {i} differs from "
+                                         f"the host's products")
+        t["samples_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if proof.compress().decrypt(dec_sk, Y, gens)[:TZ21_K] != hidden:
+            raise AssertionError("proof_system_split: the auditor's "
+                                 "decryption differs from the messages")
+        t["decrypt_s"] = time.perf_counter() - t0
+        d = dict(vars(proof))
+        ct = proof.hidden_cts[0]
+        for what, change in (
+                ("delta", dict(deltas=[[x + Fr(1) for x in proof.deltas[0]]]
+                               + proof.deltas[1:])),
+                ("opening", dict(openings=[[bytes(tz21.SEED_SIZE)]
+                                           + proof.openings[0][1:]]
+                                 + proof.openings[1:])),
+                ("hidden_ct", dict(hidden_cts=[tz21.BatchCt(
+                    eph=ct.eph, cts=[ct.cts[0] + Fr(1)] + ct.cts[1:])]
+                    + proof.hidden_cts[1:]))):
+            bad = tz21.DkgithProof(**{**d, **change})
+            run("tz21_spoiled_" + what, lambda: refuses(
+                "tz21_" + what, lambda: verify(bad)), TZ21_KERNELS)
+
+        # ---- (b) the composite over a prover's and a verifier's spec
+        t0 = time.perf_counter()
+        sig_params = SignatureParamsG1.generate_using_rng(hr, SPLIT_MSGS)
+        issuer = KeypairG2.generate(hr, sig_params)
+        bbs_sig = SignatureG1.new(hr, msgs, issuer.secret_key, sig_params)
+        b23_params = SignatureParams23G1.new(b"chip-smoke split BBS23",
+                                             SPLIT_MSGS)
+        b23_sk = SecretKey.generate(hr)
+        b23_pk = PublicKey23G2.generate(b23_sk, b23_params)
+        b23_sig = Signature23G1.new(hr, msgs, b23_sk, b23_params)
+        params, kp = acc_keep["params"], acc_keep["kp"]
+        V, vb_wit = acc_keep["value"], acc_keep["witness"]
+        kb = kb_keep["kb"]
+        g2_bases = [bls.G2.rand(hr).normalize() for _ in range(2)]
+        g2_wits = [Fr.rand(hr), Fr.rand(hr)]
+        g2_comm = msm(g2_bases, g2_wits).normalize()
+        t["composite_setup_s"] = time.perf_counter() - t0
+
+        def tz21_statements(ve=TZ21_SET):
+            return [ss.VeTZ21(comm_key=gens, enc_pk=enc_pk, enc_gen=enc_g,
+                              n_parties=ve[0], reps=ve[1]),
+                    ss.VeTZ21Robust(comm_key=gens, enc_pk=enc_pk,
+                                    enc_gen=enc_g, n_parties=TZ21_ROBUST[0],
+                                    reps=TZ21_ROBUST[1])]
+
+        def spec_of(verifier: bool, ve=TZ21_SET):
+            spec = ProofSpec(context=b"chip-smoke split")
+            nm_value = kb.non_mem.value()
+            if verifier:
+                stmts = [
+                    ss.PoKBBSSignatureG1Verifier(
+                        sig_params, issuer.public_key, revealed),
+                    ss.PoKBBSSignature23IETFG1Verifier(b23_params, b23_pk,
+                                                       revealed),
+                    ss.VBAccumulatorMembershipCDHVerifier(V, params,
+                                                          kp.public_key),
+                    ss.KBUniversalAccumulatorNonMembershipCDHVerifier(
+                        nm_value, kb_keep["params"], kb_keep["kp"].public_key)]
+            else:
+                stmts = [
+                    ss.PoKBBSSignatureG1Prover(sig_params,
+                                               revealed_messages=revealed),
+                    ss.PoKBBSSignature23IETFG1Prover(
+                        b23_params, revealed_messages=revealed),
+                    ss.VBAccumulatorMembershipCDHProver(V, params),
+                    ss.KBUniversalAccumulatorNonMembershipCDHProver(
+                        nm_value, kb_keep["params"])]
+            for s in stmts + [ss.PedersenCommitmentG2(g2_bases, g2_comm)] \
+                    + tz21_statements(ve):
+                spec.add_statement(s)
+            spec.add_witness_equality([(0, 0), (1, 0), (2, 0)])
+            spec.add_witness_equality([(0, 1), (5, 0), (6, 0)])
+            for i in range(1, TZ21_K):
+                spec.add_witness_equality([(0, 1 + i), (5, i)])
+            return spec
+
+        def wits_of(ve_msgs=hidden):
+            return [st.BBSWitness(bbs_sig, msgs),
+                    sm.BBS23Witness(b23_sig, msgs),
+                    st.AccumMembershipWit(element=uid, witness=vb_wit),
+                    st.AccumMembershipWit(element=kb_keep["non_member"],
+                                          witness=kb_keep["nm_wit"]),
+                    list(g2_wits), list(ve_msgs), [msgs[1]]]
+
+        prover_spec, verifier_spec = spec_of(False), spec_of(True)
+        comp = run("proof_system_split_prove", lambda: Proof.new(
+            hr, prover_spec, wits_of(), nonce=SPLIT_NONCE, device=dev),
+            TZ21_KERNELS)
+        for mode, cfg, need in (("none", None, TZ21_KERNELS),
+                                ("lazy", VerifierConfig(True),
+                                 TZ21_KERNELS + CHECKER_KERNELS),
+                                ("eager", VerifierConfig(False),
+                                 TZ21_KERNELS)):
+            if not run(f"proof_system_split_verify_{mode}",
+                       lambda: comp.verify(hr, verifier_spec,
+                                           nonce=SPLIT_NONCE, config=cfg,
+                                           device=dev), need):
+                raise AssertionError(f"proof_system_split: verify ({mode}) "
+                                     f"refused the proof")
+        t0 = time.perf_counter()
+        ve_proof = comp.statement_proofs[5]
+        got = ve_proof.ve_proof.compress().decrypt(
+            dec_sk, ve_proof.commitment, gens[:TZ21_K + 1])
+        if got[:TZ21_K] != hidden:
+            raise AssertionError("proof_system_split: the auditor's "
+                                 "decryption of the composite differs")
+        t["composite_decrypt_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        weak_spec = ProofSpec(context=b"chip-smoke guard")
+        weak_spec.add_statement(tz21_statements((2, 1))[0])
+        strong_spec = ProofSpec(context=b"chip-smoke guard")
+        strong_spec.add_statement(tz21_statements()[0])
+        weak = Proof.new(hr, weak_spec, [hidden], nonce=SPLIT_NONCE,
+                         device=dev)
+        if not weak.verify(hr, weak_spec, nonce=SPLIT_NONCE, device=dev):
+            raise AssertionError("proof_system_split: the (2, 1) proof "
+                                 "fails under its own statement")
+        refuses("guard_2_1_under_16_32", lambda: weak.verify(
+            hr, strong_spec, nonce=SPLIT_NONCE, device=dev), "parameters")
+        refuses("prover_spec_verifies", lambda: comp.verify(
+            hr, prover_spec, nonce=SPLIT_NONCE, device=dev), "prover-side")
+        refuses("wrong_nonce", lambda: comp.verify(
+            hr, verifier_spec, nonce=b"another nonce", device=dev))
+        broken = Proof.new(hr, prover_spec, wits_of(
+            [hidden[0] + Fr(1)] + hidden[1:]), nonce=SPLIT_NONCE, device=dev)
+        refuses("broken_equality", lambda: broken.verify(
+            hr, verifier_spec, nonce=SPLIT_NONCE, device=dev), "equality")
+        t["rejections_s"] = time.perf_counter() - t0
+
+        # ---- (c) the IETF suites
+        ietf_s = {}
+        msg_octets = [b"chip-smoke IETF message %d" % i
+                      for i in range(IETF_MSGS)]
+        for name, kat in IETF_KATS.items():
+            cs = getattr(ietf, name)
+            sk = cs.keygen(IETF_KEY_MATERIAL, IETF_KEY_INFO)
+            pk = cs.sk_to_pk(sk)
+            kat_ok = int(sk) == kat["sk"]
+            if "pk" in kat:
+                kat_ok &= pk.hex() == kat["pk"]
+                kat_ok &= ietf.point_to_octets_g1(cs.p1()).hex() == kat["p1"]
+            else:
+                kat_ok &= [ietf.point_to_octets_g1(p).hex() for p in
+                           cs.create_generators(3)] == kat["generators"]
+            if not kat_ok:
+                raise AssertionError(f"proof_system_split: {name} differs "
+                                     f"from the draft's fixtures")
+            tag = "ietf_" + name[len("BLS12381_"):].lower()
+            sig = run(tag + "_sign", lambda: cs.sign(sk, pk, IETF_HEADER,
+                                                     msg_octets))
+            if not run(tag + "_verify", lambda: cs.verify(
+                    pk, sig, IETF_HEADER, msg_octets, device=dev)):
+                raise AssertionError(f"proof_system_split: {tag} refused "
+                                     f"its signature")
+            disclosed = {i: msg_octets[i] for i in IETF_DISCLOSED}
+            pr = run(tag + "_proof_gen", lambda: cs.proof_gen(
+                pk, sig, IETF_HEADER, SPLIT_NONCE, msg_octets,
+                list(IETF_DISCLOSED), hr))
+            if not run(tag + "_proof_verify", lambda: cs.proof_verify(
+                    pk, pr, IETF_HEADER, SPLIT_NONCE, disclosed, IETF_MSGS,
+                    device=dev)):
+                raise AssertionError(f"proof_system_split: {tag} refused "
+                                     f"its proof")
+            bad_sig = sig[:50] + bytes([sig[50] ^ 1]) + sig[51:]
+            refuses(tag + "_spoiled_signature", lambda: cs.verify(
+                pk, bad_sig, IETF_HEADER, msg_octets, device=dev))
+            bad_pr = pr[:150] + bytes([pr[150] ^ 1]) + pr[151:]
+            refuses(tag + "_spoiled_proof", lambda: cs.proof_verify(
+                pk, bad_pr, IETF_HEADER, SPLIT_NONCE, disclosed, IETF_MSGS,
+                device=dev))
+            ietf_s[tag] = {k: t[f"{tag}_{k}_s"] for k in
+                           ("sign", "verify", "proof_gen", "proof_verify")}
+    finally:
+        tpairing.TPairing.miller_product = real_miller
+        tz21._party_products = real_products
+        if env is not None:
+            os.environ[PAIRING_ENV] = env
+    if not all(refused.values()):
+        raise AssertionError(f"proof_system_split: not refused: {refused}")
+    lazy = [n for p, n in miller if p == "proof_system_split_verify_lazy"]
+    if len(lazy) != 1 or lazy[0] < RandomizedPairingChecker.DEVICE_THRESHOLD:
+        raise AssertionError(f"proof_system_split: the lazy checker's device "
+                             f"Miller products {lazy}")
+    if len(miller) != 1:
+        raise AssertionError(f"proof_system_split: device Miller products "
+                             f"{miller}")
+    phase("proof_system_split", tz21_set=list(TZ21_SET), tz21_messages=TZ21_K,
+          robust_set=list(TZ21_ROBUST), messages=SPLIT_MSGS,
+          revealed=SPLIT_REVEALED,
+          tz21_prove_s=[t["tz21_prove_cold_s"], t["tz21_prove_warm_s"]],
+          tz21_verify_s=[t["tz21_verify_cold_s"], t["tz21_verify_warm_s"]],
+          tz21_instances=[TZ21_SET[0] * TZ21_SET[1],
+                          (TZ21_SET[0] - 1) * TZ21_SET[1]],
+          tz21_samples=TZ21_SAMPLES, samples_s=t["samples_s"],
+          decrypt_s=t["decrypt_s"],
+          prove_s=t["proof_system_split_prove_s"],
+          verify_s={m: t[f"proof_system_split_verify_{m}_s"]
+                    for m in ("none", "lazy", "eager")},
+          composite_decrypt_s=t["composite_decrypt_s"],
+          rejections_s=t["rejections_s"], ietf_s=ietf_s,
+          setup_s=[t["setup_s"], t["composite_setup_s"]],
+          deferred_pairs=lazy[0],
+          launches={p: {n: c for n, c in v.items() if c}
+                    for p, v in paths.items()},
+          refused=refused, correct=True)
+    return paths, captured
+
+
 def bn254_msm_phases(counted, dev) -> tuple:
     """BN254 G1 at the reference's full size: 2^20 bench points with known
     discrete logs (two full adds and a normalize at 8 limbs, as on
@@ -4274,6 +4691,12 @@ def main() -> int:
     paths.update((k, (v, [])) for k, v in pm_paths.items())
     captured.update(pm_captured)
     phase("proof_system_more_phases", seconds=round(time.time() - t0, 3))
+    t0 = time.time()
+    split_paths, split_captured = proof_system_split_phase(counted, dev,
+                                                           acc_keep, kb_keep)
+    paths.update((k, (v, [])) for k, v in split_paths.items())
+    captured.update(split_captured)
+    phase("proof_system_split_phases", seconds=round(time.time() - t0, 3))
 
     # ---- BN254: the 2^20 G1 MSMs and the edge MSMs, the LegoGroth16
     # setup, proves and verifier at 2^16 constraints, the 64-pair pairing
@@ -4673,32 +5096,6 @@ def main() -> int:
                 (F2.base, a), [24, M]))
     phase("check_fq2_sqr", elements=[w_sq, w_sq - 5], path="g2_msm_2^20",
           edges="a0=a1,a1=0,(p-1)+0u,0+(p-1)u", bit_exact=True)
-
-    # the square's device time a launch from the tail's widest call down
-    # to 16 elements, where what is left is the floor of a launch: its
-    # start and one thread's dependent products
-    from torch.profiler import ProfilerActivity, profile
-    sq_widths = []
-    for M in (w_sq, 1 << 14, 1 << 11, 16):
-        a = points2.Y[:, :M].contiguous()
-        fk.fq2_sqr(F2.base, a)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fk.fq2_sqr(F2.base, a)
-            torch.cuda.synchronize()
-        k = [e for e in prof.key_averages() if "fq2_sqr_kernel" in e.key]
-        seen = sum(e.count for e in k)
-        if seen:
-            ms, by = sum(e.self_device_time_total for e in k) / seen / 1e3, \
-                "profiler"
-        else:   # a short trace can come back empty: CUDA events instead
-            ms, by = cuda_ms(lambda: fk.fq2_sqr(F2.base, a), reps=20), \
-                "cuda_events"
-        bound = bound_ms(*work("fq2_sqr", (F2.base, a)))[0]
-        sq_widths.append([M, ms, bound, ms / bound, by])
-    phase("fq2_sqr_widths",
-          elements_device_ms_bound_ms_ratio_timer=json.dumps(sq_widths))
 
     # ---- the pairing paths' narrow batches at n lanes (65 in the
     # multi-pairing, 2 in the PoK batch verify's 2-pairing, 44 in the PoK

@@ -26,7 +26,9 @@ proofs' setup params, keys, signatures and proofs, Pedersen commitment
 keys and parsed Circom circuits; the PS/Coconut, BBDT16 and keyed
 accumulator keys, signatures, MACs and proofs; the KB universal
 accumulator with its two states, `Omega`, and the statements, witnesses
-and proofs of `statements_more` and `statements_kv`) as the port's
+and proofs of `statements_more` and `statements_kv`; ElGamal keys, TZ21
+and RDkgith proofs and their compressed ciphertexts; the BBS# params,
+keys, MACs, tokens and proofs, whose points lie on secp256r1) as the port's
 classes of the same names in the port's modules of the same names
 (`protocol_to_port`; a class with `__slots__`, as
 `utils/commitment.py`'s key, slot by slot; an accumulator's in-memory
@@ -46,6 +48,7 @@ import torch
 
 from . import resolve_device
 from .curves import bls12_381 as bls
+from .curves import extra_curves
 from .legogroth16 import snark
 
 JAX_LIMB_BITS = 15
@@ -211,7 +214,10 @@ def carry_pairs(pairs, g1, g2) -> list:
 
 
 def _port_curve(pt, mod):
-    """The G1 or G2 of the port's curve module `mod` that `pt` lies on."""
+    """The port's curve that `pt` lies on: secp256r1 (BBS#) by name, else
+    the G1 or G2 of the port's curve module `mod`."""
+    if pt.curve.name == extra_curves.secp256r1.name:
+        return extra_curves.secp256r1
     return mod.G2 if hasattr(pt.X, "c0") else mod.G1
 
 
@@ -244,7 +250,8 @@ def proof_ints(proof) -> dict:
     return {k: point_ints(getattr(proof, k)) for k in ("a", "b", "c", "d")}
 
 
-_PORT_FIELDS = {bls.Fr.p: bls.Fr, bls.Fq.p: bls.Fq}
+_PORT_FIELDS = {bls.Fr.p: bls.Fr, bls.Fq.p: bls.Fq,
+                extra_curves.secp256r1_Fr.p: extra_curves.secp256r1_Fr}
 _REFERENCE = "crypto_tpu."
 
 
@@ -289,10 +296,11 @@ def protocol_to_port(obj, _memo=None):
     proofs, protocols, ciphertexts, SRSs, and the proof system's specs,
     statements, meta-statements, witnesses and composite proofs) as the
     port's object of the class of the same name, field by field: points
-    through `carry_point` onto the port's BLS12-381, GT elements through
-    `carry_fp12`, field elements by value, lists, tuples, sets and dicts
-    item by item; ints, bools, bytes and None as they are.  An object met
-    twice in one call is carried once, so objects that several statements
+    through `carry_point` onto the port's BLS12-381 (or secp256r1, by
+    curve name), GT elements through `carry_fp12`, field
+    elements by value, lists, tuples, sets and dicts item by item; ints,
+    bools, bytes, strings and None as they are.  An object met twice in
+    one call is carried once, so objects that several statements
     share stay shared (`DerivedParamsTracker` keys on identity)."""
     memo = {} if _memo is None else _memo
     if id(obj) in memo:
@@ -320,7 +328,7 @@ def protocol_to_port(obj, _memo=None):
         out = type(obj)(carry(x) for x in obj)
     elif isinstance(obj, dict):
         out = {k: carry(v) for k, v in obj.items()}
-    elif obj is None or isinstance(obj, (bool, int, bytes)):
+    elif obj is None or isinstance(obj, (bool, int, bytes, str)):
         return obj
     else:
         raise TypeError(f"cannot carry a {type(obj).__name__} to the port")
@@ -357,6 +365,6 @@ def canonical(obj):
         return ("set",) + tuple(sorted(canonical(x) for x in obj))
     if isinstance(obj, dict):
         return tuple(sorted((k, canonical(v)) for k, v in obj.items()))
-    if obj is None or isinstance(obj, (bool, int, bytes)):
+    if obj is None or isinstance(obj, (bool, int, bytes, str)):
         return obj
     raise TypeError(f"no canonical form for a {type(obj).__name__}")

@@ -183,6 +183,19 @@ class TCurve:
     # batch utilities
     # ------------------------------------------------------------------
 
+    def unpack_affine(self, pts: TPoints) -> list:
+        """Device points as host points with Z = 1 (infinity as infinity):
+        the normalisation on the device (`to_affine`, one batched Fermat
+        inversion), then one unpack of x and y.  The same points as the
+        host `normalize` of each."""
+        a = self.to_affine(pts)
+        xs, ys = (np.atleast_1d(self.F.unpack_host(t)).reshape(-1)
+                  for t in (a.X, a.Y))
+        inf = a.inf.reshape(-1).tolist()
+        one = self.curve.K.one()
+        return [self.curve.infinity() if i else Point(x, y, one, self.curve)
+                for x, y, i in zip(xs, ys, inf)]
+
     def to_affine(self, p: TPoints) -> TAffine:
         """Normalization by batched Fermat inversion (infinity keeps
         x = y = 0 and inf set)."""

@@ -117,33 +117,18 @@ def _msm_query(pk: "ProvingKey", name: str, scalars, offset: int = 0,
 def _fixed_base_many(base: Point, scalars, device="cuda") -> list:
     """[base * s for s in scalars]: from `DEVICE_FIXED_BASE_THRESHOLD`
     scalars on through the base's device window table, normalised there
-    (`_affine_host`)."""
+    (`TCurve.unpack_affine`)."""
     dev = resolve_device(device)
     if len(scalars) >= DEVICE_FIXED_BASE_THRESHOLD:
         table = table_for(base.curve, base, device=dev)
-        return _affine_host(table.tc, table.mul_many([int(s)
+        return table.tc.unpack_affine(table.mul_many([int(s)
                                                       for s in scalars]))
     return multiply_field_elems_with_same_group_elem(base, scalars, dev)
 
 
-def _affine_host(tc, pts: TPoints) -> list:
-    """Device points as host points with Z = 1 (infinity as infinity): the
-    normalisation on the device (`TCurve.to_affine`, one batched Fermat
-    inversion), then one unpack of x and y.  The same points as the host
-    `normalize` of each."""
-    a = tc.to_affine(pts)
-    xs, ys = (np.atleast_1d(tc.F.unpack_host(t)).reshape(-1)
-              for t in (a.X, a.Y))
-    inf = a.inf.reshape(-1).tolist()
-    curve = tc.curve
-    one = curve.K.one()
-    return [curve.infinity() if i else Point(x, y, one, curve)
-            for x, y, i in zip(xs, ys, inf)]
-
-
 def _normalized(points) -> list:
     """The points with Z = 1 (or infinity), on the host; points that
-    already have Z = 1 (`_affine_host`'s) are taken as they are."""
+    already have Z = 1 (`TCurve.unpack_affine`'s) are taken as they are."""
     return [q if q.Z.is_one() else q.normalize() for q in points]
 
 

@@ -6,9 +6,12 @@ reference `utils/src/msm.rs:8-45`), used for CRS generation
 `utils/msm.multiply_field_elems_with_same_group_elem`.
 
 A (W, 256) table of digit multiples, table[w][d] = d * 2^(8w) * base,
-is built once on the device: eight host doublings give the bit points,
-masked `TCurve.add`s give row 0, then eight `TCurve.double`s a row.
-After that N scalars cost a gather (N, W) of table points and a
+is built once on the device: 8W host doublings give the bit points
+base * 2^(8w + b) of every row, then eight masked `TCurve.add`s over all
+W x 256 entries at once sum each digit's bit points (eight batched adds
+a table, where building row by row took eight doublings a row, 8W - 8
+dependent steps).  After that N scalars cost a gather (N, W) of table
+points and a
 log-depth tree of `TCurve.add` over the window axis (W - 1 batched adds
 for the whole batch), on G1 through the mont_mul kernel and on G2
 through the Fq2 mul and square kernels.  A batch of points is limb-major,
@@ -44,29 +47,24 @@ class FixedBaseTable:
         tc = self.tc
         D = 1 << WINDOW_BITS
         dev = tc.F.device
-        # the bit points base, 2 base, ..., 128 base (host doublings)
+        # the bit points base * 2^(8w + b) of every row (host doublings)
         bit_pts = []
-        acc = base.normalize()
-        for _ in range(WINDOW_BITS):
+        acc = base
+        for _ in range(self.W * WINDOW_BITS):
             bit_pts.append(acc)
-            acc = acc.double().normalize()
-        packed = tc.pack_points(bit_pts)                     # (U, 8)
-        # row 0: digit d is the sum of the bit points of its set bits
+            acc = acc.double()
+        packed = TPoints(*(t.reshape(t.shape[0], self.W, WINDOW_BITS)
+                           for t in tc.pack_points(bit_pts)))   # (U, W, 8)
+        # digit d of row w is the sum of row w's bit points of its set bits
         digits = np.arange(D, dtype=np.int64)
-        row = tc.infinity((D,))
+        table = tc.infinity((self.W, D))
         for b in range(WINDOW_BITS):
-            mask = torch.from_numpy((digits >> b) & 1 > 0).to(dev)
-            bp = TPoints(*(t[:, b:b + 1].expand(-1, D) for t in packed))
-            row = tc.select(mask, tc.add(row, bp), row)
-        # each further row: the previous one doubled WINDOW_BITS times
-        rows = [row]
-        for _ in range(self.W - 1):
-            r = rows[-1]
-            for _ in range(WINDOW_BITS):
-                r = tc.double(r)
-            rows.append(r)
-        return TPoints(*(torch.stack([r[i] for r in rows], dim=1)
-                         for i in range(3)))
+            mask = torch.from_numpy((digits >> b) & 1 > 0).to(dev).expand(
+                self.W, D)
+            bp = TPoints(*(t[:, :, b:b + 1].expand(-1, -1, D)
+                           for t in packed))
+            table = tc.select(mask, tc.add(table, bp), table)
+        return table
 
     def digits(self, scalars) -> torch.Tensor:
         """(N, W) int64 base-256 digits of the scalars, least significant

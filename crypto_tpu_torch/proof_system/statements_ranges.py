@@ -1,10 +1,11 @@
 """Proof-system statements backed by the range subsystems: the port's own
 copy of `crypto_tpu/proof_system/statements_ranges.py` (reference
 `proof_system/src/sub_protocols/{bound_check_bpp,bound_check_smc,
-bound_check_smc_with_kv,r1cs_legogorth16,inequality}.rs`): the
-Bulletproofs++ bound check, the CCS set-membership bound check (public
-and keyed verification), Circom R1CS circuits under LegoGroth16, and
-public-value inequality.
+bound_check_smc_with_kv,r1cs_legogorth16,inequality,
+verifiable_encryption_tz_21}.rs`): the Bulletproofs++ bound check, the
+CCS set-membership bound check (public and keyed verification), Circom
+R1CS circuits under LegoGroth16, public-value inequality, and TZ21
+verifiable encryption (DKGitH and its robust variant).
 
 Transcript note: the BP++ range proof runs on a fresh transcript seeded
 with the composite challenge (which already binds all round-1
@@ -17,7 +18,9 @@ the query MSMs there from its threshold on) and the set-membership
 digits' pairings (`smc_range_proof/ccs.py`: the prover's in one routed
 call; the verifier's deferred into the shared `RandomizedPairingChecker`
 when there is one, else in one routed call).  The SNARK's verification
-equation defers into the checker too, else pairs on the host.
+equation defers into the checker too, else pairs on the host.  The TZ21
+DKGitH prover's and verifier's fixed-base products
+(`verifiable_encryption/tz21.py`, one batch a call from its threshold).
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ from ..smc_range_proof.ranges_extra import (CCSArbitraryRangeProof,
                                             CCSArbitraryRangeProtocol)
 from ..transcript.transcript import Transcript
 from ..utils.commitment import PedersenCommitmentKey
+from ..utils.msm import msm
+from ..verifiable_encryption.rdkgith import RdkgithProof
+from ..verifiable_encryption.tz21 import DkgithProof
 from .base import Statement, ProofSystemError
 
 F = bls.Fr
@@ -370,6 +376,114 @@ class PublicInequalityStatement(Statement):
     def response_for_witness(self, proof, wit_idx):
         assert wit_idx == 0
         return proof.response_for_value()
+
+
+# ---------------------------------------------------------------------------
+# verifiable encryption (TZ21 DKGitH and its robust variant)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class VerifiableEncryptionTZ21(Statement):
+    """Encrypt sign-able witnesses verifiably (reference
+    `sub_protocols/verifiable_encryption_tz_21.rs`): commit the witnesses
+    (plus one random filler, so the commitment hides them even if all are
+    linked) with `comm_key`, prove the opening in Schnorr (responses are
+    linkable) and attach a DKGitH proof that the ciphertexts encrypt the
+    SAME opening of that commitment.
+
+    The statement fixes the soundness parameters: the verifier refuses a
+    proof whose own `n_parties`/`reps` (DKGitH) or `num_parties`/
+    `threshold` (RDkgith) differ from the statement's, which the
+    reference's TZ21 proofs carry and check against themselves only.
+    The DKGitH party products run on `Statement.device`; its salt and
+    seeds come from the prover's `rng` (`DkgithProof.new`)."""
+    comm_key: list         # bases, one per witness + 1 for the filler
+    enc_pk: object         # ElgamalPublicKey
+    enc_gen: Point
+    n_parties: int = 8
+    reps: int = 16
+    # "dkgith" (statement/mod.rs:134 VeTZ21) or "rdkgith"
+    # (statement/mod.rs:136 VeTZ21Robust; `reps` is the revealed-party
+    # threshold there)
+    variant: str = "dkgith"
+
+    def init_subprotocol(self, rng, blindings, witness):
+        wits = list(witness) + [F.rand(rng)]
+        if len(wits) > len(self.comm_key):
+            raise ProofSystemError("commitment key too short")
+        ck = self.comm_key[:len(wits)]
+        commitment = msm(ck, wits).normalize()
+        bl = [blindings.get(i, F.rand(rng)) for i in range(len(wits) - 1)]
+        bl.append(F.rand(rng))
+        sc = SchnorrCommitment.new(ck, bl)
+        stmt = self
+
+        class SP:
+            def challenge_contribution(self, writer):
+                for p in ck:
+                    writer.point(p)
+                writer.point(commitment)
+                writer.point(sc.t)
+
+            def gen_proof(self, challenge):
+                if stmt.variant == "rdkgith":
+                    ve = RdkgithProof.new(rng, wits, ck, stmt.enc_pk,
+                                          stmt.enc_gen,
+                                          num_parties=stmt.n_parties,
+                                          threshold=stmt.reps)
+                else:
+                    ve = DkgithProof.new(rng, wits, commitment, ck,
+                                         stmt.enc_pk, stmt.enc_gen,
+                                         n_parties=stmt.n_parties,
+                                         reps=stmt.reps, device=stmt.device)
+                return VETZ21Proof(commitment=commitment, t=sc.t,
+                                   sc=sc.response(wits, challenge),
+                                   ve_proof=ve)
+
+        return SP()
+
+    def proof_challenge_contribution(self, proof, writer):
+        ck = self.comm_key[:len(proof.sc.responses)]
+        for p in ck:
+            writer.point(p)
+        writer.point(proof.commitment)
+        writer.point(proof.t)
+
+    def _has_statement_parameters(self, ve) -> bool:
+        if self.variant == "rdkgith":
+            return isinstance(ve, RdkgithProof) and \
+                (ve.num_parties, ve.threshold) == (self.n_parties, self.reps)
+        return isinstance(ve, DkgithProof) and \
+            (ve.n_parties, ve.reps) == (self.n_parties, self.reps) and \
+            len(ve.deltas) == len(ve.openings) == len(ve.hidden_cts) \
+            == self.reps
+
+    def verify_proof(self, proof, challenge, pairing_checker=None):
+        ck = self.comm_key[:len(proof.sc.responses)]
+        if not self._has_statement_parameters(proof.ve_proof):
+            raise ProofSystemError(
+                "TZ21 proof's parameters differ from the statement's")
+        if not proof.sc.is_valid(ck, proof.commitment, proof.t, challenge):
+            raise ProofSystemError("TZ21 commitment PoK failed")
+        if self.variant == "rdkgith":
+            ok = proof.ve_proof.verify(proof.commitment, ck, self.enc_pk,
+                                       self.enc_gen)
+        else:
+            ok = proof.ve_proof.verify(proof.commitment, ck, self.enc_pk,
+                                       self.enc_gen, device=self.device)
+        if not ok:
+            raise ProofSystemError("TZ21 verifiable encryption failed")
+
+    def response_for_witness(self, proof, wit_idx):
+        return proof.sc.get_response(wit_idx)
+
+
+@dataclass
+class VETZ21Proof:
+    commitment: Point
+    t: Point
+    sc: SchnorrResponse
+    ve_proof: object
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,13 @@ def test_port_imports_no_jax_and_no_reference():
                  "accumulator.kb_universal_witness", "accumulator.keyed",
                  "coconut.core", "coconut.messages_pok", "kvac.bbdt16",
                  "kvac.keyed_proof", "proof_system.statements_more",
-                 "proof_system.statements_kv"):
+                 "proof_system.statements_kv", "hashing_rfc9380",
+                 "bbs_plus.ietf", "verifiable_encryption.tz21",
+                 "verifiable_encryption.rdkgith",
+                 "proof_system.statements_split", "curves.extra_curves",
+                 "utils.schnorr_signature", "kvac.bbs_sharp.setup",
+                 "kvac.bbs_sharp.mac", "kvac.bbs_sharp.hol",
+                 "kvac.bbs_sharp.proof"):
         assert f"crypto_tpu_torch.{name}" in out.stdout
 
 
@@ -495,6 +501,48 @@ def _keyed_proof_public_verify():
         PublicVerificationKey(G2, G2))
 
 
+def _dkgith_new():
+    import random
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.utils.elgamal import ElgamalPublicKey
+    from crypto_tpu_torch.verifiable_encryption.tz21 import DkgithProof
+    G = tb.G1.generator()
+    DkgithProof.new(random.Random(1), [tb.Fr(1)], G, [G],
+                    ElgamalPublicKey(G), G, n_parties=2, reps=1)
+
+
+def _dkgith_verify():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.utils.elgamal import ElgamalPublicKey
+    from crypto_tpu_torch.verifiable_encryption.tz21 import (BatchCt,
+                                                             DkgithProof)
+    G = tb.G1.generator()
+    DkgithProof(bytes(32), bytes(32), [[tb.Fr(0)]], [[bytes(16)]],
+                [BatchCt(G, [tb.Fr(0)])], 2, 1).verify(
+        G, [G], ElgamalPublicKey(G), G)
+
+
+def _ietf_signed():
+    from crypto_tpu_torch.bbs_plus.ietf import BLS12381_SHA256 as cs
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    sk = tb.Fr(5)
+    pk = cs.sk_to_pk(sk)
+    return cs, pk, cs.sign(sk, pk, b"", [b"m0", b"m1"])
+
+
+def _ietf_verify():
+    cs, pk, sig = _ietf_signed()
+    cs.verify(pk, sig, b"", [b"m0", b"m1"])
+
+
+def _ietf_proof_verify():
+    import random
+    cs, pk, sig = _ietf_signed()
+    proof = cs.proof_gen(pk, sig, b"", b"", [b"m0", b"m1"], [0],
+                         random.Random(1))
+    cs.proof_verify(pk, proof, b"", b"", {0: b"m0"}, 2)
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -526,7 +574,9 @@ def _keyed_proof_public_verify():
                                    _original_membership_protocol,
                                    _kb_witnesses_for_batch,
                                    _kb_update_non_members, _kb_omega,
-                                   _ps_verify, _keyed_proof_public_verify],
+                                   _ps_verify, _keyed_proof_public_verify,
+                                   _dkgith_new, _dkgith_verify,
+                                   _ietf_verify, _ietf_proof_verify],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""
