@@ -19,7 +19,7 @@ before it and read just after:
   must be exactly those that share a spoiled chunk, and they are rerun
   through the total-formula kernels;
 * the edge MSMs (8 duplicate bases, whose window is rerun through the
-  total-formula pre/post; 300 points with one scalar, the grid path);
+  total-formula narrow level; 300 points with one scalar, the grid path);
 * the Jacobian add, mixed add and double of `make_add_fns` at 2^20 rows;
 * G2 bench points: 2^20 distinct BLS12-381 G2 points with known discrete
   logs, built by the total `TCurve` add and `to_affine` over Fq2;
@@ -179,9 +179,14 @@ and square, mont_mul and mont_pow also at the pairing's narrow widths
 (those three also at the PoK batch verify's 2 lanes and the PoK
 checker's 44; the fast levels at every width of the PoK batch verify's
 MSMs),
-mont_pow also at the witness update's to_affine; every 8-limb
-instantiation at the BN254 paths' shapes, the same way), times the fast
-down pass at each of
+mont_pow also at the witness update's to_affine; the one-launch narrow
+levels, both formulas, also at 1, 2, 127, 129, 2,048 and 4,095 pairs and
+every narrow width of the G1 MSMs; every 8-limb
+instantiation at the BN254 paths' shapes, the same way), times the
+one-launch narrow levels against the split level they replaced (the
+pre and post kernels of `csrc/affine_level_split.cu`, a library of its
+own, around `batch_inv_t`) at 16, 256, 2,048 and 4,095 pairs at 12 and
+8 limbs, times the fast down pass at each of
 the 2^20 MSM's level widths, and profiles one more 2^20 G1 MSM on the fast
 levels for the device's busy share and each kernel's device time
 against its summed bound (the bound summed by shims over the same
@@ -196,6 +201,7 @@ there is no CUDA device.
 
 from __future__ import annotations
 
+import functools
 import json
 import random
 import re
@@ -245,11 +251,10 @@ def fq2_sqr_products(L: int) -> int:
 # CUDA kernel function -> the entry point that launches it
 KERNEL_ENTRY = {
     "mont_mul_kernel": "mont_mul", "mont_pow_kernel": "mont_pow",
-    "pre_kernel": "affine_level_pre", "post_kernel": "affine_level_post",
+    "affine_level_kernel": "affine_level",
     "prefix_kernel": "chunked_level_prefix",
     "down_kernel": "chunked_level_down",
-    "pre_fast_kernel": "affine_level_pre_fast",
-    "post_fast_kernel": "affine_level_post_fast",
+    "affine_level_fast_kernel": "affine_level_fast",
     "prefix_fast_kernel": "chunked_level_prefix_fast",
     "down_fast_kernel": "chunked_level_down_fast",
     "full_add_kernel": "jacobian_add", "mixed_add_kernel": "jacobian_add_mixed",
@@ -303,6 +308,7 @@ def bound_ms(nbytes: float, wide_products: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@functools.lru_cache(maxsize=None)
 def chain_ops(e: int) -> tuple:
     """(squares, products) of a short addition chain for x^e: a sliding
     window over e's bits (x^2 and the odd powers below 2^w, then a square
@@ -350,23 +356,33 @@ def work(name: str, args: tuple) -> tuple:
             + 8 * idx.shape[0], 0
     if name == "slot_tables":   # (F, x, y (U, N)) -> (N, U), (2N, U) rows
         return 5 * 4 * args[1].numel(), 0
-    from crypto_tpu_torch.ops.kernels.curve_kernels import CHUNK_K
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    CHUNK_K = ck.CHUNK_K
     L = args[0].L                        # args[0] is the field context
     FQ_BYTES, FQ2_BYTES = 4 * L, 8 * L   # an Fq and an Fq2 element
     MUL, SQR = mul_products(L), sqr_products(L)
     FQ2_MUL, FQ2_SQR = fq2_mul_products(L), fq2_sqr_products(L)
     M = args[1].shape[1]
     strips, totals = M - M // CHUNK_K, M // CHUNK_K * FQ_BYTES
+
+    def chain():                  # the Fermat chain of p - 2 (Fq only)
+        return chain_ops(args[0].p - 2)
+
     return {
         "fq2_mul": lambda: (3 * FQ2_BYTES * M, FQ2_MUL * M),
         "fq2_sqr": lambda: (2 * FQ2_BYTES * M, FQ2_SQR * M),
-        "affine_level_pre": lambda: (M * (5 * FQ_BYTES + 16), 0),
-        "affine_level_post": lambda: (M * (7 * FQ_BYTES + 12),
-                                      2 * M * MUL
-                                      + (M + int(args[6].sum())) * SQR),
-        "affine_level_pre_fast": lambda: (M * (3 * FQ_BYTES + 12), 0),
-        "affine_level_post_fast": lambda: (M * (7 * FQ_BYTES + 8),
-                                           M * (2 * MUL + SQR)),
+        # Montgomery's trick over the M denominators (a prefix product and
+        # the walk back's two a pair) and one Fermat chain, then the add:
+        # 2 products and lambda^2 a pair, x1^2 on the doubling lanes
+        "affine_level": lambda: (
+            M * (6 * FQ_BYTES + 12),
+            (3 * (M - 1) + 2 * M + chain()[1]) * MUL
+            + (M + chain()[0] + int(ck.affine_level_pre_plain(
+                *args)[1].sum())) * SQR),
+        "affine_level_fast": lambda: (
+            M * (6 * FQ_BYTES + 13),
+            (3 * (M - 1) + 2 * M + chain()[1]) * MUL
+            + (M + chain()[0]) * SQR),
         "affine_level_pre_fq2": lambda: (M * (5 * FQ2_BYTES + 16), 0),
         "affine_level_post_fq2": lambda: (
             M * (7 * FQ2_BYTES + 12),
@@ -392,8 +408,7 @@ def work(name: str, args: tuple) -> tuple:
         # Fermat chain for the whole batch
         "jacobian_normalize": lambda: (
             M * 6 * FQ_BYTES, M * (6 * MUL + SQR)
-            + chain_ops(args[0].p - 2)[0] * SQR
-            + chain_ops(args[0].p - 2)[1] * MUL),
+            + chain()[0] * SQR + chain()[1] * MUL),
     }[name]()
 
 
@@ -486,6 +501,177 @@ def check_normalize_cases(F, J, pn, agree) -> list:
     return list(zs)
 
 
+# widths at which each one-launch narrow level is held to its plain
+# version beside its paths' own: one and two pairs, a block's 128 threads
+# either side, a width of the prove's levels and the widest narrow level
+LEVEL_WIDTHS = (1, 2, 127, 129, 2048, 4095)
+# widths of the split-against-one-launch timing lines
+TIMED_LEVEL_WIDTHS = (16, 256, 2048, 4095)
+
+
+def check_narrow_level(row, agree, F, ins, fast: bool, path=None) -> list:
+    """The one-launch level (`affine_level_fast` when `fast`, else
+    `affine_level`) held bit for bit to its plain version on the pairs
+    `ins`; with a `path`, its kernels-line row (`row`) there, the kernel
+    timed."""
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    name = "affine_level_fast" if fast else "affine_level"
+    kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+    M = ins[0].shape[1]
+    want, plain_ms = timed_call(lambda: plain(F, *ins))
+    err = agree(name, kernel(F, *ins), want, f"at L={F.L} M={M}")
+    if path is None:
+        return []
+    src, rep = KERNEL_SOURCE[name]
+    return [row(name, "crypto_tpu_torch/csrc/" + src, "crypto_tpu/" + rep,
+                path, err, cuda_ms(lambda: kernel(F, *ins)), plain_ms,
+                (F,) + ins, [F.L, M])]
+
+
+def check_narrow_levels(row, agree, F, inputs, fast: bool, path: str,
+                        width: int, more=()) -> list:
+    """`check_narrow_level` on `inputs(M)` (generic pairs, doublings,
+    P + (-P) and infinite operands) at `path`'s `width` (its row), at the
+    widths `more` and at LEVEL_WIDTHS; prints the widths and the kernel's
+    time at one pair (a launch and one Fermat chain: the level's latency
+    floor).  Returns the row."""
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    widths = sorted({width, *more, *LEVEL_WIDTHS})
+    rows = []
+    for M in widths:
+        rows += check_narrow_level(row, agree, F, inputs(M), fast,
+                                   path if M == width else None)
+    kernel = ck.affine_level_fast if fast else ck.affine_level
+    one = inputs(1)
+    phase(f"check_{kernel.__name__}", L=F.L, path=path, pairs=widths,
+          one_pair_ms=cuda_ms(lambda: kernel(F, *one)), bit_exact=True)
+    return rows
+
+
+# csrc/affine_level_split.cu, the split narrow level that the one-launch
+# kernels replaced, as a library of its own for `level_timings` (the
+# port's library does not hold it): C entry point -> argument types
+SPLIT_SIGNATURES = {
+    "crypto_affine_pre": 9, "crypto_affine_post": 10,
+    "crypto_affine_pre_fast": 6, "crypto_affine_post_fast": 9}
+
+
+def start_split_build():
+    """nvcc of the split level's library, started (beside the port's own
+    build): (process, library path); `split_library` waits for it."""
+    from crypto_tpu_torch.ops.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / "libaffine_level_split.so"
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC),
+         str(build.CSRC / "affine_level_split.cu"), "-o", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def split_library(started):
+    import ctypes
+    proc, out = started
+    log, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on affine_level_split.cu:\n{log}")
+    lib = ctypes.CDLL(str(out))
+    for name, n_ptrs in SPLIT_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_uint32, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def split_level(lib, F, fast: bool, ins) -> tuple:
+    """The narrow level as the port ran it before the one-launch kernels:
+    the pre kernel, `msm_v2.batch_inv_t` (mont_mul launches, concats and a
+    mont_pow root), the post kernel; the one-launch level's outputs."""
+    import ctypes
+    from crypto_tpu_torch.ops import msm_v2
+    from crypto_tpu_torch.ops.kernels.build import check
+    from crypto_tpu_torch.ops.kernels.field_kernels import stream_of
+    x1, y1, m1, x2, y2, m2 = ins
+    M = x1.shape[1]
+    tail = [M, F.L, ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+            stream_of(x1.device)]
+
+    def ptrs(*ts):
+        return [t.data_ptr() for t in ts]
+
+    d, inf3 = torch.empty_like(x1), torch.empty_like(m1)
+    x3, y3 = torch.empty_like(x1), torch.empty_like(y1)
+    if fast:
+        check(lib.crypto_affine_pre_fast(*ptrs(x1, m1, x2, m2, d, inf3),
+                                         *tail), "split pre_fast")
+        zero = F.is_zero(d)
+        d[0] |= zero.to(torch.int32)
+        dinv = msm_v2.batch_inv_t(F, d)
+        check(lib.crypto_affine_post_fast(*ptrs(x1, y1, x2, y2, dinv, m1,
+                                                m2, x3, y3), *tail),
+              "split post_fast")
+        return x3, y3, inf3, zero
+    dbl = torch.empty_like(m1)
+    check(lib.crypto_affine_pre(*ptrs(x1, y1, m1, x2, y2, m2, d, dbl, inf3),
+                                *tail), "split pre")
+    dinv = msm_v2.batch_inv_t(F, d)
+    check(lib.crypto_affine_post(*ptrs(x1, y1, x2, y2, dinv, dbl, m1, m2, x3,
+                                       y3), *tail), "split post")
+    return x3, y3, inf3
+
+
+def profile_launches(fn, tries: int = 3) -> tuple:
+    """(device operations, their summed device ms) of one fn() call, from
+    the profiler's raw events: the fullest of `tries` traces, since a
+    short trace on that machine sometimes comes back short of events or
+    empty ((0, 0.0) if every one is)."""
+    from torch.profiler import ProfilerActivity, profile
+    best = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if len(events) > len(best):
+            best = events
+    return len(best), sum(end - start for _, start, end in best) / 1e6
+
+
+def level_timings(lib, F, inputs, agree, reps: int = 3) -> None:
+    """At each width of TIMED_LEVEL_WIDTHS, on both formulas: the split
+    level (`split_level`) and the one-launch level on the same `inputs(M)`
+    held to each other bit for bit, each timed as one call by CUDA events
+    in turns (split, one, one, split; `reps` times; the medians), each
+    profiled once (device operations and ms), and the one-launch level's
+    bound.  One line a width."""
+    from crypto_tpu_torch.ops.kernels import curve_kernels as ck
+    for M in TIMED_LEVEL_WIDTHS:
+        ins = inputs(M)
+        line = {}
+        for fast in (True, False):
+            tag = "fast" if fast else "total"
+            one = ck.affine_level_fast if fast else ck.affine_level
+            fns = {"split": lambda: split_level(lib, F, fast, ins),
+                   "one": lambda: one(F, *ins)}
+            agree(one.__name__, fns["one"](), fns["split"](),
+                  f"against the split level at L={F.L} M={M}")
+            ms = {"split": [], "one": []}
+            for _ in range(reps):
+                for k in ("split", "one", "one", "split"):
+                    ms[k].append(timed_call(fns[k])[1])
+            for k, fn in fns.items():
+                n_ops, dev_ms = profile_launches(fn)
+                line.update({f"{tag}_{k}_ms": statistics.median(ms[k]),
+                             f"{tag}_{k}_launches": n_ops,
+                             f"{tag}_{k}_device_ms": dev_ms})
+            line[f"{tag}_bound_ms"] = bound_ms(*work(one.__name__,
+                                                     (F,) + ins))[0]
+        phase("affine_level_widths", L=F.L, pairs=M, **line)
+
+
 def max_err(a, b) -> int:
     """Largest |kernel - plain| over the outputs' int32 words."""
     return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
@@ -496,12 +682,12 @@ def max_err(a, b) -> int:
 LEVEL_KERNELS = {
     ("chunked", False): ("chunked_level_prefix_fast",
                          "chunked_level_down_fast"),
-    ("pre_post", False): ("affine_level_pre_fast", "affine_level_post_fast"),
+    ("narrow", False): ("affine_level_fast",),
     ("chunked", True): ("chunked_level_prefix", "chunked_level_down"),
-    ("pre_post", True): ("affine_level_pre", "affine_level_post"),
+    ("narrow", True): ("affine_level",),
 }
 SAFE_KERNELS = LEVEL_KERNELS[("chunked", True)] \
-    + LEVEL_KERNELS[("pre_post", True)]
+    + LEVEL_KERNELS[("narrow", True)]
 G1_LEVEL_KERNELS = sum(LEVEL_KERNELS.values(), ())
 # what a G2 MSM launches: the gather, the Fq2 level, mul and square, and
 # mont_mul and mont_pow (the norm and the base-field Fermat root of every
@@ -515,14 +701,15 @@ FQ2_KERNELS = G2_KERNELS[1:5]
 def level_kernels(fast_widths, safe_widths, threshold: int) -> set:
     """The kernels a G1 run dispatches to: the gather, mont_mul and
     mont_pow (the Fermat roots) always, the chunked level for calls of at
-    least `threshold` pairs, pre/post for the narrower ones; the fast
-    variants for the fast calls, the total formula for the rerun's."""
+    least `threshold` pairs, the one-launch narrow level for the narrower
+    ones; the fast variants for the fast calls, the total formula for the
+    rerun's."""
     names = {"slot_tables", "gather_rows_t", "mont_mul", "mont_pow"}
     for widths, safe in ((fast_widths, False), (safe_widths, True)):
         if any(w >= threshold for w in widths):
             names.update(LEVEL_KERNELS[("chunked", safe)])
         if any(w < threshold for w in widths):
-            names.update(LEVEL_KERNELS[("pre_post", safe)])
+            names.update(LEVEL_KERNELS[("narrow", safe)])
     return names
 
 
@@ -566,8 +753,8 @@ def floats(timings: dict) -> dict:
 # the wrapper argument whose values (not only its shape) a launch's
 # `work` reads: the gather's index, the posts' and down passes' doubling
 # flags
-DATA_ARG = {"gather_rows_t": 1, "affine_level_post": 6,
-            "affine_level_post_fq2": 6, "chunked_level_down": 9}
+DATA_ARG = {"gather_rows_t": (1,), "affine_level": (1, 2, 3, 4, 5, 6),
+            "affine_level_post_fq2": (6,), "chunked_level_down": (9,)}
 
 
 def with_shims(counted, on_launch, fn):
@@ -617,10 +804,10 @@ def record_work(counted, fn):
     def on_launch(name, args):
         totals[name][0] += 1
         if name in DATA_ARG:
-            k = DATA_ARG[name]
+            keep = DATA_ARG[name]
             pending.append((name, tuple(
                 torch.empty(a.shape, device="meta")
-                if i != k and isinstance(a, torch.Tensor) else a
+                if i not in keep and isinstance(a, torch.Tensor) else a
                 for i, a in enumerate(args))))
         else:
             totals[name][1] += bound_ms(*work(name, args))[0]
@@ -1082,6 +1269,9 @@ def legogroth16_phases(counted, dev, mod=None, tag: str = "",
               k: statistics.median(sp[k] for sp in splits)
               for k in splits[0]}, msm_points=msm_sizes,
           launches={k: v for k, v in launches.items() if v},
+          mont_pow_launches=launches["mont_pow"],
+          mont_mul_launches=launches["mont_mul"],
+          narrow_level_launches=launches["affine_level_fast"],
           all_s=t_all, correct=True)
     pub = [F(int(v_)) for v_ in cs1.instance_assignment[1:]]
     verify_launches = verify_phase(counted, mod, pk, pub, *last, tag)
@@ -2574,13 +2764,9 @@ KERNEL_SOURCE = {
     "fq2_sqr": ("fq2_mul.cu", "ops/pallas/curve_kernels.py:908"),
     "gather_rows_t": ("gather.cu", "ops/pallas/field_kernels.py:356"),
     "slot_tables": ("gather.cu", "ops/msm_v2.py:719"),
-    "affine_level_pre": ("affine_level.cu", "ops/pallas/curve_kernels.py:533"),
-    "affine_level_post": ("affine_level.cu",
-                          "ops/pallas/curve_kernels.py:548"),
-    "affine_level_pre_fast": ("affine_level.cu",
-                              "ops/pallas/curve_kernels.py:739"),
-    "affine_level_post_fast": ("affine_level.cu",
-                               "ops/pallas/curve_kernels.py:752"),
+    "affine_level": ("affine_level.cu", "ops/pallas/curve_kernels.py:533"),
+    "affine_level_fast": ("affine_level.cu",
+                          "ops/pallas/curve_kernels.py:739"),
     "chunked_level_prefix": ("chunked_level.cu",
                              "ops/pallas/curve_kernels.py:844"),
     "chunked_level_down": ("chunked_level.cu",
@@ -2863,7 +3049,7 @@ def proof_system_ranges_phase(counted, dev, lego_pk) -> tuple:
     try:
         proof = run("proof_system_ranges_prove", lambda: Proof.new(
             hr, spec_of(verifier=False), wits_of(), nonce=PR_NONCE,
-            device=dev), PROVE_KERNELS + LEVEL_KERNELS[("pre_post", False)])
+            device=dev), PROVE_KERNELS + LEVEL_KERNELS[("narrow", False)])
         sizes = sorted({(c, n) for p, c, n in device_msms
                         if p == "proof_system_ranges_prove"})
         if not any(c == bls.G2.name for c, _ in sizes) \
@@ -2973,10 +3159,9 @@ BN254_MSM_RUNS = 1                  # timed 2^20 BN254 G1 MSMs
 # level kernel of both formulas, the Fq2 level, product and square, the
 # gather and its tables (8 words a row on G1, 16 on G2), mont_mul and
 # mont_pow, and the bench points' full add and normalize
-BN254_KERNELS = ("mont_mul", "mont_pow", "affine_level_pre",
-                 "affine_level_post", "chunked_level_prefix",
-                 "chunked_level_down", "affine_level_pre_fast",
-                 "affine_level_post_fast", "chunked_level_prefix_fast",
+BN254_KERNELS = ("mont_mul", "mont_pow", "affine_level",
+                 "chunked_level_prefix", "chunked_level_down",
+                 "affine_level_fast", "chunked_level_prefix_fast",
                  "chunked_level_down_fast", "fq2_mul", "fq2_sqr",
                  "affine_level_pre_fq2", "affine_level_post_fq2",
                  "gather_rows_t", "slot_tables", "jacobian_add",
@@ -3641,7 +3826,7 @@ def bn254_msm_phases(counted, dev) -> tuple:
     fast levels, each equal to its known-dlog sum with no rerun, one
     `safe=True` MSM, the rerun path (one duplicated base colliding in one
     window: exactly the spoiled windows rerun), and the edge MSMs of G1
-    (8 duplicate bases, rerun through the total pre/post; 300 points
+    (8 duplicate bases, rerun through the total narrow level; 300 points
     with one scalar) and G2 (duplicates, P and -P, infinity, zero and
     equal scalars).  Returns ({path: (launches, level widths)}, what the
     kernel checks need)."""
@@ -3802,7 +3987,7 @@ def bn254_msm_phases(counted, dev) -> tuple:
     edge_safe = rerun_widths(t_dup)
     require("bn254 edge MSM", edge_launches,
             level_kernels(edge_widths, edge_safe, thr)
-            | set(LEVEL_KERNELS[("pre_post", True)]))
+            | set(LEVEL_KERNELS[("narrow", True)]))
     paths["bn254_edge_msm"] = (edge_launches, edge_widths)
     phase("bn254_edge_msm", duplicate_bases=True, all_equal_scalars_n=m_eq,
           level_pairs=edge_widths, rerun_windows=t_dup["rerun_windows"],
@@ -3838,6 +4023,7 @@ def bn254_msm_phases(counted, dev) -> tuple:
           level_pairs=g2_edge_widths, rerun_windows=[], correct=True)
     return paths, dict(points=points, sb=sb, main_widths=main_widths,
                        slots=timings["slots"], rr_widths=rr_widths,
+                       safe_widths=t_s["level_pairs"],
                        edge_widths=edge_widths, edge_safe=edge_safe,
                        g2_edge_widths=g2_edge_widths)
 
@@ -4034,42 +4220,22 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
                                       2 * (PAIRS + 1)], fr=[1 << 15],
           mont_pow=[1, 16, 1 << 16], zeros=True, bit_exact=True)
 
-    # ---- the affine levels, both formulas, at the edge MSMs' widths, a
-    # ragged count and a 2^20 level width
-    for fast, widths in ((False, data["edge_safe"]),
-                         (True, data["edge_widths"])):
-        w_pre = max(w for w in widths if w < thr)
-        if fast:
-            pre, post = ck.affine_level_pre_fast, ck.affine_level_post_fast
-            pre_p = ck.affine_level_pre_fast_plain
-            post_p = ck.affine_level_post_fast_plain
-        else:
-            pre, post = ck.affine_level_pre, ck.affine_level_post
-            pre_p, post_p = ck.affine_level_pre_plain, \
-                ck.affine_level_post_plain
-        for M in (w_pre, w_pre + 3, min(data["main_widths"])):
-            ins = lvl(M, points, F)
-            kd = pre(F, *ins)
-            pd, pre_ms = timed_call(lambda: pre_p(F, *ins))
-            e_pre = agree(pre.__name__, kd, pd, f"at bn254 M={M}")
-            d = kd[0].clone()
-            d[0] |= F.is_zero(d).to(torch.int32)
-            dinv = msm_v2.batch_inv_t(F, d)
-            x1, y1, m1, x2, y2, m2 = ins
-            args = (x1, y1, x2, y2, dinv, m1, m2) if fast else \
-                (x1, y1, x2, y2, dinv, kd[1], m1, m2)
-            pp, post_ms = timed_call(lambda: post_p(F, *args))
-            e_post = agree(post.__name__, post(F, *args), pp,
-                           f"at bn254 M={M}")
-            if M == w_pre:
-                lines = ("739", "752") if fast else ("533", "548")
-                add_row(pre.__name__, csrc + "affine_level.cu",
-                        ref + lines[0], "bn254_edge_msm", e_pre,
-                        lambda: pre(F, *ins), pre_ms, (F,) + ins, [8, M])
-                add_row(post.__name__, csrc + "affine_level.cu",
-                        ref + lines[1], "bn254_edge_msm", e_post,
-                        lambda: post(F, *args), post_ms, (F,) + args, [8, M])
-    phase("check_affine_level_bn254", path="bn254_edge_msm", bit_exact=True)
+    # ---- the one-launch narrow levels, both formulas, at the edge MSMs'
+    # widest narrow width (the row), every narrow width of the BN254 G1
+    # paths and LEVEL_WIDTHS; then the split level against them
+    def narrow(*lists):
+        return sorted({w for ws in lists for w in ws if w < thr})
+
+    for fast, edge_w, more in (
+            (False, data["edge_safe"], narrow(data["edge_safe"],
+                                              data["safe_widths"],
+                                              data["rr_widths"])),
+            (True, data["edge_widths"], narrow(data["edge_widths"],
+                                               data["main_widths"]))):
+        rows.extend(check_narrow_levels(
+            row, agree, F, lambda M: lvl(M, points, F), fast,
+            "bn254_edge_msm", max(narrow(edge_w)), more))
+    level_timings(data["split_lib"], F, lambda M: lvl(M, points, F), agree)
 
     # ---- the chunked levels at 524,288 pairs, a width of both the rerun
     # (total formula) and the 2^20 MSM (fast) and the width of the
@@ -4290,7 +4456,12 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     t0 = time.time()
-    build.load_library()
+    split_build = start_split_build()
+    try:
+        build.load_library()
+        split_lib = split_library(split_build)
+    finally:
+        split_build[0].kill()          # nothing once it has exited
     phase("build", seconds=round(time.time() - t0, 3),
           nvcc_seconds=round(build.build_info["seconds"], 3),
           lib=build.build_info["path"])
@@ -4307,10 +4478,9 @@ def main() -> int:
         raise AssertionError(f"ptxas: spills in {spills}, no report for "
                              f"{unreported}")
 
-    counted = (fk.mont_mul, fk.mont_pow, ck.affine_level_pre,
-               ck.affine_level_post,
+    counted = (fk.mont_mul, fk.mont_pow, ck.affine_level,
                ck.chunked_level_prefix, ck.chunked_level_down,
-               ck.affine_level_pre_fast, ck.affine_level_post_fast,
+               ck.affine_level_fast,
                ck.chunked_level_prefix_fast, ck.chunked_level_down_fast,
                pk.jacobian_add, pk.jacobian_add_mixed, pk.jacobian_double,
                pk.jacobian_normalize, fk.fq2_mul, fk.fq2_sqr,
@@ -4486,7 +4656,7 @@ def main() -> int:
     edge_safe = rerun_widths(t_dup)
     require("edge MSM", edge_launches,
             level_kernels(edge_widths, edge_safe, thr)
-            | set(LEVEL_KERNELS[("pre_post", True)]))
+            | set(LEVEL_KERNELS[("narrow", True)]))
     paths["edge_msm"] = (edge_launches, edge_widths)
     phase("edge_msm", duplicate_bases=True, all_equal_scalars_n=m_eq,
           level_pairs=edge_widths, rerun_windows=t_dup["rerun_windows"],
@@ -4827,48 +4997,20 @@ def main() -> int:
     phase("check_mont_pow", elements=[1, 16, 1 << 16, NMEMBERS], zeros=True,
           fields=["Fq", "Fr"], bit_exact=True)
 
-    def check_pre_post(M: int, path: str | None, fast: bool):
-        x1, y1, m1, x2, y2, m2 = level_inputs(M)
-        if fast:
-            pre, post = ck.affine_level_pre_fast, ck.affine_level_post_fast
-            pre_p = ck.affine_level_pre_fast_plain
-            post_p = ck.affine_level_post_fast_plain
-        else:
-            pre, post = ck.affine_level_pre, ck.affine_level_post
-            pre_p, post_p = (ck.affine_level_pre_plain,
-                             ck.affine_level_post_plain)
-        ins = (x1, y1, m1, x2, y2, m2)
-        kd = pre(F, *ins)
-        pd, pre_ms = timed_call(lambda: pre_p(F, *ins))
-        e_pre = agree(pre.__name__, kd, pd, f"at M={M}")
-        d = kd[0].clone()
-        d[0] |= F.is_zero(d).to(torch.int32)    # as pair_add_t does
-        dinv = msm_v2.batch_inv_t(F, d)
-        args = (x1, y1, x2, y2, dinv, m1, m2) if fast else \
-            (x1, y1, x2, y2, dinv, kd[1], m1, m2)
-        pp, post_ms = timed_call(lambda: post_p(F, *args))
-        e_post = agree(post.__name__, post(F, *args), pp, f"at M={M}")
-        if path is None:
-            return
-        lines = ("739", "752") if fast else ("533", "548")
-        rows.append(row(pre.__name__, csrc + "affine_level.cu",
-                        ref + lines[0], path, e_pre,
-                        cuda_ms(lambda: pre(F, *ins)), pre_ms, (F,) + ins,
-                        [12, M]))
-        rows.append(row(post.__name__, csrc + "affine_level.cu",
-                        ref + lines[1], path, e_post,
-                        cuda_ms(lambda: post(F, *args)), post_ms,
-                        (F,) + args, [12, M]))
+    # the one-launch narrow levels: each at the edge MSMs' widest narrow
+    # width (its row), at every narrow width of the other G1 paths of its
+    # formula and at LEVEL_WIDTHS, then the split level against it
+    def narrow(*lists):
+        return sorted({w for ws in lists for w in ws if w < thr})
 
-    for fast, widths in ((False, edge_safe), (True, edge_widths)):
-        w_pre = max(w for w in widths if w < thr)
-        pre_widths = [w_pre, w_pre - 3 if w_pre > 3 else w_pre + 3,
-                      min(main_widths)]          # and a 2^20 level width
-        check_pre_post(pre_widths[0], "edge_msm", fast)
-        for w in pre_widths[1:]:
-            check_pre_post(w, None, fast)
-        phase("check_affine_level_fast" if fast else "check_affine_level",
-              pairs=pre_widths, path="edge_msm", bit_exact=True)
+    for fast, edge_w, more in (
+            (False, edge_safe, narrow(edge_safe, paths["msm_safe_2^20"][1],
+                                      rr_widths)),
+            (True, edge_widths, narrow(edge_widths, main_widths))):
+        rows.extend(check_narrow_levels(row, agree, F, level_inputs, fast,
+                                        "edge_msm", max(narrow(edge_w)),
+                                        more))
+    level_timings(split_lib, F, level_inputs, agree)
 
     def chunked_inputs(M: int):
         pad = (-M) % msm_v2.CHUNK_PAD
@@ -4942,7 +5084,11 @@ def main() -> int:
     # phase found none to rerun), a row at each
     pok_path = "bbs_pok_batch_verify_256"
     for w in sorted(set(pok_widths)):
-        (check_chunked if w >= thr else check_pre_post)(w, pok_path, True)
+        if w >= thr:
+            check_chunked(w, pok_path, True)
+        else:
+            rows.extend(check_narrow_level(row, agree, F, level_inputs(w),
+                                           True, pok_path))
     phase("check_level_fast", path=pok_path,
           pairs=sorted(set(pok_widths)), bit_exact=True)
 
@@ -5278,6 +5424,7 @@ def main() -> int:
           **g_line, bit_exact=True)
 
     # ---- every L = 8 instantiation at the BN254 paths' shapes
+    bn_data["split_lib"] = split_lib
     rows.extend(bn254_kernel_checks(row, agree, paths, bn_data, dev))
 
     # ---- device busy share of one more 2^20 G1 MSM, and each kernel's

@@ -46,12 +46,11 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "crypto_mont_mul": [_P, _P, _P, _I64, _INT, _P, _U32, _P],
     "crypto_mont_pow": [_P, _P, _I64, _INT, _P, _U32, _P, _P],
-    "crypto_affine_pre": [_P] * 9 + [_I64, _INT, _P, _U32, _P],
-    "crypto_affine_post": [_P] * 10 + [_I64, _INT, _P, _U32, _P],
+    "crypto_affine_level": [_P] * 9 + [_I64, _INT, _P, _U32, _P, _P, _P],
+    "crypto_affine_level_fast": [_P] * 10 + [_I64, _INT, _P, _U32, _P, _P,
+                                             _P],
     "crypto_chunked_prefix": [_P] * 10 + [_I64, _INT, _P, _U32, _P],
     "crypto_chunked_down": [_P] * 11 + [_I64, _INT, _P, _U32, _P],
-    "crypto_affine_pre_fast": [_P] * 6 + [_I64, _INT, _P, _U32, _P],
-    "crypto_affine_post_fast": [_P] * 9 + [_I64, _INT, _P, _U32, _P],
     "crypto_chunked_prefix_fast": [_P] * 7 + [_I64, _INT, _P, _U32, _P],
     "crypto_chunked_down_fast": [_P] * 10 + [_I64, _INT, _P, _U32, _P],
     "crypto_jac_add": [_P] * 10 + [_I64, _INT, _P, _U32, _P],

@@ -5,12 +5,13 @@ levels, over BLS12-381 Fq (12 limbs) and BN254 Fq (8), as the reference's
 take `base.L`.  The total formula (the safe path and the per-window
 rerun):
 
-* `affine_level_pre` / `affine_level_post` replace `affine_kernels_for`
-  (`call_pre` / `call_post`), `csrc/affine_level.cu`:
-  pre(x1, y1, m1, x2, y2, m2) -> (d, dbl, inf3), with d = 2*y1 when
-  doubling else x2 - x1, and a plain limb-0 1 in dead lanes;
-  post(x1, y1, x2, y2, dinv, dbl, m1, m2) -> (x3, y3), the unified affine
-  add/double given the inverted denominators.
+* `affine_level` replaces `affine_kernels_for` (`call_pre` /
+  `call_post`) and the batch inversion between them, `csrc/affine_level.cu`:
+  one launch a level, (x1, y1, m1, x2, y2, m2) -> (x3, y3, inf3), the
+  unified affine add/double.  Its plain version is the split level:
+  `affine_level_pre_plain` (d = 2*y1 when doubling else x2 - x1, a plain
+  limb-0 1 in dead lanes, and the masks) -> `msm_v2.batch_inv_t` ->
+  `affine_level_post_plain`.
 * `chunked_level_prefix` / `chunked_level_down` replace
   `chunked_level_kernels_for` (`call_prefix` / `call_down`),
   `csrc/chunked_level.cu`: Montgomery's trick over the K = 8 pairs
@@ -22,9 +23,13 @@ The doubling-free formula (the MSM's default; `_denom_fast` is the
 reference's contract: d = x2 - x1, a limb-0 1 where an operand is
 infinite, and d == 0 left as 0 so a colliding pair shows):
 
-* `affine_level_pre_fast` / `affine_level_post_fast` replace
-  `affine_kernels_fast`: pre -> (d, inf3), post -> (x3, y3) by the 3-mul
-  distinct-points formula.
+* `affine_level_fast` replaces `affine_kernels_fast` and its inversion
+  the same way: (x3, y3, inf3, zero) by the 3-mul distinct-points formula,
+  `zero` marking the pairs whose d is 0; there d enters the inversion as a
+  plain limb-0 1 (`msm_v2.pair_add_t`'s substitute), so no collision
+  spoils another lane.  Its plain version is `affine_level_pre_fast_plain`
+  -> that substitute -> `msm_v2.batch_inv_t` ->
+  `affine_level_post_fast_plain`.
 * `chunked_level_prefix_fast` / `chunked_level_down_fast` replace
   `chunked_level_kernels_fast`: prefix -> (prefix, total, inf3), a total
   of 0 where a pair of its thread collides; down -> (x3, y3).
@@ -34,11 +39,13 @@ every level with no chunked level, as the reference does):
 
 * `affine_level_pre_fq2` / `affine_level_post_fq2` replace
   `affine_kernels_for_fq2` (`call_pre` / `call_post`),
-  `csrc/affine_level_fq2.cu`: the contract of `affine_level_pre` /
-  `affine_level_post` with (2L, M) coordinates (c0's limbs in rows
-  [:L], c1's in [L:], `fields/ttower.py`); the limb-0 1 of a dead lane
-  is in row 0 (c0).  Their plain versions are `affine_level_pre_plain` /
-  `affine_level_post_plain`, which are generic over the field.
+  `csrc/affine_level_fq2.cu`: pre(x1, y1, m1, x2, y2, m2) -> (d, dbl,
+  inf3) and post(x1, y1, x2, y2, dinv, dbl, m1, m2) -> (x3, y3), the
+  split total level, with (2L, M) coordinates (c0's limbs in rows [:L],
+  c1's in [L:], `fields/ttower.py`); the limb-0 1 of a dead lane is in
+  row 0 (c0).  Their plain versions are `affine_level_pre_plain` /
+  `affine_level_post_plain`, which are generic over the field; the batch
+  inversion between them is `msm_v2.batch_inv_t` on `fq2_mul`.
 
 Coordinates are (L, M) limb-major int32 tensors (see `fields/tfield.py`),
 masks (M,) int32, nonzero meaning infinity (m1, m2, inf3) or doubling
@@ -47,7 +54,10 @@ it is noted in its source file.  Each wrapper launches its kernel for CUDA
 tensors (and counts the launch), takes the plain version for CPU tensors,
 and raises otherwise; the plain versions compute the same canonical
 values, so the two agree bit for bit on live lanes and flags (and on dead
-lanes too, since both fill them the same way).
+lanes too, since both fill them the same way; an inverse is unique, so a
+kernel's own inversion tree gives what `batch_inv_t`'s gives).  On CUDA
+tensors the plain one-launch levels' `batch_inv_t` runs the `mont_mul` and
+`mont_pow` kernels, each held to its own plain version.
 """
 
 from __future__ import annotations
@@ -136,6 +146,27 @@ def affine_level_pre_fast_plain(F, x1, y1, m1, x2, y2, m2):
 
 def affine_level_post_fast_plain(F, x1, y1, x2, y2, dinv, m1, m2):
     return _fast_apply(F, x1, y1, x2, y2, dinv, m1 != 0, m2 != 0)
+
+
+def _batch_inv(F, d):
+    from ..msm_v2 import batch_inv_t      # msm_v2 imports this module
+    return batch_inv_t(F, d)
+
+
+def affine_level_plain(F, x1, y1, m1, x2, y2, m2):
+    d, dbl, inf3 = affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2)
+    x3, y3 = affine_level_post_plain(F, x1, y1, x2, y2, _batch_inv(F, d), dbl,
+                                     m1, m2)
+    return x3, y3, inf3
+
+
+def affine_level_fast_plain(F, x1, y1, m1, x2, y2, m2):
+    d, inf3 = affine_level_pre_fast_plain(F, x1, y1, m1, x2, y2, m2)
+    zero = F.is_zero(d)
+    d[0] |= zero.to(torch.int32)
+    x3, y3 = affine_level_post_fast_plain(F, x1, y1, x2, y2, _batch_inv(F, d),
+                                          m1, m2)
+    return x3, y3, inf3, zero
 
 
 def chunked_level_prefix_plain(F, x1, y1, m1, x2, y2, m2):
@@ -236,45 +267,58 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _c_args(F, M, device):
+def _c_args(F, M, device, *extra):
     """The trailing C arguments: M, the limb count, the modulus, -p^-1,
-    the stream."""
-    return [M, F.L, ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+    `extra`, the stream."""
+    return [M, F.L, ctypes.addressof(F.mod.p_c), F.mod.n0inv, *extra,
             stream_of(device)]
 
 
-def affine_level_pre(F, x1, y1, m1, x2, y2, m2):
-    """Level denominators and case masks: (d, dbl, inf3)."""
-    M = _check("affine_level_pre", F, (x1, y1, x2, y2), (m1, m2))
-    if not on_card("affine_level_pre", x1.device):
-        return affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2)
-    d = torch.empty_like(x1)
-    dbl = torch.empty_like(m1)
+def _chain_args(F):
+    """The one-launch levels' extra C arguments: p - 2's limbs (their
+    Fermat chain) and the Montgomery 1's."""
+    return ctypes.addressof(F.mod.pm2_c), ctypes.addressof(F.mod.one_c)
+
+
+def affine_level(F, x1, y1, m1, x2, y2, m2):
+    """One total-formula level, its inversion inside: (x3, y3, inf3)."""
+    M = _check("affine_level", F, (x1, y1, x2, y2), (m1, m2))
+    if not on_card("affine_level", x1.device):
+        return affine_level_plain(F, x1, y1, m1, x2, y2, m2)
+    x3 = torch.empty_like(x1)
+    y3 = torch.empty_like(y1)
     inf3 = torch.empty_like(m1)
     if M:
         lib = load_library()
-        check(lib.crypto_affine_pre(*_ptrs(x1, y1, m1, x2, y2, m2, d, dbl,
-                                           inf3), *_c_args(F, M, x1.device)),
-              "affine_level_pre")
-        affine_level_pre.launches += 1
-    return d, dbl, inf3
+        check(lib.crypto_affine_level(*_ptrs(x1, y1, m1, x2, y2, m2, x3, y3,
+                                             inf3),
+                                      *_c_args(F, M, x1.device,
+                                               *_chain_args(F))),
+              "affine_level")
+        affine_level.launches += 1
+    return x3, y3, inf3
 
 
-def affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2):
-    """The unified add/double given dinv: (x3, y3)."""
-    M = _check("affine_level_post", F, (x1, y1, x2, y2, dinv), (dbl, m1, m2))
-    if not on_card("affine_level_post", x1.device):
-        return affine_level_post_plain(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
+def affine_level_fast(F, x1, y1, m1, x2, y2, m2):
+    """One doubling-free level, its inversion inside: (x3, y3, inf3,
+    zero), zero (M,) bool where d == 0 (that lane's x3, y3 are the
+    caller's to rerun)."""
+    M = _check("affine_level_fast", F, (x1, y1, x2, y2), (m1, m2))
+    if not on_card("affine_level_fast", x1.device):
+        return affine_level_fast_plain(F, x1, y1, m1, x2, y2, m2)
     x3 = torch.empty_like(x1)
     y3 = torch.empty_like(y1)
+    inf3 = torch.empty_like(m1)
+    zero = torch.empty(M, dtype=torch.bool, device=x1.device)
     if M:
         lib = load_library()
-        check(lib.crypto_affine_post(*_ptrs(x1, y1, x2, y2, dinv, dbl, m1,
-                                            m2, x3, y3),
-                                     *_c_args(F, M, x1.device)),
-              "affine_level_post")
-        affine_level_post.launches += 1
-    return x3, y3
+        check(lib.crypto_affine_level_fast(*_ptrs(x1, y1, m1, x2, y2, m2, x3,
+                                                  y3, inf3, zero),
+                                           *_c_args(F, M, x1.device,
+                                                    *_chain_args(F))),
+              "affine_level_fast")
+        affine_level_fast.launches += 1
+    return x3, y3, inf3, zero
 
 
 def affine_level_pre_fq2(F, x1, y1, m1, x2, y2, m2):
@@ -363,40 +407,6 @@ def chunked_level_down(F, x1, y1, m1, x2, y2, m2, prefix, tinv, dbl):
     return x3, y3
 
 
-def affine_level_pre_fast(F, x1, y1, m1, x2, y2, m2):
-    """Doubling-free level denominators: (d, inf3), d == 0 on a colliding
-    pair.  y1 and y2 are not read (the reference's signature)."""
-    M = _check("affine_level_pre_fast", F, (x1, y1, x2, y2), (m1, m2))
-    if not on_card("affine_level_pre_fast", x1.device):
-        return affine_level_pre_fast_plain(F, x1, y1, m1, x2, y2, m2)
-    d = torch.empty_like(x1)
-    inf3 = torch.empty_like(m1)
-    if M:
-        lib = load_library()
-        check(lib.crypto_affine_pre_fast(*_ptrs(x1, m1, x2, m2, d, inf3),
-                                         *_c_args(F, M, x1.device)),
-              "affine_level_pre_fast")
-        affine_level_pre_fast.launches += 1
-    return d, inf3
-
-
-def affine_level_post_fast(F, x1, y1, x2, y2, dinv, m1, m2):
-    """The distinct-points add given dinv: (x3, y3)."""
-    M = _check("affine_level_post_fast", F, (x1, y1, x2, y2, dinv), (m1, m2))
-    if not on_card("affine_level_post_fast", x1.device):
-        return affine_level_post_fast_plain(F, x1, y1, x2, y2, dinv, m1, m2)
-    x3 = torch.empty_like(x1)
-    y3 = torch.empty_like(y1)
-    if M:
-        lib = load_library()
-        check(lib.crypto_affine_post_fast(*_ptrs(x1, y1, x2, y2, dinv, m1, m2,
-                                                 x3, y3),
-                                          *_c_args(F, M, x1.device)),
-              "affine_level_post_fast")
-        affine_level_post_fast.launches += 1
-    return x3, y3
-
-
 def chunked_level_prefix_fast(F, x1, y1, m1, x2, y2, m2):
     """(prefix (L, M), total (L, M/K), inf3); a total is 0 where one of
     its thread's pairs collides.  M a multiple of K; y1, y2 not read."""
@@ -446,8 +456,8 @@ def chunked_level_down_fast(F, x1, y1, m1, x2, y2, m2, prefix, tinv):
     return x3, y3
 
 
-for _fn in (affine_level_pre, affine_level_post, chunked_level_prefix,
-            chunked_level_down, affine_level_pre_fast, affine_level_post_fast,
-            chunked_level_prefix_fast, chunked_level_down_fast,
-            affine_level_pre_fq2, affine_level_post_fq2):
+for _fn in (affine_level, chunked_level_prefix, chunked_level_down,
+            affine_level_fast, chunked_level_prefix_fast,
+            chunked_level_down_fast, affine_level_pre_fq2,
+            affine_level_post_fq2):
     _fn.launches = 0

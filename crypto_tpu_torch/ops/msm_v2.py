@@ -24,8 +24,9 @@ read in rows per element, `F.U` (L for Fq, 2L for Fq2).  The steps:
 4. unified batched-affine halving levels across all bands
    (`_bucket_sums_bands_unified`), each level one `pair_add_t`: the
    chunked level kernels around `batch_inv_t` of the chunk totals for wide
-   levels, else pre -> `batch_inv_t` -> post; each window's flag stays on
-   the device until all levels are done;
+   levels, else one launch of the narrow level kernel, its batch inversion
+   inside (G2: the Fq2 pre -> `batch_inv_t` -> post); each window's flag
+   stays on the device until all levels are done;
 5. one pull of the flags, and the flagged windows' levels again with the
    total formula, whose bucket sums replace theirs;
 6. the Jacobian weighted tail (`tail_fn`), whose field muls run through
@@ -42,12 +43,13 @@ Differences from the reference, all from the card's side of the design:
   level's pair count is the windows' total, which fills the card and pays
   each batch inversion's Fermat root once per level, not once per window.
   The chunked level is taken from the reference's 4,096 pairs a call, so
-  every level of a 2^20 MSM is chunked and pre/post serves the narrow
-  levels of small MSMs; no threshold up to 2^24 timed measurably faster
-  at 2^20 (`sweep_chunk_threshold.py`).  A collision then shares its
-  level call (and, in the chunked level, its thread's chunk total) with
-  other windows, so `pair_add_t` keeps the inversion valid and flags
-  every window the zero touched, and only those are rerun.
+  every level of a 2^20 MSM is chunked and the one-launch level serves
+  the narrow levels of small MSMs; no threshold up to 2^24 timed
+  measurably faster at 2^20 (`sweep_chunk_threshold.py`).  A collision
+  then shares its level call (and, in the chunked level, its thread's
+  chunk total) with other windows, so `pair_add_t` keeps the inversion
+  valid and flags every window the zero touched, and only those are
+  rerun.
 * x and the sign-applied y are gathered as two (U, slots) limb tensors
   by the gather kernel (the reference's `gather_rows_t_fn`, there behind
   `CRYPTO_TPU_DMA_GATHER`) from two point-major tables built once per
@@ -349,23 +351,25 @@ def pair_add_t(F, x1, y1, m1, x2, y2, m2, fast: bool = False,
                trace: dict | None = None, windows: int = 1):
     """One batched-affine level over M pairs, limb-major: (x3, y3, inf3,
     zero).  The `_fused_ctx` dispatch: the chunked level kernels around
-    the inversion of the chunk totals from CHUNK_MIN_PAIRS pairs, else pre
-    -> batch inversion -> post; the doubling-free kernels when `fast`,
-    else the total formula.  Over Fq2 (a `TQuadField`, G2) every width
-    takes the Fq2 pre -> batch inversion -> post on the total formula, as
-    in the reference (no chunked level; `fast` is ignored).
+    the inversion of the chunk totals from CHUNK_MIN_PAIRS pairs, else one
+    launch of the level kernel with its batch inversion inside (the
+    reference's pre -> batch inversion -> post); the doubling-free
+    kernels when `fast`, else the total formula.  Over Fq2 (a
+    `TQuadField`, G2) every width takes the Fq2 pre -> batch inversion
+    -> post on the total formula, as in the reference (no chunked level;
+    `fast` is ignored).
 
     `zero` (M,) bool marks the lanes whose result is unreliable: on the
     fast path a colliding pair (P + P or P + (-P)) has d == 0, which zeroes
     its thread's chunk total and so spoils all K pairs t + j*M/K of that
-    thread (pre/post: that lane alone).  Zero totals and zero d are
-    replaced by 1 before `batch_inv_t`, so one collision cannot zero the
-    root of the product tree and with it every inverse of the call; the
-    other lanes stay exact.  All False on the total-formula path.
+    thread (the narrow level: that lane alone).  Zero totals and zero d
+    are replaced by 1 before the inversion, so one collision cannot zero
+    the root of the product tree and with it every inverse of the call;
+    the other lanes stay exact.  All False on the total-formula path.
 
     `trace`: if a dict, M is appended to its list "level_pairs" and, on
     the fast path, (M, windows, K, zero_chunks) to "zero_chunks", where
-    zero_chunks (M/K,) (K = 1 for pre/post) marks the zero totals and
+    zero_chunks (M/K,) (K = 1 for the narrow level) marks the zero totals and
     `windows` is the number of equal window-major segments the M lanes
     form (the caller's layout)."""
     M = x1.shape[1]
@@ -402,17 +406,11 @@ def pair_add_t(F, x1, y1, m1, x2, y2, m2, fast: bool = False,
             zero = torch.zeros(M, dtype=torch.bool, device=x1.device)
         return x3[:, :M], y3[:, :M], inf3[:M], zero
     if fast:
-        d, inf3 = ck.affine_level_pre_fast(F, x1, y1, m1, x2, y2, m2)
-        zero = F.is_zero(d)
-        d[0] |= zero.to(torch.int32)
-        x3, y3 = ck.affine_level_post_fast(F, x1, y1, x2, y2,
-                                           batch_inv_t(F, d), m1, m2)
+        x3, y3, inf3, zero = ck.affine_level_fast(F, x1, y1, m1, x2, y2, m2)
         if trace is not None:
             trace.setdefault("zero_chunks", []).append((M, windows, 1, zero))
         return x3, y3, inf3, zero
-    d, dbl, inf3 = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
-    dinv = batch_inv_t(F, d)
-    x3, y3 = ck.affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
+    x3, y3, inf3 = ck.affine_level(F, x1, y1, m1, x2, y2, m2)
     return x3, y3, inf3, torch.zeros(M, dtype=torch.bool, device=x1.device)
 
 

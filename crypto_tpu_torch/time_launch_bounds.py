@@ -2,7 +2,7 @@
 total-formula down pass under several builds, in turns.
 
     python3 -m crypto_tpu_torch.time_launch_bounds [--reps 3]
-        [--kernels full_add double normalize down]
+        [--kernels full_add double normalize down level]
 
 On one CUDA card: writes copies of `csrc/jacobian.cu` under build/ with
 its block size `T` and the full add's `FULL_ADD_BLOCKS` or the double's
@@ -13,10 +13,12 @@ as products (`mont_mul_eo(a, a)`); copies of `csrc/normalize.cu` with
 each width of its Fermat chain's window (`CHAIN_WINDOW`, 1: the binary
 chain) at each batch-inversion shape (`NORMALIZE_SHAPES`: `CHUNK` points
 a thread, and `TREE_LOG` 0, one chain a thread, shape A, or 7, one chain
-a block of 128, shape B); and copies of `csrc/chunked_level.cu` with
-each value of `DOWN_BLOCKS`.  Builds each with nvcc for sm_90a as a
-library of its own (not the port's), and reads each kernel's registers,
-spills and SASS instruction count.  Then it holds every build bit for
+a block of 128, shape B); copies of `csrc/chunked_level.cu` with
+each value of `DOWN_BLOCKS`; and copies of `csrc/affine_level.cu` with
+each `CHUNK` (pairs a thread of the one-launch narrow level).  Builds
+each with nvcc for sm_90a as a library of its own (not the port's), and
+reads each kernel's registers, spills and SASS instruction count.  Then
+it holds every build bit for
 bit against the others and the port's plain version on the same
 canonical inputs, and times the builds in turns: the full add at (12,
 2^20) with infinite operands, P + P and P + (-P) among random lanes; the
@@ -25,7 +27,9 @@ double at (12, 2^20) with Z1 = 0 and Y1 = 0 lanes; the normalize at (12,
 point (a launch and one chain's latency), every build also checked at 1
 and 1,000 points; the down pass at each level width of the 2^20 G1 MSM
 with infinite operands in every warp and a doubling lane in one warp of
-32.  Each repetition runs the builds in order, then in reverse, each
+32; the fast narrow level at 1, 16, 256, 2,048 and 4,095 pairs with
+infinite operands (every build also held to the plain version at 129
+pairs).  Each repetition runs the builds in order, then in reverse, each
 reading the CUDA-event mean of 20 launches (5 for the down pass and the
 normalize) after a warm-up.
 Prints the card's name and power limit and, as the last line, a JSON
@@ -49,7 +53,8 @@ import torch
 from .curves import bls12_381 as bls
 from .fields.tfield import tfield_for
 from .ops.kernels import build
-from .ops.kernels.curve_kernels import CHUNK_K, chunked_level_down_plain
+from .ops.kernels.curve_kernels import CHUNK_K, affine_level_fast_plain, \
+    chunked_level_down_plain
 from .ops.kernels.point_kernels import jacobian_add_plain, \
     jacobian_double_plain, jacobian_normalize_plain
 from .time_sqr_designs import LEVEL_PAIRS, _event_ms, _limbs
@@ -93,7 +98,15 @@ BUILDS = {
     "down": ("chunked_level.cu", "down_kernel<12>", "crypto_chunked_down", {
         str(k): [(r"constexpr int DOWN_BLOCKS = 4;",
                   f"constexpr int DOWN_BLOCKS = {k};")] for k in (4, 5)}),
+    "level": ("affine_level.cu", "affine_level_fast_kernel<12>",
+              "crypto_affine_level_fast", {
+                  f"k{k}": [(r"constexpr int CHUNK = \d+;",
+                             f"constexpr int CHUNK = {k};")]
+                  for k in (1, 2, 4, 8, 16)}),
 }
+# the fast narrow level's widths: one pair, and a width of the prove's
+# levels to the widest narrow level
+NARROW_PAIRS = (1, 16, 256, 2048, 4095)
 SEED = 20261018
 
 
@@ -287,6 +300,45 @@ def _down(libs, F, gen, reps) -> dict:
     return out
 
 
+def _level(libs, F, gen, reps) -> dict:
+    """The fast narrow level's builds (one CHUNK each) held to the plain
+    version at 129 pairs and to each other at every width, then timed in
+    turns at each width of NARROW_PAIRS."""
+    out = {"builds": {k: dict(libs[k][1]) for k in libs}, "widths": []}
+    for M in (129,) + NARROW_PAIRS:
+        x1, y1, x2, y2 = (_limbs(F.L, 1, M, gen) for _ in range(4))
+        lane = torch.arange(M, device="cuda")
+        m1 = ((lane % 11 == 3) | (lane % 13 == 5)).to(torch.int32)
+        m2 = ((lane % 17 == 4) | (lane % 13 == 5)).to(torch.int32)
+        ins = (x1, y1, m1, x2, y2, m2)
+        outs = {k: (torch.empty_like(x1), torch.empty_like(y1),
+                    torch.empty_like(m1),
+                    torch.empty(M, dtype=torch.bool, device="cuda"))
+                for k in libs}
+
+        def run(k):
+            build.check(libs[k][0].crypto_affine_level_fast(
+                *[t.data_ptr() for t in ins + outs[k]], M, F.L,
+                ctypes.addressof(F.mod.p_c), F.mod.n0inv,
+                ctypes.addressof(F.mod.pm2_c), ctypes.addressof(F.mod.one_c),
+                torch.cuda.current_stream().cuda_stream), f"level at {k}")
+
+        for k in libs:
+            run(k)
+        want = affine_level_fast_plain(F, *ins) if M == 129 \
+            else next(iter(outs.values()))
+        for k in libs:
+            if not all(map(torch.equal, outs[k], want)):
+                raise AssertionError(f"narrow level build {k} differs at "
+                                     f"M={M}")
+        if M == 129:
+            continue
+        ms = _in_turns(run, libs, reps, 20)
+        out["widths"].append(dict(pairs=M, **{
+            f"{k}_ms": statistics.median(v) for k, v in ms.items()}))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
@@ -313,7 +365,7 @@ def main(argv=None) -> int:
 
 
 TIMERS = {"full_add": _full_add, "double": _double,
-          "normalize": _normalize, "down": _down}
+          "normalize": _normalize, "down": _down, "level": _level}
 
 
 if __name__ == "__main__":

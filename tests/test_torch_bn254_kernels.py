@@ -258,20 +258,21 @@ def test_fq2_level_vs_interpret_kernels_and_host(case):
 
 @pytest.mark.parametrize("formula", ["total", "fast"])
 def test_g1_level_vs_interpret_kernels_and_host(case, formula):
-    """The total pre/post on every kind of pair; the fast pre/post on the
-    same pairs, where its d is 0 on exactly the doublings and P + (-P)
-    and every other lane equals the reference and the host."""
+    """The total level on every kind of pair; the fast level on the same
+    pairs, where its d is 0 on exactly the doublings and P + (-P) and
+    every other lane equals the reference and the host.  d and the masks
+    come from the one-launch level's plain pre step."""
     ref = case["ref"][formula]
     x1, y1, m1, x2, y2, m2 = ins = _port_ins(case["inp"]["g1"], F.pack)
     if formula == "total":
-        d, dbl, inf3 = ck.affine_level_pre(F, *ins)
+        d, dbl, inf3 = ck.affine_level_pre_plain(F, *ins)
         assert dbl.tolist() == ref["dbl"]
-        args = (x1, y1, x2, y2, None, dbl, m1, m2)
-        post = ck.affine_level_post
+        x3, y3, inf3_l = ck.affine_level(F, *ins)
     else:
-        d, inf3 = ck.affine_level_pre_fast(F, *ins)
-        args = (x1, y1, x2, y2, None, m1, m2)
-        post = ck.affine_level_post_fast
+        d, inf3 = ck.affine_level_pre_fast_plain(F, *ins)
+        x3, y3, inf3_l, zero = ck.affine_level_fast(F, *ins)
+        assert torch.equal(zero, F.is_zero(d))
+    assert torch.equal(inf3_l, inf3)
     assert inf3.tolist() == ref["inf3"]
     # d on live lanes (dead lanes hold a plain limb-0 1, whose Montgomery
     # reading differs between the packages' radices)
@@ -279,10 +280,6 @@ def test_g1_level_vs_interpret_kernels_and_host(case, formula):
     dv = _ints1(d)
     assert [v for v, lv in zip(dv, live) if lv] == \
         [v for v, lv in zip(ref["d"], live) if lv]
-    dd = d.clone()
-    dd[0] |= F.is_zero(dd).to(torch.int32)
-    args = args[:4] + (msm_v2.batch_inv_t(F, dd),) + args[5:]
-    x3, y3 = post(F, *args)
     # a fast lane that collided (d = 0) is the caller's to rerun
     keep = [not (i or (lv and v == 0)) for i, lv, v in
             zip(inf3.tolist(), live, dv)]
@@ -305,12 +302,12 @@ def test_chunked_levels_vs_pre_post(case, fast):
         kq = ck.chunked_level_prefix_fast(F, *ins)
         tinv = msm_v2.batch_inv_t(F, kq[1])
         x3, y3 = ck.chunked_level_down_fast(F, *ins, kq[0], tinv)
-        d, inf3 = ck.affine_level_pre_fast(F, *ins)
+        d, inf3 = ck.affine_level_pre_fast_plain(F, *ins)
     else:
         kq = ck.chunked_level_prefix(F, *ins)
         tinv = msm_v2.batch_inv_t(F, kq[1])
         x3, y3 = ck.chunked_level_down(F, *ins, kq[0], tinv, kq[2])
-        d, dbl, inf3 = ck.affine_level_pre(F, *ins)
+        d, dbl, inf3 = ck.affine_level_pre_plain(F, *ins)
         assert torch.equal(kq[2], dbl)
     assert torch.equal(kq[-1], inf3)
     got = [None if i else [x, y] for x, y, i in zip(_ints1(x3), _ints1(y3),
@@ -354,7 +351,7 @@ def test_wrappers_take_8_and_12_limbs_only():
     z = odd.zeros((8,))
     m = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="limbs"):
-        ck.affine_level_pre(odd, z, z, m, z, z, m)
+        ck.affine_level(odd, z, z, m, z, z, m)
     with pytest.raises(ValueError, match="limbs"):
         fk.fq2_mul(odd, torch.cat([z, z]), torch.cat([z, z]))
     from crypto_tpu_torch.curves import bls12_381 as tbl
@@ -365,5 +362,5 @@ def test_wrappers_take_8_and_12_limbs_only():
     with pytest.raises(ValueError, match="rows"):
         ck.affine_level_pre_fq2(F, z8, z8, m, z8, z8, m)
     with pytest.raises(ValueError):
-        ck.affine_level_pre(F2, *(F2.zeros((8,)),) * 2, m,
-                            *(F2.zeros((8,)),) * 2, m)
+        ck.affine_level_fast(F2, *(F2.zeros((8,)),) * 2, m,
+                             *(F2.zeros((8,)),) * 2, m)

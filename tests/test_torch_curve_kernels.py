@@ -1,5 +1,5 @@
-"""The port's level kernels' plain versions (affine_level pre/post and
-chunked_level prefix/down) against the reference `msm_v2.affine_pair_add`
+"""The port's level kernels' plain versions (the one-launch affine_level
+and chunked_level prefix/down) against the reference `msm_v2.affine_pair_add`
 and the host curve, on BLS12-381 G1.
 
 One set of pairs (the eight cases of tests/test_msm_v2.py, random pairs
@@ -96,11 +96,12 @@ def _inputs(pairs):
 def test_affine_level_vs_reference(n_random):
     pairs = _cases(n_random)
     x1, y1, m1, x2, y2, m2 = _inputs(pairs)
-    d, dbl, inf3 = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
+    d, dbl, inf3 = ck.affine_level_pre_plain(F, x1, y1, m1, x2, y2, m2)
     assert dbl.tolist()[:8] == [0, 1, 0, 0, 0, 0, 1, 0]
     assert not bool(F.is_zero(d).any())
-    dinv = msm_v2.batch_inv_t(F, d)
-    x3, y3 = ck.affine_level_post(F, x1, y1, x2, y2, dinv, dbl, m1, m2)
+    # the one-launch level: pre, batch_inv_t of d, post
+    x3, y3, inf3_l = ck.affine_level(F, x1, y1, m1, x2, y2, m2)
+    assert torch.equal(inf3_l, inf3)
     _check(pairs, x3, y3, inf3)
 
 
@@ -143,10 +144,8 @@ def test_chunked_level_vs_reference(n_pairs, special_every_strip,
         x3, y3, inf3, zero = msm_v2.pair_add_t(F, x1, y1, m1, x2, y2, m2)
         assert not bool(zero.any())
     _check(pairs, x3, y3, inf3)
-    # the chunked and the pre/post level give the same values
-    d, dbl2, inf2 = ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
-    px3, py3 = ck.affine_level_post(F, x1, y1, x2, y2,
-                                    msm_v2.batch_inv_t(F, d), dbl2, m1, m2)
+    # the chunked and the one-launch level give the same values
+    px3, py3, inf2 = ck.affine_level(F, x1, y1, m1, x2, y2, m2)
     live = inf2 == 0
     assert torch.equal(inf2, inf3)
     assert torch.equal(px3[:, live], x3[:, live])
@@ -159,11 +158,12 @@ def test_level_wrapper_checks():
     with pytest.raises(ValueError, match="multiple"):
         ck.chunked_level_prefix(F, *six)
     with pytest.raises(ValueError):
-        ck.affine_level_pre(F, x1, y1, m1.to(torch.int64), x2, y2, m2)
+        ck.affine_level(F, x1, y1, m1.to(torch.int64), x2, y2, m2)
     Fr = tfield_for(tb.Fr, "cpu")
     with pytest.raises(ValueError):
-        ck.affine_level_pre(Fr, x1[:8].contiguous(), y1[:8].contiguous(),
-                            m1, x2[:8].contiguous(), y2[:8].contiguous(), m2)
+        ck.affine_level_fast(Fr, x1[:8].contiguous(), y1[:8].contiguous(),
+                             m1, x2[:8].contiguous(), y2[:8].contiguous(),
+                             m2)
 
 
 def test_batch_inv_t_odd_widths():

@@ -2,15 +2,16 @@
 reference: `affine_kernels_fast` run by the JAX package in Pallas
 interpret mode, the JAX `affine_pair_add` and the host curve.
 
-The fast pre/post run on 512 lanes in a subprocess that sets
+The reference's fast pre/post run on 512 lanes in a subprocess that sets
 `CRYPTO_TPU_PALLAS_INTERPRET=1` before it imports `crypto_tpu` (the flag
 is read at import time).  Canonical integers are compared: the
 denominators on live lanes, x3 and y3 on lanes that did not collide, the
-infinity masks everywhere, and which lanes have a zero denominator.  The
-fast chunked level must agree with the fast pre/post lane for lane where
-its thread has no zero total; a doubling and a P + (-P) pair must give a
-zero total (or d) and set `pair_add_t`'s zero mask, and leave every other
-lane exact.
+infinity masks everywhere, and which lanes have a zero denominator; the
+port's one-launch level (`affine_level_fast`) is the pre, the inversion
+and the post in one call.  The fast chunked level must agree with the
+one-launch level lane for lane where its thread has no zero total; a
+doubling and a P + (-P) pair must give a zero total (or d) and set
+`pair_add_t`'s zero mask, and leave every other lane exact.
 """
 
 import json
@@ -135,7 +136,7 @@ def test_fast_pre_post_vs_interpret_kernels(tmp_path):
     ref = json.loads(dst.read_text())
 
     ins = _port_inputs(pairs)
-    d, inf3 = ck.affine_level_pre_fast(F, *ins)
+    d, inf3 = ck.affine_level_pre_fast_plain(F, *ins)
     zero = F.is_zero(d)
     assert zero.nonzero().flatten().tolist() == [5, 510]
     assert [v == 0 for v in ref["d"]] == zero.tolist()
@@ -143,10 +144,9 @@ def test_fast_pre_post_vs_interpret_kernels(tmp_path):
     got_d = _ints(d)
     assert all(g == r for g, r, ok in zip(got_d, ref["d"], live) if ok)
     assert inf3.tolist() == ref["inf3"]
-    d[0] |= zero.to(torch.int32)
-    x3, y3 = ck.affine_level_post_fast(F, ins[0], ins[1], ins[3], ins[4],
-                                       msm_v2.batch_inv_t(F, d), ins[2],
-                                       ins[5])
+    # the one-launch level: pre, the zero substitute, batch_inv_t, post
+    x3, y3, inf3_l, zero_l = ck.affine_level_fast(F, *ins)
+    assert torch.equal(inf3_l, inf3) and torch.equal(zero_l, zero)
     host = _host_sums(pairs)
     gx, gy = _ints(x3), _ints(y3)
     for i in range(len(pairs)):
@@ -174,10 +174,8 @@ def test_fast_chunked_vs_pre_post_reference_and_host():
     ins = _port_inputs(pairs)
     x3, y3, inf3, zt = _fast_chunked(ins)
     assert not bool(zt.any())
-    d, pinf = ck.affine_level_pre_fast(F, *ins)
-    px, py = ck.affine_level_post_fast(F, ins[0], ins[1], ins[3], ins[4],
-                                       msm_v2.batch_inv_t(F, d), ins[2],
-                                       ins[5])
+    px, py, pinf, pzero = ck.affine_level_fast(F, *ins)
+    assert not bool(pzero.any())
     assert torch.equal(inf3, pinf)
     live = inf3 == 0
     assert torch.equal(x3[:, live], px[:, live])

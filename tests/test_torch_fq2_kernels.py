@@ -259,7 +259,7 @@ def test_fq2_wrapper_checks(case):
     with pytest.raises(ValueError):             # Fq rows to the Fq2 kernel
         ck.affine_level_pre_fq2(F, G1F, G1F, m1, G1F, G1F, m2)
     with pytest.raises(ValueError):             # an Fq2 field to a G1 kernel
-        ck.affine_level_pre(F, x1, y1, m1, x2, y2, m2)
+        ck.affine_level(F, x1, y1, m1, x2, y2, m2)
     with pytest.raises(ValueError):
         fk.fq2_mul(F.base, x1, y1[:, :5].contiguous())
     with pytest.raises(ValueError):

@@ -74,25 +74,25 @@ def test_chunked_levels_inside_msm(monkeypatch):
     n = 64
     pts, dlogs = _points(n)
     scs = [rng.randrange(0, 1 << 16) for _ in range(n)]
-    widths = {"chunked": 0, "pre": 0}
+    widths = {"chunked": 0, "narrow": 0}
     real_prefix = ck.chunked_level_prefix_fast
-    real_pre = ck.affine_level_pre_fast
+    real_level = ck.affine_level_fast
 
     def prefix(*a):
         widths["chunked"] += 1
         return real_prefix(*a)
 
-    def pre(*a):
-        widths["pre"] += 1
-        return real_pre(*a)
+    def level(*a):
+        widths["narrow"] += 1
+        return real_level(*a)
 
     monkeypatch.setattr(tm, "CHUNK_MIN_PAIRS", 300)
     monkeypatch.setattr(ck, "chunked_level_prefix_fast", prefix)
-    monkeypatch.setattr(ck, "affine_level_pre_fast", pre)
+    monkeypatch.setattr(ck, "affine_level_fast", level)
     got = tm.msm_device_scheduled(tb.G1, pts, scs, c=8, nbits=16,
                                   device="cpu")
     assert got == G.mul_raw(sum(s * d for s, d in zip(scs, dlogs)) % tb.R)
-    assert widths["chunked"] > 0 and widths["pre"] > 0
+    assert widths["chunked"] > 0 and widths["narrow"] > 0
 
 
 def test_pad_argument():

@@ -27,9 +27,8 @@ from crypto_tpu_torch.testing import cap_threads
 cap_threads()
 
 N, C, NBITS = 16, 8, 16
-G1_LEVEL = ("affine_level_pre", "affine_level_post", "chunked_level_prefix",
-            "chunked_level_down", "affine_level_pre_fast",
-            "affine_level_post_fast", "chunked_level_prefix_fast",
+G1_LEVEL = ("affine_level", "chunked_level_prefix", "chunked_level_down",
+            "affine_level_fast", "chunked_level_prefix_fast",
             "chunked_level_down_fast")
 
 
