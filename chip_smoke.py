@@ -34,6 +34,18 @@ before it and read just after:
 * the QAP witness map's device half, `qap_h`, on a 2^20 domain (random
   rows a, b and c = a b): each NTT timed, intt(ntt(a)) == a, 8 NTT
   outputs against Horner and the QAP identity at a random tau;
+* BASELINE config 5's multi-GPU path on the one card: the sharded 2^20
+  G1 MSM (`parallel/sharded_msm_v2.py`) on the main MSM's points and
+  scalars, `msm_sharded_v2` in a world of one on NCCL (a `HashStore`: no
+  address, no network), then 4 shards of 2^18 points computed in turn
+  (`msm_shards_in_turn`: each shard's `shard_bucket_sums`, added by
+  `combine_bucket_shards`, its first level 2 x 16 x 2^15 bucket pairs on
+  the chunked total formula, and the tail), each equal to the known-dlog
+  value and the main MSM's result, no window rerun; the four-step NTT of
+  2^20 Fr elements
+  (`parallel/sharded_ntt.py`) as 4 ranks in turn and in the world of
+  one, each equal to the single-device NTT; every kernel launch of these
+  paths held to its plain version on its arguments;
 * the LegoGroth16 north-star workload (`benches/bench_northstar.py`):
   the setup of a 2^16 - 4 constraint chain circuit with one committed
   witness from explicit trapdoors (fixed-base tables and products on the
@@ -82,6 +94,12 @@ before it and read just after:
   (256 additions; 256 removals), each split by phase and
   held to V_new / (y + alpha) from the fixed-base table, its d factors
   to host integers, 16 members to the host branch and two by pairing;
+* the OT stack and its threshold consumers (`threshold_ot`, host work):
+  one base-OT phase of 128 OTs, KOS and DKLS19 batch multiplication of
+  256 products over it (the shares sum to the products), threshold
+  weak-BB at 3 of 5 (signers 1, 2, 5; A = g1 / (e + x) from the dealt
+  key, verified by pairing), and 2-of-3 threshold managers' membership
+  witness and removal on that accumulator (each V / (y + alpha));
 * the KB universal accumulator (`accumulator_kb_universal`) on the same
   params, keys and 2^14 elements as its domain: 8,192 members, the
   batch witnesses of 8,064 members and 8,064 non-members on the device
@@ -183,10 +201,8 @@ mont_pow also at the witness update's to_affine; the one-launch narrow
 levels, both formulas, also at 1, 2, 127, 129, 2,048 and 4,095 pairs and
 every narrow width of the G1 MSMs; every 8-limb
 instantiation at the BN254 paths' shapes, the same way), times the
-one-launch narrow levels against the split level they replaced (the
-pre and post kernels of `csrc/affine_level_split.cu`, a library of its
-own, around `batch_inv_t`) at 16, 256, 2,048 and 4,095 pairs at 12 and
-8 limbs, times the fast down pass at each of
+one-launch narrow levels at 16, 256, 2,048 and 4,095 pairs at 12 and 8
+limbs, times the fast down pass at each of
 the 2^20 MSM's level widths, and profiles one more 2^20 G1 MSM on the fast
 levels for the device's busy share and each kernel's device time
 against its summed bound (the bound summed by shims over the same
@@ -505,7 +521,7 @@ def check_normalize_cases(F, J, pn, agree) -> list:
 # version beside its paths' own: one and two pairs, a block's 128 threads
 # either side, a width of the prove's levels and the widest narrow level
 LEVEL_WIDTHS = (1, 2, 127, 129, 2048, 4095)
-# widths of the split-against-one-launch timing lines
+# widths of the one-launch levels' timing lines
 TIMED_LEVEL_WIDTHS = (16, 256, 2048, 4095)
 
 
@@ -548,80 +564,6 @@ def check_narrow_levels(row, agree, F, inputs, fast: bool, path: str,
     return rows
 
 
-# csrc/affine_level_split.cu, the split narrow level that the one-launch
-# kernels replaced, as a library of its own for `level_timings` (the
-# port's library does not hold it): C entry point -> argument types
-SPLIT_SIGNATURES = {
-    "crypto_affine_pre": 9, "crypto_affine_post": 10,
-    "crypto_affine_pre_fast": 6, "crypto_affine_post_fast": 9}
-
-
-def start_split_build():
-    """nvcc of the split level's library, started (beside the port's own
-    build): (process, library path); `split_library` waits for it."""
-    from crypto_tpu_torch.ops.kernels import build
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / "libaffine_level_split.so"
-    proc = subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC),
-         str(build.CSRC / "affine_level_split.cu"), "-o", str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out
-
-
-def split_library(started):
-    import ctypes
-    proc, out = started
-    log, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on affine_level_split.cu:\n{log}")
-    lib = ctypes.CDLL(str(out))
-    for name, n_ptrs in SPLIT_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_uint32, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def split_level(lib, F, fast: bool, ins) -> tuple:
-    """The narrow level as the port ran it before the one-launch kernels:
-    the pre kernel, `msm_v2.batch_inv_t` (mont_mul launches, concats and a
-    mont_pow root), the post kernel; the one-launch level's outputs."""
-    import ctypes
-    from crypto_tpu_torch.ops import msm_v2
-    from crypto_tpu_torch.ops.kernels.build import check
-    from crypto_tpu_torch.ops.kernels.field_kernels import stream_of
-    x1, y1, m1, x2, y2, m2 = ins
-    M = x1.shape[1]
-    tail = [M, F.L, ctypes.addressof(F.mod.p_c), F.mod.n0inv,
-            stream_of(x1.device)]
-
-    def ptrs(*ts):
-        return [t.data_ptr() for t in ts]
-
-    d, inf3 = torch.empty_like(x1), torch.empty_like(m1)
-    x3, y3 = torch.empty_like(x1), torch.empty_like(y1)
-    if fast:
-        check(lib.crypto_affine_pre_fast(*ptrs(x1, m1, x2, m2, d, inf3),
-                                         *tail), "split pre_fast")
-        zero = F.is_zero(d)
-        d[0] |= zero.to(torch.int32)
-        dinv = msm_v2.batch_inv_t(F, d)
-        check(lib.crypto_affine_post_fast(*ptrs(x1, y1, x2, y2, dinv, m1,
-                                                m2, x3, y3), *tail),
-              "split post_fast")
-        return x3, y3, inf3, zero
-    dbl = torch.empty_like(m1)
-    check(lib.crypto_affine_pre(*ptrs(x1, y1, m1, x2, y2, m2, d, dbl, inf3),
-                                *tail), "split pre")
-    dinv = msm_v2.batch_inv_t(F, d)
-    check(lib.crypto_affine_post(*ptrs(x1, y1, x2, y2, dinv, dbl, m1, m2, x3,
-                                       y3), *tail), "split post")
-    return x3, y3, inf3
-
-
 def profile_launches(fn, tries: int = 3) -> tuple:
     """(device operations, their summed device ms) of one fn() call, from
     the profiler's raw events: the fullest of `tries` traces, since a
@@ -640,13 +582,11 @@ def profile_launches(fn, tries: int = 3) -> tuple:
     return len(best), sum(end - start for _, start, end in best) / 1e6
 
 
-def level_timings(lib, F, inputs, agree, reps: int = 3) -> None:
-    """At each width of TIMED_LEVEL_WIDTHS, on both formulas: the split
-    level (`split_level`) and the one-launch level on the same `inputs(M)`
-    held to each other bit for bit, each timed as one call by CUDA events
-    in turns (split, one, one, split; `reps` times; the medians), each
-    profiled once (device operations and ms), and the one-launch level's
-    bound.  One line a width."""
+def level_timings(F, inputs, reps: int = 3) -> None:
+    """At each width of TIMED_LEVEL_WIDTHS, on both formulas: the
+    one-launch level on `inputs(M)`, timed as one call by CUDA events
+    (`reps` times; the median), profiled once (device operations and ms),
+    and its bound.  One line a width."""
     from crypto_tpu_torch.ops.kernels import curve_kernels as ck
     for M in TIMED_LEVEL_WIDTHS:
         ins = inputs(M)
@@ -654,21 +594,13 @@ def level_timings(lib, F, inputs, agree, reps: int = 3) -> None:
         for fast in (True, False):
             tag = "fast" if fast else "total"
             one = ck.affine_level_fast if fast else ck.affine_level
-            fns = {"split": lambda: split_level(lib, F, fast, ins),
-                   "one": lambda: one(F, *ins)}
-            agree(one.__name__, fns["one"](), fns["split"](),
-                  f"against the split level at L={F.L} M={M}")
-            ms = {"split": [], "one": []}
-            for _ in range(reps):
-                for k in ("split", "one", "one", "split"):
-                    ms[k].append(timed_call(fns[k])[1])
-            for k, fn in fns.items():
-                n_ops, dev_ms = profile_launches(fn)
-                line.update({f"{tag}_{k}_ms": statistics.median(ms[k]),
-                             f"{tag}_{k}_launches": n_ops,
-                             f"{tag}_{k}_device_ms": dev_ms})
-            line[f"{tag}_bound_ms"] = bound_ms(*work(one.__name__,
-                                                     (F,) + ins))[0]
+            ms = [timed_call(lambda: one(F, *ins))[1] for _ in range(reps)]
+            n_ops, dev_ms = profile_launches(lambda: one(F, *ins))
+            line.update({f"{tag}_one_ms": statistics.median(ms),
+                         f"{tag}_one_launches": n_ops,
+                         f"{tag}_one_device_ms": dev_ms,
+                         f"{tag}_bound_ms": bound_ms(*work(
+                             one.__name__, (F,) + ins))[0]})
         phase("affine_level_widths", L=F.L, pairs=M, **line)
 
 
@@ -2829,9 +2761,10 @@ def captured_kernel_checks(row, agree, captured: dict) -> list:
     against its plain version on the same arguments, bit for bit.
     `mont_pow`'s plain version is lane by lane (608 dependent products,
     ~4-5 s a call at any width), so every path's launches of one
-    exponent share one plain call over their inputs side by side, and it
-    has no row here (its rows are `check_mont_pow`'s).  Returns the
-    kernels-line rows, one a path and kernel at its widest launch."""
+    exponent share one plain call over their inputs side by side, and
+    that call's time is the plain time of each path's `mont_pow` row.
+    Returns the kernels-line rows, one a path and kernel (and exponent)
+    at its widest launch."""
     rows, checked, pows = [], [], {}
     for path, seen in captured.items():
         widest = {}
@@ -2851,16 +2784,24 @@ def captured_kernel_checks(row, agree, captured: dict) -> list:
                 widest[name] = (shape[0] * shape[1], args)
         rows.extend(kernel_row(row, agree, path, name, args)
                     for name, (_, args) in sorted(widest.items()))
+    src, rep = KERNEL_SOURCE["mont_pow"]
     for (e, _), group in pows.items():
         mod = group[0][1][2]
-        whole = plain_of("mont_pow")(torch.cat([a[0] for _, a in group], 1),
-                                     e, mod)
-        at = 0
+        whole, whole_ms = timed_call(lambda: plain_of("mont_pow")(
+            torch.cat([a[0] for _, a in group], 1), e, mod))
+        at, widest = 0, {}
         for path, a in group:
             m = a[0].shape[1]
-            agree("mont_pow", (kernel_of("mont_pow")(*a),),
-                  (whole[:, at:at + m],), f"on {path} at M={m}")
+            err = agree("mont_pow", (kernel_of("mont_pow")(*a),),
+                        (whole[:, at:at + m],), f"on {path} at M={m}")
+            if m > widest.get(path, (0,))[0]:
+                widest[path] = (m, a, err)
             at += m
+        rows.extend(row("mont_pow", "crypto_tpu_torch/csrc/" + src,
+                        "crypto_tpu/" + rep, path, err,
+                        cuda_ms(lambda: kernel_of("mont_pow")(*a)), whole_ms,
+                        a, launch_shape("mont_pow", a))
+                    for path, (m, a, err) in sorted(widest.items()))
     phase("check_captured_kernels", path_kernel_shape=json.dumps(checked),
           bit_exact=True)
     return rows
@@ -4235,7 +4176,7 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
         rows.extend(check_narrow_levels(
             row, agree, F, lambda M: lvl(M, points, F), fast,
             "bn254_edge_msm", max(narrow(edge_w)), more))
-    level_timings(data["split_lib"], F, lambda M: lvl(M, points, F), agree)
+    level_timings(F, lambda M: lvl(M, points, F))
 
     # ---- the chunked levels at 524,288 pairs, a width of both the rerun
     # (total formula) and the 2^20 MSM (fast) and the width of the
@@ -4433,6 +4374,225 @@ def bn254_kernel_checks(row, agree, paths, data, dev) -> list:
     return rows
 
 
+# ---- BASELINE config 5's multi-GPU path, on one card
+SHARDS = 4                          # MSM shards and NTT ranks run in turn
+SHARDED_NTT_LOG = 20                # the sharded NTT's domain: 2^20 Fr
+
+
+def sharded_msm_phase(counted, dev, points, logs, sc, sb, single) -> tuple:
+    """The sharded 2^20 G1 MSM (`parallel/sharded_msm_v2.py`) on the main
+    MSM's points and scalars (c = 16, fast levels): (a) `msm_sharded_v2`
+    in the process group main() opened, a world of one on NCCL; (b)
+    `msm_shards_in_turn` over 4 shards of 2^18 points: each shard's
+    `shard_bucket_sums` on the grid of the largest bucket of any shard,
+    `combine_bucket_shards` (ndev = 4: its first level adds 2 x 16 x 2^15
+    bucket pairs on the chunked total formula, with `batch_inv_t`'s
+    mont_mul and mont_pow), the tail and the host Horner.  Each equal to
+    the known-dlog value and to `single`, the main MSM's result on the
+    same scalars; no window rerun.  Each runs twice: with the launch
+    counts reset before it and read after and every launch's arguments
+    kept (`capture_launches`), then bare, timed.  Returns ({path:
+    (launches, level widths)}, {path: captured launches})."""
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.curves.tcurve import TPoints
+    from crypto_tpu_torch.ops import msm_v2
+    from crypto_tpu_torch.parallel import sharded_msm_v2 as sm
+    G = bls.G1.generator()
+    n = points.X.shape[1]
+    expect = G.mul_raw(sum(s * d for s, d in zip(sc, logs)) % bls.R)
+    if single != expect:
+        raise AssertionError("sharded MSM: the main MSM's result is not the "
+                             "known-dlog value")
+    thr = msm_v2.CHUNK_MIN_PAIRS
+    m = n // SHARDS
+    shards = [(TPoints(*(t[:, i * m:(i + 1) * m].contiguous()
+                         for t in points)), sb[i * m:(i + 1) * m])
+              for i in range(SHARDS)]
+    B = 1 << 15
+    runs = (("sharded_msm_world1", "sharded_msm_world1_2^20",
+             "world of one",
+             lambda t: sm.msm_sharded_v2(bls.G1, points, sb, c=16,
+                                         device=dev, timings=t)),
+            ("sharded_msm_in_turn", f"sharded_msm_{SHARDS}_in_turn_2^20",
+             f"{SHARDS} shards in turn",
+             lambda t: sm.msm_shards_in_turn(bls.G1, shards, 16, device=dev,
+                                             timings=t)))
+    paths, captured = {}, {}
+    for name, path, what, fn in runs:
+        t_c, t = {}, {}
+        (res_c, seen), launches = drive(
+            counted, lambda: capture_launches(counted, lambda: fn(t_c)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(t)
+        secs = time.perf_counter() - t0
+        per = t.get("shards", [t])
+        reruns = [tt["rerun_windows"] for tt in t_c.get("shards", [t_c])
+                  + per]
+        if res_c != expect or res != expect or any(reruns):
+            raise AssertionError(f"sharded MSM, {what}: wrong result or "
+                                 f"windows rerun {reruns}")
+        widths = [w for tt in per for w in tt["level_pairs"]]
+        kernels = level_kernels(widths, [], thr)
+        if "shards" in t:
+            kernels |= set(LEVEL_KERNELS[("chunked", True)])
+        require(f"sharded MSM, {what}", launches, kernels)
+        paths[path] = (launches, widths)
+        captured[path] = seen
+        phase(name, n=n, shards=len(per), pad=t["pad"], seconds=secs,
+              phases=floats(t), shard_level_pairs=per[0]["level_pairs"],
+              slots=per[0]["slots"],
+              combine_pairs=[(len(per) >> (i + 1)) * 16 * B
+                             for i in range((len(per) - 1).bit_length())],
+              launches={k: v for k, v in launches.items() if v},
+              equals_msm_device_scheduled=True, correct=True)
+    return paths, captured
+
+
+def sharded_ntt_phase(counted, dev) -> tuple:
+    """The four-step NTT (`parallel/sharded_ntt.py`) of 2^20 random Fr
+    elements (canonical limbs drawn on the card): 4 ranks in turn through
+    `rank_step` and `natural_order`, and `sharded_ntt_t` in main()'s
+    world of one, both equal to the port's single-device NTT.  Each runs
+    as the MSM's paths do: counted and captured, then bare, timed.
+    Returns ({path: (launches, [])}, {path: captured launches})."""
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.ops.ntt import domain_for
+    from crypto_tpu_torch.parallel import sharded_ntt as sn
+    n = 1 << SHARDED_NTT_LOG
+    gen = torch.Generator(device=dev).manual_seed(SEED + 310)
+    a = torch.randint(-(1 << 31), 1 << 31, (8, n), generator=gen,
+                      dtype=torch.int32, device=dev)
+    a[7] &= 0x0FFFFFFF                  # below 2^252 < r: canonical
+    dom = domain_for(bls.Fr, n, dev)
+    want, single_ms = timed_call(lambda: dom.ntt(a))
+    t0 = time.perf_counter()
+    plan = sn.plan_for(bls.Fr, n, SHARDS, dev)
+    plan_s = time.perf_counter() - t0
+    sn.plan_for(bls.Fr, n, 1, dev)      # the world of one's plan, untimed
+    blocks = a.view(8, SHARDS, n // SHARDS)
+
+    def in_turn():
+        return sn.natural_order(torch.stack(
+            [sn.rank_step(plan, blocks, r) for r in range(SHARDS)]))
+
+    turn_path = f"sharded_ntt_{SHARDS}_in_turn_2^20"
+    paths, captured, ms = {}, {}, {}
+    for path, fn in ((turn_path, in_turn), ("sharded_ntt_world1_2^20",
+                      lambda: sn.sharded_ntt_t(bls.Fr, a, device=dev))):
+        (got_c, seen), launches = drive(
+            counted, lambda: capture_launches(counted, fn))
+        got, ms[path] = timed_call(fn)
+        if not (torch.equal(got_c, want) and torch.equal(got, want)):
+            raise AssertionError(f"sharded NTT disagrees with the "
+                                 f"single-device NTT on {path}")
+        require(f"sharded NTT, {path}", launches, ("mont_mul",))
+        paths[path] = (launches, [])
+        captured[path] = seen
+    phase("sharded_ntt", n=n, ranks_in_turn=SHARDS, plan_s=plan_s,
+          single_ms=single_ms, in_turn_ms=ms[turn_path],
+          world1_ms=ms["sharded_ntt_world1_2^20"],
+          mont_mul_launches=[v[0]["mont_mul"] for v in paths.values()],
+          equals_single_device=True, correct=True)
+    return paths, captured
+
+
+DKLS_PRODUCTS = 256                 # DKLS19 products between two parties
+TWBB = (3, 5, (1, 2, 5))            # threshold weak-BB: 3 of 5, signers
+#                                     1, 2, 5 (tests/test_threshold_bbs.py)
+TACC = (2, 3)                       # threshold accumulator managers
+
+
+def threshold_ot_phase(acc_keep) -> None:
+    """The OT stack and its two threshold consumers, host work on the
+    card's machine: one base-OT phase of 128 OTs between two parties
+    (every chosen key its pair's), KOS and DKLS19 batch multiplication of
+    256 products over it (the shares sum to the products); threshold
+    weak-BB at 3 of 5 (signers 1, 2, 5): A equal to g1 / (e + x) from
+    the dealt key, the signature verified by the host pairing; 2-of-3
+    threshold managers on the accumulator phase's 2^14-element
+    accumulator: a membership witness and a removal, each equal to V /
+    (y + alpha) from the full key.  Each step timed."""
+    from crypto_tpu_torch.accumulator import threshold as thr
+    from crypto_tpu_torch.curves import bls12_381 as bls
+    from crypto_tpu_torch.hashing import group_elem_from_try_and_incr
+    from crypto_tpu_torch.ot import dkls
+    from crypto_tpu_torch.ot.ot_extension import setup_ote_pair
+    from crypto_tpu_torch.secret_sharing.schemes import shamir_deal_secret
+    from crypto_tpu_torch.short_group_sig import threshold_weak_bb as twbb
+    from crypto_tpu_torch.short_group_sig.weak_bb import (WeakBBPublicKeyG2,
+                                                          WeakBBSecretKey)
+    F = bls.Fr
+    rng = random.Random(SEED + 300)
+    secs = {}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[key] = time.perf_counter() - t
+        return out
+
+    sender, receiver = timed("base_ot_128_s", lambda: setup_ote_pair(
+        rng, bls.G1.generator()))
+    if [p[s] for p, s in zip(receiver.seed_pairs, sender.s_bits)] \
+            != sender.seeds:
+        raise AssertionError("base OT: a chosen key is not its pair's")
+    params = dkls.MultiplicationOTEParams(kappa=256, ssp=80)
+    gadget = dkls.GadgetVector.new(params, b"chip-smoke dkls19")
+    alpha = F.rand(rng)
+    betas = [F.rand(rng) for _ in range(DKLS_PRODUCTS)]
+    state, U, kos_rlc = timed("dkls19_party2_round1_s",
+                              lambda: dkls.batch_mul_party2_round1(
+                                  rng, betas, receiver, gadget, params))
+    shares1, tau, rlc = timed("dkls19_party1_s", lambda: dkls.batch_mul_party1(
+        rng, alpha, DKLS_PRODUCTS, U, kos_rlc, sender, gadget, params))
+    shares2 = timed("dkls19_party2_round2_s",
+                    lambda: dkls.batch_mul_party2_round2(state, tau, rlc,
+                                                         gadget, params))
+    if any(s1 + s2 != alpha * b for s1, s2, b in zip(shares1, shares2,
+                                                      betas)):
+        raise AssertionError("DKLS19: shares do not sum to the products")
+
+    t, total, ids = TWBB
+    g1 = group_elem_from_try_and_incr(bls.G1, b"chip-smoke twbb g1") \
+        .normalize()
+    g2 = group_elem_from_try_and_incr(bls.G2, b"chip-smoke twbb g2") \
+        .normalize()
+    sk = WeakBBSecretKey.generate(rng)
+    pk = WeakBBPublicKeyG2.generate(sk, g2)
+    shares, _ = shamir_deal_secret(rng, sk.x, t, total)
+    e = F.rand(rng)
+    signers = {s.id: twbb.ThresholdWeakBBSigner.init(rng, s.id, s.share,
+                                                     list(ids))
+               for s in shares.shares if s.id in ids}
+    sig = timed("threshold_weak_bb_3_of_5_s",
+                lambda: twbb.run_threshold_weak_bb(rng, signers, e, g1))
+    if sig.A != g1 * int((e + sk.x).inverse()):
+        raise AssertionError("threshold weak-BB: A is not g1 / (e + x)")
+    if not timed("weak_bb_verify_s", lambda: sig.verify(e, pk, g1, g2)):
+        raise AssertionError("threshold weak-BB: the signature fails")
+
+    t, total = TACC
+    V, kp, elems = acc_keep["value"], acc_keep["kp"], acc_keep["elements"]
+    a_sk = kp.secret_key.alpha
+    shares, _ = shamir_deal_secret(rng, a_sk, t, total)
+    sub = {s.id: s.share for s in shares.shares[:t]}
+    managers = thr.make_threshold_managers(rng, sub)
+    wit = timed("accumulator_witness_2_of_3_s",
+                lambda: thr.threshold_membership_witness(rng, managers,
+                                                         elems[1], V))
+    managers = thr.make_threshold_managers(rng, sub)
+    V_new = timed("accumulator_remove_2_of_3_s",
+                  lambda: thr.threshold_remove(rng, managers, elems[2], V))
+    for got, y in ((wit.C, elems[1]), (V_new, elems[2])):
+        if got != V * int((y + a_sk).inverse()):
+            raise AssertionError("threshold accumulator: not V / (y + alpha)")
+    phase("threshold_ot", base_ots=128, dkls19_products=DKLS_PRODUCTS,
+          weak_bb=f"{TWBB[0]}-of-{TWBB[1]} signers {list(TWBB[2])}",
+          accumulator=f"{TACC[0]}-of-{TACC[1]} on {len(elems)} elements",
+          **secs, seconds=sum(secs.values()), correct=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -4456,12 +4616,7 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     t0 = time.time()
-    split_build = start_split_build()
-    try:
-        build.load_library()
-        split_lib = split_library(split_build)
-    finally:
-        split_build[0].kill()          # nothing once it has exited
+    build.load_library()
     phase("build", seconds=round(time.time() - t0, 3),
           nvcc_seconds=round(build.build_info["seconds"], 3),
           lib=build.build_info["path"])
@@ -4555,6 +4710,7 @@ def main() -> int:
               mont_pow_launches=launches["mont_pow"], correct=True)
     main_launches, main_widths = main_runs[0]
     paths["msm_2^20"] = main_runs[0]
+    main_scalars = (sc, sb, result)         # the last timed run's
     med = statistics.median(secs)
     phase("msm", n=n, c=16, runs=MSM_RUNS, seconds=secs, median_s=med,
           spread=max(secs) / min(secs), points_per_s=n / med,
@@ -4817,6 +4973,26 @@ def main() -> int:
     # ---- the QAP witness map at 2^20, and the LegoGroth16 setup and
     # proves at 2^16 constraints
     paths["qap_h_2^20"] = (qap_h_phase(counted, dev), [])
+
+    # ---- BASELINE config 5's sharded MSM and NTT, in a world of one on
+    # NCCL (a HashStore: no address, no network) and as shards in turn
+    import torch.distributed as dist
+    t0 = time.time()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev))   # NCCL's communicator
+        torch.cuda.synchronize()
+        phase("nccl_world1", seconds=round(time.time() - t0, 3))
+        sh_paths, sh_captured = sharded_msm_phase(counted, dev, points, logs,
+                                                  *main_scalars)
+        ntt_paths, ntt_captured = sharded_ntt_phase(counted, dev)
+    finally:
+        dist.destroy_process_group()
+    paths.update(sh_paths)
+    paths.update(ntt_paths)
+    sharded_captured = {**sh_captured, **ntt_captured}
+    phase("sharded_phases", seconds=round(time.time() - t0, 3))
     lego_keep = {}
     lego, _ = legogroth16_phases(counted, dev, keep=lego_keep)
     paths.update((k, (v, [])) for k, v in lego.items())
@@ -4832,11 +5008,13 @@ def main() -> int:
     saver_paths, captured, saver_keep = saver_aggregate_phases(counted,
                                                                    dev)
     paths.update((k, (v, [])) for k, v in saver_paths.items())
+    captured.update(sharded_captured)
     phase("saver_aggregate_phases", seconds=round(time.time() - t0, 3))
     t0 = time.time()
     acc_paths, acc_keep = accumulator_phases(counted, dev)
     paths.update((k, (v, [])) for k, v in acc_paths.items())
     phase("accumulator_phases", seconds=round(time.time() - t0, 3))
+    threshold_ot_phase(acc_keep)
     t0 = time.time()
     ps_paths, ps_captured = proof_system_phase(counted, dev, saver_keep,
                                              acc_keep)
@@ -5010,7 +5188,7 @@ def main() -> int:
         rows.extend(check_narrow_levels(row, agree, F, level_inputs, fast,
                                         "edge_msm", max(narrow(edge_w)),
                                         more))
-    level_timings(split_lib, F, level_inputs, agree)
+    level_timings(F, level_inputs)
 
     def chunked_inputs(M: int):
         pad = (-M) % msm_v2.CHUNK_PAD
@@ -5308,7 +5486,7 @@ def main() -> int:
     # M = 1, whose input, plain output and plain time it takes
     a, pw, pw_ms = root_1
     err = agree("mont_pow", (fk.mont_pow(a, P - 2, Fq_.mod),), (pw,),
-                "at the pairing's inverse")
+                "at pairing_64's inverse")
     rows.append(row(
         "mont_pow", csrc + "mont_mul.cu",
         "crypto_tpu/ops/pallas/field_kernels.py:386", "pairing_64", err,
@@ -5424,7 +5602,6 @@ def main() -> int:
           **g_line, bit_exact=True)
 
     # ---- every L = 8 instantiation at the BN254 paths' shapes
-    bn_data["split_lib"] = split_lib
     rows.extend(bn254_kernel_checks(row, agree, paths, bn_data, dev))
 
     # ---- device busy share of one more 2^20 G1 MSM, and each kernel's

@@ -33,6 +33,9 @@ read in rows per element, `F.U` (L for Fq, 2L for Fq2).  The steps:
    the mont_mul kernel (the Fq2 mul kernel on G2);
 7. the window combine by Horner's rule on the host.
 
+Steps 4-5 are `bucket_sums` and steps 6-7 `finish`, which the sharded
+MSM (`parallel/sharded_msm_v2.py`) runs around its all-gather.
+
 Differences from the reference, all from the card's side of the design:
 
 * The count profile is pulled first and the bands decided before any
@@ -617,6 +620,23 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def digits_of(scalars, c: int, nbits: int, dev) -> torch.Tensor:
+    """(W, N) int32 signed digits on `dev` from an int sequence or (N,
+    nbytes) uint8 LE bytes (numpy or tensor); a (W, N) int32 digit tensor
+    from `device_digits` passes through."""
+    if isinstance(scalars, torch.Tensor) and scalars.dim() == 2 \
+            and scalars.dtype == torch.int32:
+        return scalars.to(dev)
+    if isinstance(scalars, (np.ndarray, torch.Tensor)) \
+            and scalars.dtype in (np.uint8, torch.uint8):
+        sbytes = torch.as_tensor(scalars)
+    else:
+        W_ = (nbits + c) // c
+        sbytes = torch.from_numpy(scalars_to_bytes(
+            [int(s) for s in scalars], (W_ * c + 7) // 8).copy())
+    return device_digits(sbytes.to(dev), c, nbits)
+
+
 def msm_device_scheduled(curve: SWCurve, points, scalars,
                          c: int | None = None, nbits: int | None = None,
                          pad: int | None = None, device="cuda",
@@ -654,18 +674,7 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
     if c is None:
         c = _auto_c_v2(N)
 
-    if isinstance(scalars, torch.Tensor) and scalars.dim() == 2 \
-            and scalars.dtype == torch.int32:
-        digits = scalars.to(dev)
-    else:
-        if isinstance(scalars, (np.ndarray, torch.Tensor)) \
-                and scalars.dtype in (np.uint8, torch.uint8):
-            sbytes = torch.as_tensor(scalars)
-        else:
-            W_ = (nbits + c) // c
-            sbytes = torch.from_numpy(scalars_to_bytes(
-                [int(s) for s in scalars], (W_ * c + 7) // 8).copy())
-        digits = device_digits(sbytes.to(dev), c, nbits)
+    digits = digits_of(scalars, c, nbits, dev)
     W = digits.shape[0]
     if digits.shape[1] != N:
         raise ValueError(f"{digits.shape[1]} scalars for {N} points")
@@ -703,17 +712,34 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
     if timings is not None:
         _sync(dev)
         timings["digits_plan"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+    bx, by, binf = bucket_sums(F, points, digits,
+                               (order, starts_p, counts_p, invperm), groups,
+                               B, fast, timings)
+    return finish(curve, tc, c, bx, by, binf, timings)
 
+
+def bucket_sums(F, points: TPoints, digits: torch.Tensor, plan: tuple,
+                groups: dict, B: int, fast: bool,
+                timings: dict | None = None) -> tuple:
+    """Every window's bucket sums, (x, y (U, W, B), inf (W, B)) in natural
+    bucket order, from the windows' bucket plan `plan` (order, starts_p,
+    counts_p, invperm of `_plan_windows_sorted`) and `groups`, {band
+    layout: the windows that run under it}.  On the fast levels the
+    windows that a colliding pair spoiled are rerun with the total formula
+    after one pull of the flags.  `timings`: "levels", "rerun",
+    "rerun_windows" and "rerun_trace" as `msm_device_scheduled` says."""
+    dev = digits.device
+    W = digits.shape[0]
+    t0 = time.perf_counter()
     bx = torch.empty((F.U, W, B), dtype=torch.int32, device=dev)
     by = torch.empty_like(bx)
     binf = torch.empty((W, B), dtype=torch.bool, device=dev)
     flags = torch.zeros(W, dtype=torch.bool, device=dev)
     tables = fk.slot_tables(F, points.X.contiguous(), points.Y.contiguous())
-    plan = (digits, tables, order, starts_p, counts_p, invperm, B)
+    args = (digits, tables) + tuple(plan) + (B,)
 
     def run(bands, ws, fast_w, trace):
-        sx, sy, sinf, fl = _window_sums(F, bands, ws, *plan, fast_w, trace)
+        sx, sy, sinf, fl = _window_sums(F, bands, ws, *args, fast_w, trace)
         wi = torch.tensor(ws, device=dev)
         bx[:, wi], by[:, wi], binf[wi] = sx, sy, sinf
         return wi, fl
@@ -741,8 +767,16 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
         timings["rerun"] = time.perf_counter() - t0
         timings["rerun_windows"] = rerun
         timings["rerun_trace"] = rerun_trace
-        t0 = time.perf_counter()
+    return bx, by, binf
 
+
+def finish(curve: SWCurve, tc: TCurve, c: int, bx, by, binf,
+           timings: dict | None = None) -> Point:
+    """The weighted tail (`tail_fn`) over every window's bucket sums, then
+    the window combine by Horner's rule on the host: the MSM's point.
+    `timings`: "tail" and "host_combine"."""
+    F = tc.F
+    t0 = time.perf_counter()
     ox, oy, oinf = tail_fn(tc, c)(bx, by, binf)
     hx = np.atleast_1d(F.unpack_host(ox))
     hy = np.atleast_1d(F.unpack_host(oy))
@@ -753,7 +787,7 @@ def msm_device_scheduled(curve: SWCurve, points, scalars,
 
     K = curve.K
     acc = curve.infinity()
-    for w in range(W - 1, -1, -1):
+    for w in range(hinf.shape[0] - 1, -1, -1):
         for _ in range(c):
             acc = acc.double()
         if not bool(hinf[w]):

@@ -65,3 +65,74 @@ def r1cs_of(cs, n_pub_out: int, n_prv_in: int) -> bytes:
                         [(c, i) for c, i in c_])
                        for a, b, c_ in zip(cs.a_rows, cs.b_rows,
                                            cs.c_rows)])
+
+
+# ---------------------------------------------------------------------------
+# the sharded MSM and NTT on the CPU, in processes of their own
+# ---------------------------------------------------------------------------
+
+def sharded_inputs(n: int, msm_seed: int, n_ntt: int, ntt_seed: int):
+    """The sharded tests' inputs: n BLS12-381 G1 points and 64-bit scalars
+    from random.Random(msm_seed) (points first), and n_ntt Fr values from
+    random.Random(ntt_seed)."""
+    import random
+    from .curves import bls12_381 as b
+    rng = random.Random(msm_seed)
+    pts = [b.G1.rand(rng).normalize() for _ in range(n)]
+    scs = [rng.randrange(0, 1 << 64) for _ in range(n)]
+    rng = random.Random(ntt_seed)
+    return pts, scs, [rng.randrange(b.R) for _ in range(n_ntt)]
+
+
+def sharded_run(spec: dict) -> dict:
+    """One process of the sharded tests, as `spec` says: {"world": D,
+    "rank": r, "store": a FileStore path} joins a gloo group and runs
+    `msm_sharded_v2` and `sharded_ntt` on rank r's shards; {"turns": k}
+    runs k MSM shards and k NTT ranks in turn in this process through
+    `msm_shards_in_turn` and `rank_step`.  Sizes and seeds under "n", "c", "nbits", "msm_seed", "n_ntt", "ntt_seed".
+    Returns {"msm": [x, y] affine ints, "ntt": [ints], "pad": the grid's
+    ranks a bucket (turns only)}."""
+    import torch.distributed as dist
+    from .curves import bls12_381 as b
+    from .parallel import sharded_msm_v2 as sm, sharded_ntt as sn
+    cap_threads()
+    pts, scs, vals = sharded_inputs(spec["n"], spec["msm_seed"],
+                                    spec["n_ntt"], spec["ntt_seed"])
+    c, nbits = spec["c"], spec["nbits"]
+    out = {}
+    if "turns" in spec:
+        k = spec["turns"]
+        m, m_ntt = len(pts) // k, len(vals) // k
+        t = {}
+        res = sm.msm_shards_in_turn(
+            b.G1, [(pts[i * m:(i + 1) * m], scs[i * m:(i + 1) * m])
+                   for i in range(k)], c, nbits, "cpu", timings=t)
+        plan = sn.plan_for(b.Fr, len(vals), k, "cpu")
+        blocks = plan.T.pack([vals[i * m_ntt:(i + 1) * m_ntt]
+                              for i in range(k)])
+        ntt = sn.natural_order(torch.stack(
+            [sn.rank_step(plan, blocks, r) for r in range(k)]))
+        out["ntt"] = [int(v) for v in plan.T.unpack(ntt)]
+        out["pad"] = t["pad"]
+    else:
+        world, rank = spec["world"], spec["rank"]
+        dist.init_process_group("gloo", store=dist.FileStore(
+            spec["store"], world), rank=rank, world_size=world)
+        try:
+            m, m_ntt = len(pts) // world, len(vals) // world
+            res = sm.msm_sharded_v2(b.G1, pts[rank * m:(rank + 1) * m],
+                                    scs[rank * m:(rank + 1) * m], c=c,
+                                    nbits=nbits, device="cpu")
+            out["ntt"] = sn.sharded_ntt(
+                b.Fr, vals[rank * m_ntt:(rank + 1) * m_ntt], device="cpu")
+        finally:
+            dist.destroy_process_group()
+    res = res.normalize()
+    out["msm"] = None if res.is_infinity() else [int(res.X), int(res.Y)]
+    return out
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+    print(json.dumps(sharded_run(json.loads(sys.argv[1]))))

@@ -127,8 +127,10 @@ def test_pairing_checker_lazy_on_the_device_path(spoil, monkeypatch):
                                             device="cpu"),
                 _pairing_checks(tb, spoil))
     assert len(port.pending) == 9 >= port.DEVICE_THRESHOLD
-    assert [tuple(map(convert.point_ints, pq)) for pq in port.pending] \
-        == [tuple(map(convert.point_ints, pq)) for pq in ref.pending]
+    assert [tuple(convert.point_ints(p.normalize()) for p in pq)
+            for pq in port.pending] \
+        == [tuple(convert.point_ints(p.normalize()) for p in pq)
+            for pq in ref.pending]
     assert port.verify() is want is (not spoil)
 
 

@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 63
+    assert n >= 78
     for name in ("curves.bn254", "serialize", "hashing",
                  "schnorr.discrete_log", "schnorr.generalized",
                  "bbs_plus.setup", "bbs_plus.signature", "bbs_plus.proof",
@@ -65,7 +65,12 @@ def test_port_imports_no_jax_and_no_reference():
                  "proof_system.statements_split", "curves.extra_curves",
                  "utils.schnorr_signature", "kvac.bbs_sharp.setup",
                  "kvac.bbs_sharp.mac", "kvac.bbs_sharp.hol",
-                 "kvac.bbs_sharp.proof"):
+                 "kvac.bbs_sharp.proof", "parallel.sharded_msm_v2",
+                 "parallel.sharded_ntt", "ot.configs", "ot.prg",
+                 "ot.base_ot", "ot.base_ot_more", "ot.ot_extension",
+                 "ot.kos_ote", "ot.gilboa", "ot.dkls", "ot.cointoss",
+                 "ot.zero_sharing", "short_group_sig.threshold_weak_bb",
+                 "accumulator.threshold"):
         assert f"crypto_tpu_torch.{name}" in out.stdout
 
 
@@ -543,6 +548,39 @@ def _ietf_proof_verify():
     cs.proof_verify(pk, proof, b"", b"", {0: b"m0"}, 2)
 
 
+def _shard_bucket_sums():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.parallel.sharded_msm_v2 import shard_bucket_sums
+    G = tb.G1.generator()
+    shard_bucket_sums(tb.G1, [G, G.double()], [1, 2])
+
+
+def _msm_sharded_v2():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.parallel.sharded_msm_v2 import msm_sharded_v2
+    G = tb.G1.generator()
+    msm_sharded_v2(tb.G1, [G, G.double()], [1, 2])
+
+
+def _msm_shards_in_turn():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.parallel.sharded_msm_v2 import msm_shards_in_turn
+    G = tb.G1.generator()
+    msm_shards_in_turn(tb.G1, [([G], [1]), ([G.double()], [2])])
+
+
+def _sharded_ntt_plan():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.parallel.sharded_ntt import plan_for
+    plan_for(tb.Fr, 16, 2)
+
+
+def _sharded_ntt():
+    from crypto_tpu_torch.curves import bls12_381 as tb
+    from crypto_tpu_torch.parallel.sharded_ntt import sharded_ntt
+    sharded_ntt(tb.Fr, [1, 2, 3, 4])
+
+
 @pytest.mark.parametrize("entry", [_msm, _tcurve_for, _tcurve, _tfield_for,
                                    _tfield, _jax_to_port, _jax_to_port_fq2,
                                    _tquad_for, _tquad_field, _tcurve_for_g2,
@@ -576,7 +614,10 @@ def _ietf_proof_verify():
                                    _kb_update_non_members, _kb_omega,
                                    _ps_verify, _keyed_proof_public_verify,
                                    _dkgith_new, _dkgith_verify,
-                                   _ietf_verify, _ietf_proof_verify],
+                                   _ietf_verify, _ietf_proof_verify,
+                                   _shard_bucket_sums, _msm_sharded_v2,
+                                   _msm_shards_in_turn, _sharded_ntt_plan,
+                                   _sharded_ntt],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_entry_point_raises_without_cuda(entry):
     """Every entry point defaults to the card and raises without one."""

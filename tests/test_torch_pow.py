@@ -104,6 +104,41 @@ def test_mont_pow_other_exponents(name, e):
         assert torch.equal(got, _port(J.pow_fixed(A, e), p))
 
 
+def _tensor_chain(a, e, mod):
+    """`mont_pow_plain`'s chain as the card runs it: `mont_mul_plain`
+    products."""
+    acc = a.clone()
+    for bit in bin(e)[3:]:
+        acc = mont_mul_plain(acc, acc, mod)
+        if bit == "1":
+            acc = mont_mul_plain(acc, a, mod)
+    return acc
+
+
+@pytest.mark.parametrize("e", [1, 2, 0b1011011, 0x1F2E3D4C5B6A, "p-2"])
+@pytest.mark.parametrize("name", ["Fq", "Fr", "bn254.Fq"])
+def test_mont_pow_ints_is_the_tensor_chain(name, e):
+    """On CPU tensors `mont_pow_plain` runs its chain on the host's
+    integers (`mont_pow_ints`): equal to the `mont_mul_plain` chain the
+    plain version runs on the card, bit for bit, on operands below R that
+    are not canonical too (p, p + 1, 2p, R - p, R - 2, R - 1)."""
+    from crypto_tpu_torch.ops.kernels.field_kernels import (limbs32,
+                                                            mont_pow_ints)
+    _, tf = FIELDS[name]
+    T, p = tfield_for(tf, "cpu"), tf.p
+    R = 1 << (32 * T.L)
+    e = p - 2 if e == "p-2" else e
+    rng = np.random.default_rng(5)
+    vals = [0, 1, p - 1, p, p + 1, 2 * p, R - p, R - 2, R - 1] + [
+        int.from_bytes(rng.bytes(4 * T.L), "little") for _ in range(7)]
+    a = torch.tensor([limbs32(v, T.L) for v in vals], dtype=torch.int64).T
+    a = torch.where(a >= 1 << 31, a - (1 << 32), a).to(torch.int32)
+    a = a.contiguous()
+    got = mont_pow_ints(a, e, T.mod)
+    assert torch.equal(got, _tensor_chain(a, e, T.mod))
+    assert torch.equal(got, mont_pow_plain(a, e, T.mod))
+
+
 def test_mont_pow_wrapper_checks():
     T = tfield_for(tb.Fq, "cpu")
     a = T.pack([1, 2, 3])
